@@ -1,0 +1,49 @@
+"""State carried into the port: the fleet, the energy model and the rank
+weights, from plain numpy arrays / numbers (for example the fields of a
+reference object read with ``np.asarray``).  These are this system's
+"weights": feeding both implementations the same state through here is
+how the port is held against the reference."""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Dict
+
+import numpy as np
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.energy import EnergyModel
+from repro_torch.core.fleet import FIELDS, Fleet, fleet_tensors
+from repro_torch.core.ranking import RankWeights
+
+_ENERGY_FLOATS = ("idle_frac", "chip_power_w", "host_power_w",
+                  "embodied_g_per_node_h", "w_marginal", "dyn_frac")
+_WEIGHTS = ("w1", "w2", "w3", "w4", "marginal")
+
+
+def _fields(src: Any, names) -> Dict[str, Any]:
+    if isinstance(src, Mapping):
+        return {k: src[k] for k in names}
+    return {k: getattr(src, k) for k in names}
+
+
+def fleet_from_numpy(arrays: Dict[str, np.ndarray],
+                     device: DeviceLike = None) -> Fleet:
+    """The nine ``Fleet`` fields (numpy arrays) as a ``Fleet`` on
+    ``device``, cast to the reference's dtypes."""
+    missing = [f for f in FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"fleet arrays lack {missing}")
+    return fleet_tensors(resolve_device(device), **arrays)
+
+
+def energy_from_numpy(src: Any) -> EnergyModel:
+    """An ``EnergyModel`` from a mapping or an object with its fields."""
+    f = _fields(src, _ENERGY_FLOATS + ("chips_per_host",))
+    return EnergyModel(**{k: float(np.asarray(f[k])) for k in _ENERGY_FLOATS},
+                       chips_per_host=int(f["chips_per_host"]))
+
+
+def weights_from(src: Any) -> RankWeights:
+    """``RankWeights`` from a mapping or an object with w1..w4, marginal."""
+    return RankWeights(**{k: float(v) for k, v in
+                          _fields(src, _WEIGHTS).items()})

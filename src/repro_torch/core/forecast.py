@@ -1,0 +1,102 @@
+"""FCFP forecasting: harmonic regression + decaying residual pattern
+(torch twin of ``repro.core.forecast``).
+
+A Fourier basis over daily / weekly / annual periods is fit by least
+squares, plus the last day's residual pattern decaying toward the fit.
+``forecast_regions`` fits every region at once (the regions share the
+design matrix, so they are the right-hand sides of one ``lstsq``) in place
+of the reference's ``vmap``.  ``green_window_signals`` (the look-ahead
+planner's input) is not ported yet: ROADMAP Queue 1 item 7.
+
+``torch.linalg.lstsq`` is not bit-equal to ``jnp.linalg.lstsq``: the CPU
+uses the SVD driver ``gelsd`` (nearest to JAX's SVD solve), the card the
+only driver it has, ``gels`` (QR; the design matrix has full column
+rank).  Forecasts agree with the reference to f32 tolerance.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+PERIODS = (24.0, 168.0, 8760.0)
+HARMONICS = (3, 2, 1)
+
+
+def _active_periods(T: int) -> Tuple[Tuple[float, int], ...]:
+    """Periods with at least one full cycle of support in a T-hour window
+    (a much longer harmonic is near-collinear with the intercept)."""
+    return tuple((p, nh) for p, nh in zip(PERIODS, HARMONICS) if T >= p)
+
+
+def _design(t: torch.Tensor,
+            periods: Tuple[Tuple[float, int], ...]) -> torch.Tensor:
+    """Fourier design matrix (T, F) over the given (period, harmonics)."""
+    cols = [torch.ones_like(t)]
+    for period, nh in periods:
+        for k in range(1, nh + 1):
+            w = 2 * math.pi * k * t / period
+            cols.append(torch.cos(w))
+            cols.append(torch.sin(w))
+    return torch.stack(cols, dim=-1)
+
+
+def _lstsq(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    driver = "gelsd" if X.device.type == "cpu" else "gels"
+    return torch.linalg.lstsq(X, Y, driver=driver).solution
+
+
+def forecast_regions(history: torch.Tensor, horizon: int, t0: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fit on ``history`` (R, T) starting at absolute hour t0; forecast the
+    next ``horizon`` hours.  Returns (forecast (R, horizon), coef (R, 13));
+    ``coef`` is padded to the full-basis width."""
+    R, T = history.shape
+    dev = history.device
+    periods = _active_periods(T)
+    n_full = 1 + 2 * sum(HARMONICS)
+    hist = history.to(torch.float32)
+    t_hist = t0 + torch.arange(T, dtype=torch.float32, device=dev)
+    X = _design(t_hist, periods)                       # (T, F)
+    coef = _lstsq(X, hist.T).T                         # (R, F)
+    resid = hist - coef @ X.T                          # (R, T)
+    # the last day's residual pattern persists, decaying toward the fit;
+    # histories shorter than a day cycle through their L residuals
+    h = torch.arange(horizon, dtype=torch.float32, device=dev)
+    L = min(T, 24)
+    pattern = resid[:, -L:][:, torch.remainder(h.to(torch.int64), L)]
+    decay = 0.82 ** (h / 24.0 + 0.25)
+    t_fut = t0 + T + h
+    fc = coef @ _design(t_fut, periods).T + pattern * decay
+    coef = torch.nn.functional.pad(coef, (0, n_full - coef.shape[1]))
+    return torch.clamp_min(fc, 0.0), coef
+
+
+def fit_forecast(history: torch.Tensor, horizon: int, t0: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One region: (forecast (horizon,), coef (13,))."""
+    fc, coef = forecast_regions(history[None], horizon, t0)
+    return fc[0], coef[0]
+
+
+def persistence_regions(history: torch.Tensor, horizon: int) -> torch.Tensor:
+    """Persistence-of-day: cycle the last ``min(T, 24)`` observed hours of
+    each region (R, T) across the horizon."""
+    L = min(history.shape[-1], 24)
+    reps = (horizon + L - 1) // L
+    return history[..., -L:].repeat(*([1] * (history.dim() - 1)),
+                                    reps)[..., :horizon]
+
+
+def persistence_forecast(history: torch.Tensor, horizon: int) -> torch.Tensor:
+    return persistence_regions(history, horizon)
+
+
+def forecast_skill(history: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
+    """MAE ratio vs 24h-persistence baseline (<1 means we beat persistence)."""
+    fc, _ = fit_forecast(history, test.shape[0])
+    mae = torch.mean(torch.abs(fc - test))
+    persist = persistence_forecast(history, test.shape[0])
+    mae_p = torch.mean(torch.abs(persist - test))
+    return mae / torch.clamp_min(mae_p, 1e-9)

@@ -1,0 +1,399 @@
+"""Fused top-k shortlist placement: O(N + J·K) instead of O(J·N).
+
+Torch twin of ``repro.core.placement`` (the sequential engines; the
+batched ensemble engine is ROADMAP Queue 1 item 9).  The design and the
+exactness argument are the reference's:
+
+1. **Frozen normalizers.**  The Eq. 1 min-max lo/hi are computed once per
+   placement call, so a node's score depends only on its own free
+   capacity and landing a job changes exactly one score.
+2. **Shortlist + exactness bound.**  One O(N) sweep yields the K-node
+   shortlist plus the (K+1)-th best (score, index) pair, the bound.  While
+   the shortlist's best feasible entry beats the bound it is the global
+   argmin.
+3. **Fallback sweeps** when the bound is violated or the epoch is dirty (a
+   release landed outside the shortlist).
+
+``place_lifecycle_full_rerank`` is the O(J·N) oracle.  Placements are
+bit-identical: every tie breaks toward the lower node index (stable sort,
+``torch.argmin``'s first occurrence, the in-shortlist lexicographic pick),
+and the per-evaluation score math is division-free elementwise mul/add in
+the reference's op order.  Torch eager rounds after every op, so the
+reference's ``optimization_barrier`` pins are identities here and the O(1)
+rescore of one node (``_one_score``, the same function on a length-1
+slice) is bitwise the O(N) sweep's value.
+
+The event loop is a host Python loop.  The shortlist state (K scores and
+node ids, the bound, ``cap_max``, the dirty flag) and a mirror of the free
+capacity live on the host; the device holds the capacity the sweeps read
+and the frozen context.  Each arrival placed from the shortlist rescores
+its node on the device and reads the one score back (one sync per event);
+each sweep reads back its masked argmin and the K+1 candidates.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.energy import DEFAULT_ENERGY, EnergyModel
+from repro_torch.core.fleet import IDLE_POWER_FRAC, Fleet
+from repro_torch.core.ranking import RankWeights
+
+
+def rounding_pin(x):
+    """The reference's f32 rounding pin (``optimization_barrier``): an
+    identity in eager torch, which rounds after every op."""
+    return x
+
+
+@dataclasses.dataclass
+class PlacementResult:
+    node: torch.Tensor      # (J,) int32 chosen node per event; -1 = none
+    scores: torch.Tensor    # (N,) scores at FINAL occupancy (frozen lo/hi)
+    capacity: torch.Tensor  # (N,) int32 free chips after all events
+    n_sweeps: int           # full O(N) decision sweeps performed
+
+
+def _lo_rcp(t: torch.Tensor):
+    """(lo, 1/span, hi); a degenerate span (<= 1e-12) gives rcp 0 so an
+    information-free term contributes exactly 0."""
+    lo, hi = t.min(), t.max()
+    span = hi - lo
+    rcp = torch.where(span > 1e-12,
+                      torch.reciprocal(torch.clamp_min(span, 1e-12)), 0.0)
+    return lo, rcp, hi
+
+
+def frozen_ctx(fleet: Fleet, weights: RankWeights = RankWeights(),
+               horizon_h: float = 1.0,
+               energy: Optional[EnergyModel] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One-time per-placement context: the cap-independent Eq. 1 pieces,
+    op for op ``repro.core.placement.frozen_ctx``.  All divisions happen
+    here; ``lohi`` is the (4, 2) (or (5, 2)) matrix the rank kernel
+    consumes for the same normalization."""
+    pk = fleet.power_kw * horizon_h
+    a_now = pk * fleet.pue * fleet.ci_now
+    a_fc = pk * fleet.pue * fleet.ci_forecast
+    inv_total = torch.reciprocal(
+        torch.clamp_min(fleet.chips_total.to(torch.float32), 1.0))
+    eff = fleet.flops_per_j
+    sched = fleet.sched_term
+
+    def mm(x):
+        lo, rcp, _ = _lo_rcp(x)
+        return (x - lo) * rcp
+
+    static = (weights.w3 * (1.0 - mm(eff)) + weights.w4 * mm(sched))
+
+    em = energy
+    if em is None and weights.marginal:
+        em = DEFAULT_ENERGY.device(w_marginal=weights.marginal,
+                                   device=fleet.device)
+    idle_f = IDLE_POWER_FRAC if em is None else em.idle_frac
+    dyn_f = (1.0 - IDLE_POWER_FRAC) if em is None else em.dyn_frac
+
+    cap0 = fleet.capacity.to(torch.float32)
+    factor0 = idle_f + dyn_f * (1.0 - cap0 * inv_total)
+    cfp0, fcfp0 = a_now * factor0, a_fc * factor0
+    lo_now, rcp_now, hi_now = _lo_rcp(cfp0)
+    lo_fc, rcp_fc, hi_fc = _lo_rcp(fcfp0)
+    lohi = torch.stack([
+        torch.stack([lo_now, hi_now]), torch.stack([lo_fc, hi_fc]),
+        torch.stack([eff.min(), eff.max()]),
+        torch.stack([sched.min(), sched.max()])])
+    ctx = dict(a_now=a_now, a_fc=a_fc, inv_total=inv_total, static=static,
+               idle_f=idle_f, dyn_f=dyn_f,
+               lo_now=lo_now, rcp_now=rcp_now, lo_fc=lo_fc, rcp_fc=rcp_fc,
+               lohi=lohi)
+    if em is not None:
+        # marginal-CFP context: per-chip dynamic carbon for on nodes, the
+        # two-part wake price for powered-off ones; normalizer frozen at
+        # entry.  With w_m == 0 the term adds exactly +0.0.
+        ct_f = fleet.chips_total.to(torch.float32)
+        emb_h = em.embodied_g_per_node_h * horizon_h
+        m_dyn = a_now * inv_total * dyn_f
+        m_wake = a_now * idle_f + emb_h
+        mcfp0 = m_dyn + torch.where(cap0 == ct_f, m_wake, 0.0)
+        lo_m, rcp_m, hi_m = _lo_rcp(mcfp0)
+        ctx.update(m_dyn=m_dyn, m_wake=m_wake, ct_f=ct_f,
+                   emb_h=torch.as_tensor(emb_h, dtype=torch.float32,
+                                         device=fleet.device),
+                   lo_m=lo_m, rcp_m=rcp_m,
+                   lohi=torch.cat([lohi, torch.stack([lo_m, hi_m])[None]]),
+                   w_m=torch.as_tensor(em.w_marginal, dtype=torch.float32,
+                                       device=fleet.device))
+    return ctx
+
+
+_GATHERED = ("a_now", "a_fc", "inv_total", "static",
+             "m_dyn", "m_wake", "ct_f")
+
+
+def _ctx_scores(cap, ctx, w: RankWeights) -> torch.Tensor:
+    """Eq. 1 with frozen normalizers, elementwise over ``cap`` (a tensor,
+    or one node's free chips as a python int — exact in f32)."""
+    capf = cap.to(torch.float32) if isinstance(cap, torch.Tensor) \
+        else float(cap)
+    occ = 1.0 - capf * ctx["inv_total"]
+    dyn = ctx["dyn_f"] * occ
+    factor = ctx["idle_f"] + dyn
+    cfp = ctx["a_now"] * factor
+    fcfp = ctx["a_fc"] * factor
+    t1 = w.w1 * ((cfp - ctx["lo_now"]) * ctx["rcp_now"])
+    t2 = w.w2 * ((fcfp - ctx["lo_fc"]) * ctx["rcp_fc"])
+    score = (t1 + t2) + ctx["static"]
+    if "m_dyn" in ctx:
+        # select-then-add: score >= +0.0, so adding the w_m == 0 term is
+        # bitwise the 4-term score
+        mcfp = ctx["m_dyn"] + torch.where(capf == ctx["ct_f"],
+                                          ctx["m_wake"], 0.0)
+        score = score + ctx["w_m"] * ((mcfp - ctx["lo_m"]) * ctx["rcp_m"])
+    return score
+
+
+def _one_score(cap_b: int, b: int, ctx, w: RankWeights) -> float:
+    """Rescore node ``b`` at free chips ``cap_b`` in O(1): the sweep's
+    function on a length-1 slice, so bitwise ``_ctx_scores(cap)[b]``.
+    Returns the f32 value as a python float (one sync)."""
+    g = {k: (v[b:b + 1] if k in _GATHERED else v) for k, v in ctx.items()}
+    return _ctx_scores(int(cap_b), g, w)[0].item()
+
+
+def _host_ints(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x).astype(np.int64)
+
+
+def _masked_argmin(masked: torch.Tensor) -> Tuple[int, bool]:
+    """(first index of the minimum, whether it is finite) with one sync."""
+    best = torch.argmin(masked)
+    pair = torch.stack([best.to(torch.float64),
+                        masked[best].to(torch.float64)]).tolist()
+    return int(pair[0]), math.isfinite(pair[1])
+
+
+def _result(fleet, out, cap, ctx, weights, sweeps) -> PlacementResult:
+    return PlacementResult(
+        node=torch.as_tensor(out, dtype=torch.int32, device=fleet.device),
+        scores=_ctx_scores(cap, ctx, weights), capacity=cap,
+        n_sweeps=sweeps)
+
+
+def place_jobs_full_rerank(fleet: Fleet, demands,
+                           weights: RankWeights = RankWeights(),
+                           horizon_h: float = 1.0,
+                           energy: Optional[EnergyModel] = None
+                           ) -> PlacementResult:
+    """O(J·N) oracle: full fleet rescore + masked argmin per job."""
+    dem = _host_ints(demands)
+    return place_lifecycle_full_rerank(
+        fleet, dem, np.full(dem.shape[0], -1), weights, horizon_h,
+        energy=energy)
+
+
+def place_lifecycle_full_rerank(fleet: Fleet, demands, nodes,
+                                weights: RankWeights = RankWeights(),
+                                horizon_h: float = 1.0, *,
+                                capacity: Optional[torch.Tensor] = None,
+                                n_events: Optional[int] = None,
+                                energy: Optional[EnergyModel] = None
+                                ) -> PlacementResult:
+    """Lifecycle oracle over an event stream, O(arrivals · N).
+
+    ``demands[e] > 0``: arrival — full rescore, masked argmin, land the job.
+    ``demands[e] < 0``: release of ``-demands[e]`` chips on ``nodes[e]``.
+    ``demands[e] == 0``: no-op (padding).  ``capacity`` starts the loop at
+    a post-release snapshot while the normalizers stay frozen at
+    ``fleet.capacity``; ``n_events`` truncates the loop."""
+    dem, tgt = _host_ints(demands), _host_ints(nodes)
+    ctx = frozen_ctx(fleet, weights, horizon_h, energy=energy)
+    cap = (fleet.capacity if capacity is None else capacity).to(
+        torch.int32).clone()
+    healthy = fleet.healthy
+    out = np.full(dem.shape[0], -1, np.int64)
+    sweeps = 0
+    for e in range(dem.shape[0] if n_events is None else int(n_events)):
+        d = int(dem[e])
+        if d > 0:
+            scores = _ctx_scores(cap, ctx, weights)
+            chosen, ok = _masked_argmin(
+                torch.where((cap >= d) & healthy, scores, torch.inf))
+            sweeps += 1
+        elif d < 0:
+            chosen, ok = int(tgt[e]), True
+        else:
+            continue
+        if ok:
+            cap[chosen] -= d
+            out[e] = chosen
+    return _result(fleet, out, cap, ctx, weights, sweeps)
+
+
+def place_jobs_shortlist(fleet: Fleet, demands,
+                         weights: RankWeights = RankWeights(),
+                         horizon_h: float = 1.0, *,
+                         shortlist: int = 32,
+                         use_kernel: bool = False,
+                         energy: Optional[EnergyModel] = None
+                         ) -> PlacementResult:
+    """Arrivals-only wrapper over the lifecycle engine."""
+    dem = _host_ints(demands)
+    return place_lifecycle_shortlist(
+        fleet, dem, np.full(dem.shape[0], -1), weights, horizon_h,
+        shortlist=shortlist, use_kernel=use_kernel, energy=energy)
+
+
+def _sweep_fn(fleet: Fleet, ctx, weights: RankWeights, horizon_h: float,
+              energy: Optional[EnergyModel], use_kernel: bool, k_cand: int):
+    """One epoch sweep: cap -> (scores (N,), top (K+1) scores, their node
+    ids) in (score, node index) order."""
+    if not use_kernel:
+        from repro_torch.kernels.ops import lex_head
+
+        def sweep(cap):
+            scores = _ctx_scores(cap, ctx, weights)
+            top_s, idx = lex_head(scores, k_cand)
+            return scores, top_s, idx.to(torch.int32)
+        return sweep
+
+    from repro_torch.kernels.ops import maiz_ranking_topk
+
+    # custom idle/dynamic watts reach the kernel through the ``ec`` stream;
+    # the marginal-CFP term (when frozen_ctx materialized it) through the
+    # pk/cap/ct node streams + the (4,) en scalar block
+    em_k = energy
+    if em_k is None and weights.marginal:
+        em_k = DEFAULT_ENERGY.device(w_marginal=weights.marginal,
+                                     device=fleet.device)
+    mkw = {}
+    if em_k is not None:
+        mkw = dict(pk=fleet.power_kw * horizon_h, chips_total=ctx["ct_f"],
+                   en=torch.stack([torch.as_tensor(ctx[k], dtype=torch.float32,
+                                                   device=fleet.device)
+                                   for k in ("idle_f", "dyn_f", "emb_h",
+                                             "w_m")]))
+    sched = fleet.sched_term
+    w_arr = weights.as_array(fleet.device)
+
+    def sweep(cap):
+        ec = fleet.effective_power_kw(cap, energy=em_k) * horizon_h
+        kw = dict(mkw, cap=cap.to(torch.float32)) if mkw else {}
+        return maiz_ranking_topk(
+            ec, fleet.pue, fleet.ci_now, fleet.ci_forecast,
+            fleet.flops_per_j, sched, w_arr, k=k_cand, lohi=ctx["lohi"],
+            **kw)
+    return sweep
+
+
+def place_lifecycle_shortlist(fleet: Fleet, demands, nodes,
+                              weights: RankWeights = RankWeights(),
+                              horizon_h: float = 1.0, *,
+                              shortlist: int = 32,
+                              use_kernel: bool = False,
+                              capacity: Optional[torch.Tensor] = None,
+                              n_events: Optional[int] = None,
+                              eager_sweep: bool = False,
+                              energy: Optional[EnergyModel] = None
+                              ) -> PlacementResult:
+    """Shortlist-greedy lifecycle placement, bit-identical to the oracle.
+
+    Event semantics match ``place_lifecycle_full_rerank``.  ``shortlist``
+    is K; ``use_kernel`` routes the epoch sweeps through the rank kernel
+    (``repro_torch.kernels.ops.maiz_ranking_topk``: the CUDA kernel on the
+    card, its plain twin on the CPU).  The engine starts dirty: leading
+    releases are O(1) capacity edits and the first arrival sweeps.
+    Releases on shortlist nodes are rescored in O(1); releases outside the
+    shortlist make the epoch dirty.  ``eager_sweep`` computes the epoch's
+    first sweep up front (valid for release-free streams only; placements
+    and sweep counts are unchanged)."""
+    dem, tgt = _host_ints(demands), _host_ints(nodes)
+    N, E = fleet.n, dem.shape[0]
+    K = min(max(shortlist, 1), N)
+    full_cover = K >= N          # shortlist == whole fleet: bound unused
+    ctx = frozen_ctx(fleet, weights, horizon_h, energy=energy)
+    cap = (fleet.capacity if capacity is None else capacity).to(
+        torch.int32).clone()
+    cap_h = cap.cpu().numpy().astype(np.int64)      # host mirror of cap
+    healthy = fleet.healthy
+    healthy_h = healthy.cpu().numpy()
+    inf32 = np.float32(np.inf)
+    sweep_topk = _sweep_fn(fleet, ctx, weights, horizon_h, energy,
+                           use_kernel, min(K + 1, N))
+    eager = sweep_topk(cap) if eager_sweep else None
+
+    out = np.full(E, -1, np.int64)
+    sl_s = np.full(K, inf32, np.float32)
+    sl_i = np.full(K, N, np.int64)
+    bound_s, bound_i = inf32, N
+    cap_max = int(np.max(np.where(healthy_h, cap_h, 0)))
+    sweeps, dirty = 0, True
+
+    for e in range(E if n_events is None else int(n_events)):
+        d = int(dem[e])
+        if d == 0:
+            continue
+        if d < 0:
+            # release: credit -d chips to node b, O(1), never sweeps
+            b = int(tgt[e])
+            new_cap = int(cap_h[b]) - d
+            hitmask = sl_i == b
+            hit = (not dirty) and bool(hitmask.any())
+            if hit:
+                sl_s = np.where(hitmask,
+                                np.float32(_one_score(new_cap, b, ctx,
+                                                      weights)), sl_s)
+            cap_max = max(cap_max, new_cap if healthy_h[b] else 0)
+            dirty = dirty or not hit
+            chosen, ok = b, True
+        else:
+            use_sl = feasible = False
+            if not dirty:
+                # best feasible (capacity + health) shortlist entry by
+                # (score, node index)
+                sm = np.where((cap_h[sl_i] >= d) & healthy_h[sl_i], sl_s,
+                              inf32)
+                m = sm.min()
+                kbest = int(np.argmin(np.where(sm == m, sl_i, N)))
+                bnode = int(sl_i[kbest])
+                feasible = bool(np.isfinite(m))
+                beats = (m < bound_s) or (m == bound_s and bnode < bound_i)
+                use_sl = feasible and beats
+            dead = d > cap_max or ((not dirty) and (not feasible)
+                                   and not np.isfinite(bound_s))
+            if use_sl:
+                sl_s[kbest] = _one_score(int(cap_h[bnode]) - d, bnode, ctx,
+                                         weights)
+                chosen, ok = bnode, True
+            elif dead:
+                ok = False
+            else:
+                # fresh O(N) sweep: exact placement from the full masked
+                # argmin, and a new clean epoch
+                swept = eager if (eager is not None and sweeps == 0) \
+                    else sweep_topk(cap)
+                scores, cand_s, cand_i = swept
+                chosen, ok = _masked_argmin(
+                    torch.where((cap >= d) & healthy, scores, torch.inf))
+                cand_s = cand_s.cpu().numpy().astype(np.float32)
+                cand_i = cand_i.cpu().numpy().astype(np.int64)
+                sl_s, sl_i = cand_s[:K].copy(), cand_i[:K].copy()
+                bound_s, bound_i = (inf32, N) if full_cover \
+                    else (cand_s[K], int(cand_i[K]))
+                if ok:
+                    sl_s = np.where(sl_i == chosen, np.float32(_one_score(
+                        int(cap_h[chosen]) - d, chosen, ctx, weights)),
+                        sl_s)
+                cap_max = int(np.max(np.where(healthy_h, cap_h, 0)))
+                sweeps += 1
+                dirty = False
+        if ok:
+            cap_h[chosen] -= d
+            cap[chosen] -= d
+            out[e] = chosen
+    return _result(fleet, out, cap, ctx, weights, sweeps)

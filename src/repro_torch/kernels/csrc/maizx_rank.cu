@@ -1,0 +1,255 @@
+// Fleet-scale MAIZ ranking (Eq. 2 + Eq. 1 + tile top-k) for Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of src/repro/kernels/maizx_rank.py:
+//   K1 maiz_lohi  <- _lohi_kernel  (sweep 1: per-tile min/max of the Eq. 1
+//                                   terms, folded to the (R, 2) normalizers
+//                                   by the wrapper)
+//   K2 maiz_topk  <- _topk_kernel  (sweep 2: normalized weighted score per
+//                                   node + tile-local top-k by k rounds of
+//                                   lexicographic (score, index) argmin)
+//
+// Layout: one block per 1024-node tile (the TPU kernel's (8, 128) block),
+// TPB = 256 threads, each owning NPT = 4 nodes at stride TPB so every load
+// is coalesced.  Nothing carries over between blocks, so the grid order is
+// free (the TPU grid's sequential order was never relied on).
+//
+// Bound on an H100: both sweeps stream each node input once.  K1 reads 24
+// B/node (36 with the marginal streams pk/cap/ct) and writes only nt x R x 2
+// floats; K2 reads the same and writes 4 B/node of scores plus nt x k
+// candidates.  At N = 1,048,576 that is 25-38 MB, ~7.5-12.5 us at 3.35 TB/s:
+// device-memory bytes bound the streaming part.  K2's k-round extraction is
+// a chain of k block-wide reductions (2 barriers each) and is latency bound;
+// this simple kernel does nothing about that yet.
+//
+// Exactness: built with -fmad=false and IEEE division, every value is
+// rounded after each operation in the order the reference writes them, so
+// the kernel computes bit for bit what the plain torch twin
+// (repro_torch/kernels/maizx_rank.py) computes.  Min/max do not depend on
+// order.  Ties break toward the lower node index, as jnp.argmin does.
+//
+// C interface (loaded with ctypes): pointers and the stream as void*, each
+// launcher returns cudaGetLastError() as an int.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE = 1024;
+constexpr int TPB = 256;
+constexpr int NPT = TILE / TPB;
+constexpr int WARPS = TPB / 32;
+constexpr int MAX_R = 5;
+constexpr float BIG = 3e38f;  // finite sentinel of masked min/max (_BIG)
+
+struct Streams {
+  const float* ec;
+  const float* pue;
+  const float* ci;
+  const float* fc;
+  const float* eff;
+  const float* sw;
+  const float* pk;   // marginal streams: null unless r == 5
+  const float* cap;
+  const float* ct;
+};
+
+// The Eq. 1 terms of node i in the reference's op order (_tile_terms,
+// _tile_mcfp).  en = [idle_frac, dyn_frac, embodied*horizon, w_marginal].
+__device__ __forceinline__ void node_terms(const Streams& s, int64_t i, int r,
+                                           const float* en, float* t) {
+  const float pue = s.pue[i];
+  const float ci = s.ci[i];
+  const float base = s.ec[i] * pue;
+  t[0] = base * ci;
+  t[1] = base * s.fc[i];
+  t[2] = s.eff[i];
+  t[3] = s.sw[i];
+  if (r == 5) {
+    float an = s.pk[i] * pue;
+    an = an * ci;
+    const float ct = s.ct[i];
+    const float inv = 1.0f / fmaxf(ct, 1.0f);
+    const float m_dyn = (an * inv) * en[1];
+    const float m_wake = an * en[0] + en[2];
+    t[4] = m_dyn + (s.cap[i] == ct ? m_wake : 0.0f);
+  }
+}
+
+__global__ void lohi_kernel(Streams s, int r, const float* __restrict__ en,
+                            int64_t n_valid, float* __restrict__ lo,
+                            float* __restrict__ hi) {
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  float tlo[MAX_R], thi[MAX_R];
+#pragma unroll
+  for (int q = 0; q < MAX_R; ++q) {
+    tlo[q] = BIG;
+    thi[q] = -BIG;
+  }
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    const int64_t i = (int64_t)tile * TILE + j * TPB + tid;
+    if (i < n_valid) {
+      float t[MAX_R];
+      node_terms(s, i, r, en, t);
+#pragma unroll
+      for (int q = 0; q < MAX_R; ++q) {
+        if (q < r) {
+          tlo[q] = fminf(tlo[q], t[q]);
+          thi[q] = fmaxf(thi[q], t[q]);
+        }
+      }
+    }
+  }
+  __shared__ float slo[MAX_R][WARPS], shi[MAX_R][WARPS];
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int q = 0; q < MAX_R; ++q) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      tlo[q] = fminf(tlo[q], __shfl_xor_sync(0xffffffffu, tlo[q], off));
+      thi[q] = fmaxf(thi[q], __shfl_xor_sync(0xffffffffu, thi[q], off));
+    }
+    if (lane == 0) {
+      slo[q][warp] = tlo[q];
+      shi[q][warp] = thi[q];
+    }
+  }
+  __syncthreads();
+  if (tid < r) {
+    float a = BIG, b = -BIG;
+    for (int w = 0; w < WARPS; ++w) {
+      a = fminf(a, slo[tid][w]);
+      b = fmaxf(b, shi[tid][w]);
+    }
+    lo[(int64_t)tile * r + tid] = a;
+    hi[(int64_t)tile * r + tid] = b;
+  }
+}
+
+// (score, tile-local index) lexicographic min: the reference's
+// m = min(cur); pos = min(fid where cur == m).
+__device__ __forceinline__ void lex_min(float& s, int& p, float s2, int p2) {
+  if (s2 < s || (s2 == s && p2 < p)) {
+    s = s2;
+    p = p2;
+  }
+}
+
+__global__ void topk_kernel(Streams s, int r, const float* __restrict__ en,
+                            const float* __restrict__ lohi,
+                            const float* __restrict__ w, int64_t n_valid,
+                            int k, float* __restrict__ scores,
+                            float* __restrict__ tmin,
+                            int* __restrict__ targ) {
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  // per-term (lo, reciprocal span) exactly as _tile_score's norm()
+  float lo[MAX_R], rcp[MAX_R];
+#pragma unroll
+  for (int q = 0; q < MAX_R; ++q) {
+    lo[q] = 0.0f;
+    rcp[q] = 0.0f;
+    if (q < r) {
+      lo[q] = lohi[2 * q];
+      const float span = lohi[2 * q + 1] - lo[q];
+      rcp[q] = span > 1e-12f ? 1.0f / fmaxf(span, 1e-12f) : 0.0f;
+    }
+  }
+  float cur[NPT];
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    const int64_t i = (int64_t)tile * TILE + j * TPB + tid;
+    float sc = CUDART_INF_F;
+    if (i < n_valid) {
+      float t[MAX_R];
+      node_terms(s, i, r, en, t);
+      sc = w[0] * ((t[0] - lo[0]) * rcp[0]) + w[1] * ((t[1] - lo[1]) * rcp[1]);
+      sc = sc + w[2] * (1.0f - (t[2] - lo[2]) * rcp[2]);
+      sc = sc + w[3] * ((t[3] - lo[3]) * rcp[3]);
+      if (r == 5) sc = sc + en[3] * ((t[4] - lo[4]) * rcp[4]);
+    }
+    scores[(int64_t)tile * TILE + j * TPB + tid] = sc;
+    cur[j] = sc;
+  }
+  __shared__ float ws[WARPS];
+  __shared__ int wp[WARPS];
+  __shared__ int best_p;
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int kk = 0; kk < k; ++kk) {
+    float m = cur[0];
+    int p = tid;
+#pragma unroll
+    for (int j = 1; j < NPT; ++j) lex_min(m, p, cur[j], j * TPB + tid);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+      const int p2 = __shfl_xor_sync(0xffffffffu, p, off);
+      lex_min(m, p, m2, p2);
+    }
+    if (lane == 0) {
+      ws[warp] = m;
+      wp[warp] = p;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float bm = ws[0];
+      int bp = wp[0];
+      for (int q = 1; q < WARPS; ++q) lex_min(bm, bp, ws[q], wp[q]);
+      best_p = bp;
+      tmin[(int64_t)tile * k + kk] = bm;
+      targ[(int64_t)tile * k + kk] = bp + tile * TILE;
+    }
+    __syncthreads();
+    const int pos = best_p;
+    // the winner leaves the candidate set (set to +inf, as the reference's
+    // where(fids == pos, inf, cur)); a tile with fewer than k finite scores
+    // then keeps re-selecting the lowest id holding +inf, exactly as
+    // _tile_topk does
+#pragma unroll
+    for (int j = 0; j < NPT; ++j)
+      if (j * TPB + tid == pos) cur[j] = CUDART_INF_F;
+  }
+}
+
+Streams make_streams(const void* ec, const void* pue, const void* ci,
+                     const void* fc, const void* eff, const void* sw,
+                     const void* pk, const void* cap, const void* ct) {
+  return Streams{(const float*)ec, (const float*)pue, (const float*)ci,
+                 (const float*)fc, (const float*)eff, (const float*)sw,
+                 (const float*)pk, (const float*)cap, (const float*)ct};
+}
+
+}  // namespace
+
+extern "C" int maiz_lohi_launch(const void* ec, const void* pue,
+                                const void* ci, const void* fc,
+                                const void* eff, const void* sw,
+                                const void* pk, const void* cap,
+                                const void* ct, const void* en, int r,
+                                long long n, long long n_valid, void* lo,
+                                void* hi, void* stream) {
+  const int nt = (int)(n / TILE);
+  lohi_kernel<<<nt, TPB, 0, (cudaStream_t)stream>>>(
+      make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct), r,
+      (const float*)en, (int64_t)n_valid, (float*)lo, (float*)hi);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int maiz_topk_launch(const void* ec, const void* pue,
+                                const void* ci, const void* fc,
+                                const void* eff, const void* sw,
+                                const void* pk, const void* cap,
+                                const void* ct, const void* en, int r,
+                                const void* lohi, const void* w, int k,
+                                long long n, long long n_valid, void* scores,
+                                void* tmin, void* targ, void* stream) {
+  const int nt = (int)(n / TILE);
+  topk_kernel<<<nt, TPB, 0, (cudaStream_t)stream>>>(
+      make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct), r,
+      (const float*)en, (const float*)lohi, (const float*)w,
+      (int64_t)n_valid, k, (float*)scores, (float*)tmin, (int*)targ);
+  return (int)cudaGetLastError();
+}

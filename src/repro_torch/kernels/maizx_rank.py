@@ -1,0 +1,316 @@
+"""Fleet-scale MAIZ_RANKING kernels for Hopper (Eq. 2 + Eq. 1 + tile top-k).
+
+Twin of ``repro.kernels.maizx_rank``.  Two memory-bound sweeps over the
+node axis, each reading every input stream once:
+
+K1 ``maiz_lohi`` (replaces ``_lohi_kernel``) — per 1024-node tile, compute
+    the Eq. 1 terms and reduce their tile-local (lo, hi); the wrapper folds
+    the per-tile partials into the global (R, 2) min-max normalizers.
+
+K2 ``maiz_topk`` (replaces ``_topk_kernel``) — per node the normalized
+    weighted score; per tile the local top-k by k rounds of lexicographic
+    (score, index) min extraction, lowest index first on ties.
+
+R = 5 when the marginal-CFP streams (``pk``/``cap``/``ct`` plus the (4,)
+``en = [idle_frac, dyn_frac, embodied·horizon, w_marginal]``) are given,
+else 4.  The kernels are CUDA C++ for ``sm_90a`` in ``csrc/maizx_rank.cu``
+(bounds and design are noted there), compiled with ``nvcc`` at first use
+into ``build/repro_torch_kernels/`` and bound with ``ctypes``.
+
+Each wrapper dispatches on the device of its inputs: CPU tensors go to the
+plain torch twin (``maiz_lohi_plain``/``maiz_topk_plain``), CUDA tensors to
+the kernel, which is built or the call raises.  ``launches`` on each wrapper
+counts kernel launches (plain-twin calls do not count).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+TILE = 1024        # nodes per tile: the TPU kernel's (8, 128) block
+# the per-tile top-k is k rounds of a block-wide min extraction, so
+# tile-local k is capped; larger shortlists are merged from the full score
+# vector (see ops.maiz_ranking_topk)
+MAX_TILE_K = 64
+_BIG = 3e38        # finite sentinel for masked min/max (below f32 max)
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "maizx_rank.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _check_tile_k(k: int) -> None:
+    if not 1 <= k <= MAX_TILE_K:
+        raise ValueError(
+            f"tile-local top-k k={k} is outside [1, MAX_TILE_K={MAX_TILE_K}]"
+            " — the in-kernel min extraction runs k rounds, so the"
+            " per-tile candidate list is capped.  Either shrink the"
+            f" shortlist (placement needs k = shortlist + 1 <= {MAX_TILE_K})"
+            " or call repro_torch.kernels.ops.maiz_ranking_topk, which"
+            " merges oversized shortlists from the full score vector.")
+
+
+# ---------------------------------------------------------------------------
+# plain torch twins (the CPU path, and what the kernels are held against)
+# ---------------------------------------------------------------------------
+
+
+def _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en):
+    """The Eq. 1 terms in the kernel's op order (``_tile_terms`` and
+    ``_tile_mcfp`` of the reference)."""
+    base = ec * pue
+    terms = [base * ci, base * fc, eff, sw]
+    if en is not None:
+        an = pk * pue
+        an = an * ci
+        inv = torch.reciprocal(torch.clamp_min(ct, 1.0))
+        m_dyn = an * inv * en[1]
+        m_wake = an * en[0] + en[2]
+        terms.append(m_dyn + torch.where(cap == ct, m_wake, 0.0))
+    return terms
+
+
+def _valid(n: int, n_valid: int, device) -> torch.Tensor:
+    return torch.arange(n, device=device) < n_valid
+
+
+def maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
+                    cap=None, ct=None, en=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's plain twin: per-tile (lo, hi), each (nt, R) f32."""
+    n = ec.shape[0]
+    nt = n // TILE
+    valid = _valid(n, n_valid, ec.device)
+    terms = _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en)
+    lo = torch.stack([torch.where(valid, t, _BIG).reshape(nt, TILE).amin(1)
+                      for t in terms], dim=1)
+    hi = torch.stack([torch.where(valid, t, -_BIG).reshape(nt, TILE).amax(1)
+                      for t in terms], dim=1)
+    return lo, hi
+
+
+def _scores_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi, w, pk, cap, ct,
+                  en):
+    terms = _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en)
+
+    def norm(x, i):
+        lo, hi = lohi[i, 0], lohi[i, 1]
+        span = hi - lo
+        rcp = torch.where(span > 1e-12,
+                          torch.reciprocal(torch.clamp_min(span, 1e-12)), 0.0)
+        return (x - lo) * rcp
+
+    score = (w[0] * norm(terms[0], 0) + w[1] * norm(terms[1], 1)
+             + w[2] * (1.0 - norm(terms[2], 2)) + w[3] * norm(terms[3], 3))
+    if en is not None:
+        # select-then-add: with w_m == 0 this adds ±0.0, a bitwise no-op
+        score = score + en[3] * norm(terms[4], 4)
+    return torch.where(_valid(ec.shape[0], n_valid, ec.device), score,
+                       torch.inf)
+
+
+def _tile_topk_plain(scores: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k rounds of min extraction per tile, literally ``_tile_topk``: the
+    winner is set to +inf, so a tile with fewer than k finite scores keeps
+    re-selecting the lowest id that holds +inf."""
+    nt = scores.shape[0] // TILE
+    cur = scores.reshape(nt, TILE).clone()
+    fids = torch.arange(TILE, device=scores.device, dtype=torch.int32)
+    base = torch.arange(nt, device=scores.device, dtype=torch.int32) * TILE
+    tmin, targ = [], []
+    for _ in range(k):
+        m = cur.amin(1, keepdim=True)
+        pos = torch.where(cur == m, fids, TILE).amin(1, keepdim=True)
+        tmin.append(m[:, 0])
+        targ.append(pos[:, 0] + base)
+        cur = torch.where(fids == pos, torch.inf, cur)
+    return torch.stack(tmin, 1), torch.stack(targ, 1)
+
+
+def maiz_topk_plain(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights,
+                    *, k: int, pk=None, cap=None, ct=None, en=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's plain twin: (scores (N,), tmin (nt, k) f32, targ (nt, k) i32)."""
+    scores = _scores_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi, weights,
+                           pk, cap, ct, en)
+    tmin, targ = _tile_topk_plain(scores, k)
+    return scores, tmin, targ
+
+
+# ---------------------------------------------------------------------------
+# build + bind the CUDA kernels (first use only; never at import)
+# ---------------------------------------------------------------------------
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    path = str(cand) if cand.exists() else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the rank "
+                           "kernels are built from csrc/ at first use")
+    return path
+
+
+def build(verbose: bool = False) -> Tuple[Path, float]:
+    """Compile ``csrc/maizx_rank.cu`` into a content-named shared library
+    under ``build/repro_torch_kernels/`` (reused when it exists).  Returns
+    (library path, seconds spent compiling; 0.0 when reused).  ``verbose``
+    adds ``-Xptxas -v`` and prints the compiler's report."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = _BUILD_DIR / f"maizx_rank_{tag}.so"
+    if out.exists():
+        return out, 0.0
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(_SRC)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.maiz_lohi_launch.argtypes = [p] * 10 + [i, ll, ll, p, p, p]
+        lib.maiz_lohi_launch.restype = i
+        lib.maiz_topk_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll]
+                                         + [p] * 4)
+        lib.maiz_topk_launch.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {status}")
+
+
+def _kernel_args(streams, extra):
+    """Validate the node streams for a launch and return their pointers
+    (null for absent marginal streams)."""
+    n = streams[0].shape[0]
+    if n % TILE:
+        raise ValueError(f"node arrays must be padded to {TILE}: N={n}")
+    ptrs = []
+    for x in list(streams) + list(extra):
+        if x is None:
+            ptrs.append(None)
+            continue
+        if (x.device.type != "cuda" or x.dtype != torch.float32
+                or not x.is_contiguous() or x.shape != (n,)):
+            raise ValueError("rank kernel streams must be contiguous f32 "
+                             f"(N,) CUDA tensors; got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        ptrs.append(x.data_ptr())
+    return n, ptrs
+
+
+def _small(x: Optional[torch.Tensor], shape, name: str):
+    if x is None:
+        return None
+    if (x.device.type != "cuda" or x.dtype != torch.float32
+            or not x.is_contiguous() or tuple(x.shape) != shape):
+        raise ValueError(f"{name} must be a contiguous f32 {shape} CUDA "
+                         f"tensor; got {x.dtype} {tuple(x.shape)}")
+    return x.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# public wrappers: device dispatch + launch counters
+# ---------------------------------------------------------------------------
+
+
+def maiz_lohi(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None, cap=None,
+              ct=None, en=None) -> torch.Tensor:
+    """Sweep 1: the global (R, 2) term lo/hi.  Node arrays (N,) f32 with
+    N % 1024 == 0; ``n_valid`` masks the padded tail.  R = 5 with the
+    marginal streams, else 4."""
+    if ec.device.type == "cpu":
+        lo, hi = maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
+                                 cap=cap, ct=ct, en=en)
+    else:
+        lo, hi = maiz_lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
+                                 cap=cap, ct=ct, en=en)
+    return torch.stack([lo.amin(0), hi.amax(0)], dim=-1)
+
+
+def maiz_lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
+                    cap=None, ct=None, en=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1: per-tile (lo, hi), each (nt, R), on ``ec``'s stream."""
+    r = 5 if en is not None else 4
+    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
+    en_p = _small(en, (4,), "en")
+    nt = n // TILE
+    lo = torch.empty((nt, r), dtype=torch.float32, device=ec.device)
+    hi = torch.empty_like(lo)
+    stream = torch.cuda.current_stream(ec.device).cuda_stream
+    _check(_lib().maiz_lohi_launch(*ptrs, en_p, r, n, int(n_valid),
+                                   lo.data_ptr(), hi.data_ptr(), stream),
+           "maiz_lohi")
+    maiz_lohi.launches += 1
+    return lo, hi
+
+
+def maiz_topk(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights, *,
+              k: int, pk=None, cap=None, ct=None, en=None
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sweep 2: scores + per-tile top-k.  Returns (scores (N,) with +inf in
+    the padded tail, tile_topk_scores (nt, k), tile_topk_idx (nt, k))."""
+    _check_tile_k(k)
+    r = 5 if en is not None else 4
+    if tuple(lohi.shape) != (r, 2):
+        raise ValueError(f"lohi must be ({r}, 2); got {tuple(lohi.shape)}")
+    if ec.device.type == "cpu":
+        return maiz_topk_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi,
+                               weights, k=k, pk=pk, cap=cap, ct=ct, en=en)
+    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
+    en_p = _small(en, (4,), "en")
+    lohi_p = _small(lohi, (r, 2), "lohi")
+    w_p = _small(weights, (4,), "weights")
+    nt = n // TILE
+    dev = ec.device
+    scores = torch.empty(n, dtype=torch.float32, device=dev)
+    tmin = torch.empty((nt, k), dtype=torch.float32, device=dev)
+    targ = torch.empty((nt, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check(_lib().maiz_topk_launch(*ptrs, en_p, r, lohi_p, w_p, k, n,
+                                   int(n_valid), scores.data_ptr(),
+                                   tmin.data_ptr(), targ.data_ptr(), stream),
+           "maiz_topk")
+    maiz_topk.launches += 1
+    return scores, tmin, targ
+
+
+maiz_lohi.launches = 0
+maiz_topk.launches = 0
+
+
+def reset_launch_counts() -> None:
+    maiz_lohi.launches = 0
+    maiz_topk.launches = 0

@@ -1,0 +1,78 @@
+"""Public wrappers of the rank kernels (twin of ``repro.kernels.ops``'s
+ranking wrappers).  Each runs on its inputs' device: the CUDA kernels for
+CUDA tensors, their plain torch twins for CPU tensors."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.maizx_rank import (MAX_TILE_K, TILE, maiz_lohi,
+                                            maiz_topk)
+
+
+def lex_head(values: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``k`` of ``values`` in (value, position) order: a stable
+    ascending sort keeps the lower position first on ties, which is
+    ``lax.top_k(-values, k)``'s rule."""
+    order = torch.sort(values, stable=True).indices[:k]
+    return values[order], order
+
+
+def maiz_ranking_topk(ec, pue, ci_now, ci_fc, eff, sched, weights, *,
+                      k: int = 16, lohi: Optional[torch.Tensor] = None,
+                      pk: Optional[torch.Tensor] = None,
+                      cap: Optional[torch.Tensor] = None,
+                      chips_total: Optional[torch.Tensor] = None,
+                      en: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fleet-scale fused MAIZ ranking with a merged top-k shortlist.
+
+    Arrays (N,) of any float dtype; padded to the 1024-node tile here
+    (padded nodes are masked and never shortlisted).  Pass ``lohi`` (R, 2)
+    to pin the normalizers and skip sweep 1 (the placement engine freezes
+    them per decision epoch).  ``pk``/``cap``/``chips_total`` + ``en`` (4,)
+    thread the marginal-CFP term as a fifth score term.
+
+    Returns (scores (N,), topk_scores (k',), topk_nodes (k',) int32) with
+    k' = min(k, N), ordered by (score, node index)."""
+    n = ec.shape[0]
+    k_out = min(k, n)
+    k_tile = min(k_out, MAX_TILE_K)
+    pad = (-n) % TILE
+
+    def padded(x):
+        return F.pad(x.to(torch.float32), (0, pad)).contiguous()
+
+    args = tuple(padded(a) for a in (ec, pue, ci_now, ci_fc, eff, sched))
+    mkw = {}
+    if en is not None:
+        mkw = dict(pk=padded(pk), cap=padded(cap), ct=padded(chips_total),
+                   en=en.to(torch.float32).contiguous())
+    if lohi is None:
+        lohi = maiz_lohi(*args, n, **mkw)
+    scores, tmin, targ = maiz_topk(
+        *args, n, lohi.contiguous(), weights.to(torch.float32).contiguous(),
+        k=k_tile, **mkw)
+    scores = scores[:n]
+    if k_out > k_tile:
+        # the tile-local k is capped: one tile could hold more than k_tile
+        # of the global top-k_out, so merge from the full score vector
+        top_s, pos = lex_head(scores, k_out)
+        return scores, top_s, pos.to(torch.int32)
+    # tile candidates arrive in (tile, rank) order, so the stable merge
+    # keeps the global (score, node) order
+    top_s, pos = lex_head(tmin.reshape(-1), k_out)
+    return scores, top_s, targ.reshape(-1)[pos]
+
+
+def maiz_ranking_fused(ec, pue, ci_now, ci_fc, eff, sched, weights
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fleet-scale fused MAIZ ranking (k=1 shortlist): both sweeps.
+
+    Returns (scores (N,), best_score, best_node)."""
+    scores, top_s, top_i = maiz_ranking_topk(
+        ec, pue, ci_now, ci_fc, eff, sched, weights, k=1)
+    return scores, top_s[0], top_i[0]

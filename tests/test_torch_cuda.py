@@ -1,0 +1,109 @@
+"""The port's CUDA rank kernels on the card: K1/K2 bitwise equal to their
+plain torch twins (on the same card, and on the CPU), and the placement
+engine's kernel path equal to its CPU path.  Skips without a GPU; run on
+the card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import fleet as fleetlib
+from repro_torch.core import placement as P
+from repro_torch.kernels import maizx_rank as mr
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+
+W4 = [0.35, 0.25, 0.25, 0.15]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda")
+
+
+def _streams(n, seed, dev, marginal, ties=False):
+    g = np.random.default_rng(seed)
+    s = [g.random(n) * 100, 1 + g.random(n), g.random(n) * 500,
+         g.random(n) * 500, g.random(n), g.random(n)]
+    if ties:                          # duplicate the first tile everywhere
+        s = [np.resize(x[:1024], n) for x in s]
+    s = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in s]
+    kw = {}
+    if marginal:
+        ct = g.choice([64.0, 96.0, 128.0], n).astype(np.float32)
+        cap = np.where(g.random(n) < 0.3, ct, np.floor(g.random(n) * ct))
+        kw = dict(pk=torch.from_numpy((g.random(n) * 8).astype(
+                      np.float32)).to(dev),
+                  cap=torch.from_numpy(cap.astype(np.float32)).to(dev),
+                  ct=torch.from_numpy(ct).to(dev))
+    return s, kw
+
+
+def _eq(a, b):
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,n_valid", [(1024, 1024), (3072, 3000),
+                                       (66560, 65541)])
+@pytest.mark.parametrize("w_m", [None, 0.0, 0.3])
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_kernels_bitwise_equal_plain(dev, n, n_valid, w_m, k):
+    s, kw = _streams(n, n + k, dev, w_m is not None)
+    if w_m is not None:
+        kw["en"] = torch.tensor([0.35, 0.65, 120.0, w_m], device=dev)
+    lo, hi = mr.maiz_lohi_tiles(*s, n_valid, **kw)
+    lo_p, hi_p = mr.maiz_lohi_plain(*s, n_valid, **kw)
+    _eq(lo, lo_p)
+    _eq(hi, hi_p)
+    lohi = torch.stack([lo.amin(0), hi.amax(0)], -1)
+    w = torch.tensor(W4, device=dev)
+    got = mr.maiz_topk(*s, n_valid, lohi, w, k=k, **kw)
+    want = mr.maiz_topk_plain(*s, n_valid, lohi, w, k=k, **kw)
+    cpu = mr.maiz_topk_plain(*[x.cpu() for x in s], n_valid, lohi.cpu(),
+                             w.cpu(), k=k,
+                             **{a: b.cpu() for a, b in kw.items()})
+    for x, y, z in zip(got, want, cpu):
+        _eq(x, y)
+        _eq(x, z)
+    torch.cuda.synchronize()
+
+
+def test_kernel_ties_and_short_tiles(dev):
+    n = 4096
+    s, _ = _streams(n, 1, dev, False, ties=True)
+    w = torch.tensor(W4, device=dev)
+    for n_valid in (n, 2050):           # last tile: 2 valid of k=16
+        lohi = mr.maiz_lohi(*s, n_valid)
+        got = mr.maiz_topk(*s, n_valid, lohi, w, k=16)
+        want = mr.maiz_topk_plain(*s, n_valid, lohi, w, k=16)
+        for x, y in zip(got, want):
+            _eq(x, y)
+
+
+def test_launch_counters_and_fused_ranking(dev):
+    mr.reset_launch_counts()
+    s, _ = _streams(5000, 3, dev, False)
+    scores, best_s, best_n = ops.maiz_ranking_fused(
+        *s, torch.tensor(W4, device=dev))
+    assert mr.maiz_lohi.launches == 1 and mr.maiz_topk.launches == 1
+    assert int(best_n) == int(torch.argmin(scores))
+
+
+def test_placement_kernel_path_equals_cpu_path(dev):
+    f_gpu = fleetlib.synthetic_fleet(8192, seed=1, device=dev)
+    f_cpu = fleetlib.synthetic_fleet(8192, seed=1, device="cpu")
+    demands = [64] * 64
+    a = P.place_jobs_shortlist(f_gpu, demands, shortlist=16,
+                               use_kernel=True)
+    b = P.place_jobs_shortlist(f_cpu, demands, shortlist=16,
+                               use_kernel=True)
+    c = P.place_jobs_full_rerank(f_gpu, demands)
+    _eq(a.node, b.node)
+    _eq(a.capacity, b.capacity)
+    assert a.n_sweeps == b.n_sweeps
+    _eq(P.place_jobs_shortlist(f_gpu, demands, shortlist=16).node, c.node)

@@ -1,0 +1,220 @@
+"""The rank kernels' plain torch twins (the CPU path of K1 ``maiz_lohi``
+and K2 ``maiz_topk``) vs the JAX Pallas kernels in interpret mode and the
+reference oracles.  The CUDA kernels themselves are held against these
+twins on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from test_torch_reference import bits, jnp, load_reference
+
+from repro_torch.kernels import maizx_rank as mr
+from repro_torch.kernels import ops, ref as kref
+
+W4 = np.asarray([0.35, 0.25, 0.25, 0.15], np.float32)
+
+
+def _streams(rng, n, marginal):
+    """Random node streams (f32 numpy); marginal adds pk/cap/ct with some
+    nodes fully free (cap == ct, the wake branch)."""
+    s = [rng.random(n) * 100, 1 + rng.random(n), rng.random(n) * 500,
+         rng.random(n) * 500, rng.random(n), rng.random(n)]
+    s = [x.astype(np.float32) for x in s]
+    if not marginal:
+        return s, None
+    ct = rng.choice([64.0, 96.0, 128.0], n).astype(np.float32)
+    cap = np.where(rng.random(n) < 0.3, ct,
+                   np.floor(rng.random(n).astype(np.float32) * ct))
+    return s, [(rng.random(n) * 8).astype(np.float32),
+               cap.astype(np.float32), ct]
+
+
+def _pad(x, pad):
+    return F.pad(x.to(torch.float32), (0, pad))
+
+
+def _both(streams, extra, en, dtype):
+    """(port kwargs/args padded, jax args padded) from numpy streams."""
+    n = streams[0].shape[0]
+    pad = (-n) % mr.TILE
+    tt = [torch.from_numpy(x).to(dtype) for x in streams]
+    jj = [jnp().asarray(x, jnp().bfloat16 if dtype == torch.bfloat16
+                        else jnp().float32) for x in streams]
+    args_p = [_pad(x, pad) for x in tt]
+    args_j = [jnp().pad(x.astype(jnp().float32), (0, pad)) for x in jj]
+    kw_p, kw_j = {}, {}
+    if en is not None:
+        pk, cap, ct = extra
+        kw_p = dict(pk=_pad(torch.from_numpy(pk), pad),
+                    cap=_pad(torch.from_numpy(cap), pad),
+                    ct=_pad(torch.from_numpy(ct), pad),
+                    en=torch.from_numpy(en))
+        kw_j = dict(pk=jnp().pad(jnp().asarray(pk), (0, pad)),
+                    cap=jnp().pad(jnp().asarray(cap), (0, pad)),
+                    ct=jnp().pad(jnp().asarray(ct), (0, pad)),
+                    en=jnp().asarray(en))
+    return n, tt, jj, args_p, args_j, kw_p, kw_j
+
+
+EN = np.asarray([0.35, 0.65, 120.0, 0.3], np.float32)
+
+
+@pytest.mark.parametrize("n", [96, 1024, 3000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("marginal", [False, True], ids=["4term", "5term"])
+def test_k1_plain_matches_pallas_and_oracle_exactly(n, dtype, marginal):
+    ref = load_reference()
+    rng = np.random.default_rng(n + marginal)
+    s, extra = _streams(rng, n, marginal)
+    en = EN if marginal else None
+    n, tt, jj, args_p, args_j, kw_p, kw_j = _both(s, extra, en, dtype)
+    got = mr.maiz_lohi(*args_p, n, **kw_p)
+    assert got.shape == (5 if marginal else 4, 2)
+    want = ref.maizx_rank.maiz_lohi_pallas(
+        *args_j, jnp().full((1, 1), n, jnp().int32), interpret=True, **kw_j)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    okw_p = okw_j = {}
+    if marginal:
+        okw_p = dict(pk=torch.from_numpy(extra[0]),
+                     cap=torch.from_numpy(extra[1]),
+                     chips_total=torch.from_numpy(extra[2]),
+                     en=torch.from_numpy(en))
+        okw_j = {k: jnp().asarray(v.numpy()) for k, v in okw_p.items()}
+    oracle = ref.kref.term_lohi(*jj, **okw_j)
+    np.testing.assert_array_equal(bits(got), bits(oracle))
+    np.testing.assert_array_equal(bits(kref.term_lohi(*tt, **okw_p)),
+                                  bits(oracle))
+
+
+@pytest.mark.parametrize("n,k", [(1024, 8), (3000, 1), (2050, 8),
+                                 (96, 65), (2048, 65), (5, 8)])
+@pytest.mark.parametrize("marginal", [False, True], ids=["4term", "5term"])
+def test_k2_plain_matches_pallas(n, k, marginal):
+    """Scores within the JAX suite's own bar, tile candidates and the merged
+    top-k node ids exact (k=65 takes the full-vector fallback)."""
+    ref = load_reference()
+    rng = np.random.default_rng(7 * n + k)
+    s, extra = _streams(rng, n, marginal)
+    en = EN if marginal else None
+    n, tt, jj, args_p, args_j, kw_p, kw_j = _both(s, extra, en,
+                                                  torch.float32)
+    lohi = mr.maiz_lohi(*args_p, n, **kw_p)
+    k_tile = min(k, n, mr.MAX_TILE_K)
+    sc, tmin, targ = mr.maiz_topk(*args_p, n, lohi, torch.from_numpy(W4),
+                                  k=k_tile, **kw_p)
+    sc_j, tmin_j, targ_j = ref.maizx_rank.maiz_topk_pallas(
+        *args_j, jnp().full((1, 1), n, jnp().int32), jnp().asarray(
+            lohi.numpy()), jnp().asarray(W4), k=k_tile, interpret=True,
+        **kw_j)
+    np.testing.assert_allclose(sc.numpy(), np.asarray(sc_j), atol=1e-5)
+    np.testing.assert_array_equal(targ.numpy(), np.asarray(targ_j))
+    np.testing.assert_allclose(tmin.numpy(), np.asarray(tmin_j), atol=1e-5)
+    okw_p = okw_j = {}
+    if marginal:
+        okw_p = dict(pk=torch.from_numpy(extra[0]),
+                     cap=torch.from_numpy(extra[1]),
+                     chips_total=torch.from_numpy(extra[2]),
+                     en=torch.from_numpy(en))
+        okw_j = {k_: jnp().asarray(v.numpy()) for k_, v in okw_p.items()}
+    scores, top_s, top_i = ops.maiz_ranking_topk(
+        *tt, torch.from_numpy(W4), k=k, **okw_p)
+    scores_j, top_s_j, top_i_j = ref.ops.maiz_ranking_topk(
+        *jj, jnp().asarray(W4), k=k, interpret=True, **okw_j)
+    assert top_i.dtype == torch.int32 and top_i.shape == (min(k, n),)
+    np.testing.assert_array_equal(top_i.numpy(), np.asarray(top_i_j))
+    np.testing.assert_allclose(top_s.numpy(), np.asarray(top_s_j),
+                               atol=1e-5)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(scores_j),
+                               atol=1e-5)
+    # and against the plain oracle of the fused ranking
+    want, _, want_arg = kref.maiz_ranking_ref(
+        *tt, kref.term_lohi(*tt, **okw_p), torch.from_numpy(W4), **okw_p)
+    np.testing.assert_array_equal(bits(scores), bits(want))
+    assert int(top_i[0]) == int(want_arg)
+
+
+def test_k2_ties_lowest_index_first():
+    """Duplicate tiles -> exact ties across tiles; both copies enter the
+    shortlist, lower index first, as in the reference."""
+    ref = load_reference()
+    rng = np.random.default_rng(7)
+    base = rng.random(1024).astype(np.float32)
+    ci = np.tile(rng.random(1024).astype(np.float32), 2)
+    n = 2048
+    cols = [np.tile(base, 2), np.ones(n, np.float32), ci, ci,
+            np.zeros(n, np.float32), np.zeros(n, np.float32)]
+    _, top_s, top_i = ops.maiz_ranking_topk(
+        *map(torch.from_numpy, cols), torch.from_numpy(W4), k=8)
+    _, top_s_j, top_i_j = ref.ops.maiz_ranking_topk(
+        *map(jnp().asarray, cols), jnp().asarray(W4), k=8, interpret=True)
+    np.testing.assert_array_equal(top_i.numpy(), np.asarray(top_i_j))
+    np.testing.assert_array_equal(bits(top_s), bits(top_s_j))
+    ti, ts = top_i.numpy(), top_s.numpy()
+    for v in np.unique(ts):
+        dup = ti[ts == v]
+        assert dup.size == 2 and dup[0] < 1024 <= dup[1]
+
+
+def test_k2_tile_with_fewer_than_k_finite_scores():
+    """A tile holding fewer than k valid nodes: after the finite scores the
+    extraction keeps re-selecting the lowest id holding +inf — the
+    reference's literal rule, reproduced by the twin."""
+    ref = load_reference()
+    rng = np.random.default_rng(3)
+    s, _ = _streams(rng, 2048, False)
+    n_valid = 1030                      # tile 1 holds 6 valid nodes
+    args_p = [torch.from_numpy(x) for x in s]
+    args_j = [jnp().asarray(x) for x in s]
+    lohi = mr.maiz_lohi(*args_p, n_valid)
+    _, tmin, targ = mr.maiz_topk(*args_p, n_valid, lohi,
+                                 torch.from_numpy(W4), k=10)
+    _, tmin_j, targ_j = ref.maizx_rank.maiz_topk_pallas(
+        *args_j, jnp().full((1, 1), n_valid, jnp().int32),
+        jnp().asarray(lohi.numpy()), jnp().asarray(W4), k=10,
+        interpret=True)
+    np.testing.assert_array_equal(targ.numpy(), np.asarray(targ_j))
+    # interpret-mode scores sit a few ulp from the plain ones (the JAX
+    # suite's own 1e-5 bar); the +inf tail is exact
+    np.testing.assert_allclose(tmin.numpy(), np.asarray(tmin_j), atol=1e-5)
+    assert np.isinf(tmin[1, 6:].numpy()).all()
+    assert len(set(targ[1, 6:].tolist())) == 1
+
+
+def test_k2_marginal_weight_zero_is_bitwise_four_term():
+    rng = np.random.default_rng(11)
+    s, extra = _streams(rng, 2048, True)
+    tt = [torch.from_numpy(x) for x in s]
+    en0 = torch.tensor([0.35, 0.65, 120.0, 0.0])
+    s4, t4, i4 = ops.maiz_ranking_topk(*tt, torch.from_numpy(W4), k=16)
+    s5, t5, i5 = ops.maiz_ranking_topk(
+        *tt, torch.from_numpy(W4), k=16, pk=torch.from_numpy(extra[0]),
+        cap=torch.from_numpy(extra[1]), chips_total=torch.from_numpy(
+            extra[2]), en=en0)
+    np.testing.assert_array_equal(bits(s4), bits(s5))
+    np.testing.assert_array_equal(bits(t4), bits(t5))
+    np.testing.assert_array_equal(i4.numpy(), i5.numpy())
+
+
+def test_fused_ranking_head_and_tile_k_limit():
+    rng = np.random.default_rng(1)
+    s, _ = _streams(rng, 1500, False)
+    tt = [torch.from_numpy(x) for x in s]
+    scores, best_s, best_n = ops.maiz_ranking_fused(*tt, torch.from_numpy(W4))
+    assert int(best_n) == int(torch.argmin(scores))
+    assert bits(best_s) == bits(scores[int(best_n)])
+    with pytest.raises(ValueError, match="MAX_TILE_K") as ei:
+        mr.maiz_topk(*[torch.ones(1024)] * 6, 1024, torch.zeros(4, 2),
+                     torch.from_numpy(W4), k=mr.MAX_TILE_K + 1)
+    assert "shortlist" in str(ei.value)
+
+
+def test_cpu_path_never_counts_kernel_launches():
+    """CPU tensors take the plain twin; only kernel launches count."""
+    mr.reset_launch_counts()
+    rng = np.random.default_rng(2)
+    s, _ = _streams(rng, 1024, False)
+    ops.maiz_ranking_fused(*[torch.from_numpy(x) for x in s],
+                           torch.from_numpy(W4))
+    assert mr.maiz_lohi.launches == 0 and mr.maiz_topk.launches == 0
