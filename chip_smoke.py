@@ -16,9 +16,18 @@ outputs against the port's CPU path and the paper headline:
   5. simulator: ``simulate_fleet`` on a 65,536-node lifecycle fleet, 24
      epochs, kernel / plain / full engines
   6. Scenario C of the paper experiment on the card: -85.68 % +- 0.05 pp
+  7. K3 ``maiz_lohi_b`` / K4 ``maiz_topk_b`` vs their plain twins, bitwise,
+     at L = 4 lanes x N = 1,048,576 and 1,000,003, each lane also against
+     K1/K2; times beside the bound (CUDA events, L2 flushed)
+  8. batched fleet ranking: ``ops.maiz_ranking_topk_batched`` on four
+     1,048,576-node fleets (K3 + K4), each lane == the sequential ranking
+  9. ensemble: ``sweep_policies`` over 4 deferral thresholds x 2 seeds on
+     65,536-node fleets (8 lanes, one bucket, K4 per placement round);
+     every lane == its own ``simulate_fleet_scan`` and the host loop; the
+     plain-sweep grid for comparison; a 96-node stream card == CPU
 
-Launch counts are set to 0 just before each of phases 3-5 and read just
-after.  The line before the last is a JSON object with one entry per
+Launch counts are set to 0 just before each of phases 3-5, 8 and 9 and
+read just after.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero before that line.  Needs one CUDA device; run from
 anywhere with ``python3 chip_smoke.py``.
@@ -40,6 +49,9 @@ SRC = Path(__file__).resolve().parent / "src"
 N_BIG, N_RAGGED = 1_048_576, 1_000_003
 PLACE_NS = (65_536, N_BIG)      # placement fleets; the first also runs full
 SIM_N = 65_536                  # simulator fleet
+LANES = 4                       # K3/K4 checks and the batched ranking
+ENS_FACTORS = (0.95, 0.85, 0.75, 0.65)   # the ensemble's deferral grid
+ENS_SEEDS = (1, 2)
 # device-memory rate (TB/s) and f32 peak outside the tensor cores
 # (TFLOP/s) by card name, from NVIDIA's data sheets; first match wins
 CARDS = (("H100 NVL", 3.9, 60.0), ("H100 PCIe", 2.0, 51.0),
@@ -49,6 +61,10 @@ REPLACES = {
                   "src/repro_torch/kernels/csrc/maizx_rank.cu"),
     "maiz_topk": ("src/repro/kernels/maizx_rank.py:187",
                   "src/repro_torch/kernels/csrc/maizx_rank.cu"),
+    "maiz_lohi_b": ("src/repro/kernels/maizx_rank.py:203",
+                    "src/repro_torch/kernels/csrc/maizx_rank.cu"),
+    "maiz_topk_b": ("src/repro/kernels/maizx_rank.py:217",
+                    "src/repro_torch/kernels/csrc/maizx_rank.cu"),
 }
 
 
@@ -119,11 +135,12 @@ def card_rates(name: str):
     return 3.35e12, 67e12
 
 
-def device_busy(fn):
+def device_busy(fn, top=0):
     """``fn()`` under ``torch.profiler``: (result, ms of device activity,
     ms of wall time of that same profiled run, the profiler's own cost
-    included, so the busy share it gives is a lower bound).  The device ms
-    is None when the profiler saw no device time."""
+    included, so the busy share it gives is a lower bound, and a summary
+    of the ``top`` largest device kernels and host ops by self time).
+    The device ms is None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -135,11 +152,24 @@ def device_busy(fn):
             torch.cuda.synchronize()
     except RuntimeError as e:          # no CUPTI in this sandbox
         say(f"profiler unavailable: {e}")
-        return None, None, float("nan")
+        return None, None, float("nan"), ""
     wall = (time.perf_counter() - t0) * 1e3
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages())
-    return out, (us / 1e3 if us > 0 else None), wall
+    ev = prof.key_averages()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in ev)
+    summary = ""
+    if top:
+        dev = sorted((e for e in ev
+                      if getattr(e, "self_device_time_total", 0) > 0),
+                     key=lambda e: -e.self_device_time_total)
+        host = sorted(ev, key=lambda e: -e.self_cpu_time_total)
+        summary = (
+            f"{sum(e.count for e in dev)} device ops; top device: "
+            + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f}"
+                        f" ms x{e.count}" for e in dev[:top])
+            + " | top host: "
+            + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} "
+                        f"ms x{e.count}" for e in host[:top]))
+    return out, (us / 1e3 if us > 0 else None), wall, summary
 
 
 def busy_note(dev_ms, wall_ms):
@@ -277,19 +307,25 @@ def phase_kernels(dev, rates, flush):
     return err, times
 
 
-def _k1_bound(n_pad, r, rates):
+def _k1_bound(n_pad, r, rates, lanes=1):
+    """K1 (K3 with ``lanes``): every stream read once, the tile partials
+    written once."""
     streams = 6 if r == 4 else 9
-    nbytes = n_pad * 4 * streams + 2 * (n_pad // 1024) * r * 4
-    ops = n_pad * ((3 if r == 4 else 12) + 2 * r)   # terms + min/max
+    nbytes = lanes * (n_pad * 4 * streams + 2 * (n_pad // 1024) * r * 4
+                      + (16 if r == 5 else 0))
+    ops = lanes * n_pad * ((3 if r == 4 else 12) + 2 * r)  # terms + min/max
     return bound_ms(nbytes, ops, rates)
 
 
-def _k2_bound(n_pad, r, k, rates):
+def _k2_bound(n_pad, r, k, rates, lanes=1):
+    """K2 (K4 with ``lanes``): every stream read once, scores and tile
+    candidates written once."""
     streams = 6 if r == 4 else 9
     nt = n_pad // 1024
-    nbytes = n_pad * 4 * (streams + 1) + nt * k * 8 + r * 8 + 16
+    nbytes = lanes * (n_pad * 4 * (streams + 1) + nt * k * 8 + r * 8
+                      + (16 if r == 5 else 0)) + 16
     # terms + 4 ops per normalized term + k rounds of one compare per node
-    ops = n_pad * ((3 if r == 4 else 12) + 4 * r + 1 + k)
+    ops = lanes * n_pad * ((3 if r == 4 else 12) + 4 * r + 1 + k)
     return bound_ms(nbytes, ops, rates)
 
 
@@ -302,8 +338,7 @@ def counted(fn):
     mr.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, {"maiz_lohi": mr.maiz_lohi.launches,
-                 "maiz_topk": mr.maiz_topk.launches}
+    return out, {f.__name__: f.launches for f in mr.WRAPPERS}
 
 
 def phase_ranking(dev):
@@ -337,7 +372,7 @@ def phase_placement(dev):
     from repro_torch.core.scheduler import place_jobs
     J, d, K = 256, 64, 64
     demands = np.full(J, d)
-    total = {"maiz_lohi": 0, "maiz_topk": 0}
+    total = {}
     for n in PLACE_NS:
         fg = synthetic_fleet(n, seed=1, device=dev)
 
@@ -351,8 +386,8 @@ def phase_placement(dev):
         a, cnt = counted(kernel_path)
         ms = (time.perf_counter() - t0) * 1e3
         for k, v in cnt.items():
-            total[k] += v
-        _, dev_ms, prof_ms = device_busy(kernel_path)
+            total[k] = total.get(k, 0) + v
+        _, dev_ms, prof_ms, _ = device_busy(kernel_path)
         t0 = time.perf_counter()
         b = place_jobs(synthetic_fleet(n, seed=1, device="cpu"), demands,
                        engine="shortlist", shortlist=K, use_kernel=True)
@@ -407,7 +442,7 @@ def phase_simulator(dev):
         r, cnt = counted(lambda: S.simulate_fleet(fleet, traces, ridx, c,
                                                   jobs=jobs))
         runs[name] = (r, cnt, (time.perf_counter() - t0) * 1e3 / cfg.epochs)
-    _, dev_ms, prof_ms = device_busy(lambda: S.simulate_fleet(
+    _, dev_ms, prof_ms, _ = device_busy(lambda: S.simulate_fleet(
         fleet, traces, ridx, dataclasses.replace(variants[1][1], epochs=4),
         jobs=jobs))
     (rk, ck, msk), (rp, _, msp), (rf, _, msf) = (runs["kernel"],
@@ -465,6 +500,268 @@ def phase_scenario_c(dev):
                                     r.emissions_kg.items()))
 
 
+def _lane_stack(n, n_pad, lanes, seed, dev, marginal, w_m):
+    """(L, n_pad) padded streams of ``lanes`` independent lanes, with
+    per-lane en rows (their own idle/embodied, the same w_m)."""
+    import torch
+    per = [_streams(n, seed + 7 * l, dev, marginal, w_m)
+           for l in range(lanes)]
+    sp = [torch.stack([_pad(p[0][i], n_pad) for p in per])
+          for i in range(6)]
+    kwp = {}
+    if marginal:
+        kwp = {k: torch.stack([_pad(p[1][k], n_pad) for p in per])
+               for k in ("pk", "cap", "ct")}
+        rows = [[0.35, 0.65, 120.0], [0.25, 0.75, 0.0], [0.4, 0.6, 30.0],
+                [0.3, 0.7, 60.0]]
+        kwp["en"] = torch.tensor([rows[l % 4] + [w_m]
+                                  for l in range(lanes)], device=dev)
+    return sp, kwp
+
+
+def phase_batched_kernels(dev, rates, flush):
+    """K3/K4 vs their plain twins, bitwise; each lane vs K1/K2 on that
+    lane; times at L = 4 lanes and at the ensemble's shape."""
+    import torch
+    from repro_torch.kernels import maizx_rank as mr
+
+    w = torch.tensor([0.35, 0.25, 0.25, 0.15], device=dev)
+    err = {"maiz_lohi_b": [0.0, 0], "maiz_topk_b": [0.0, 0]}
+    times = {}
+
+    def note(name, a, b):
+        err[name][0] = max(err[name][0], abs_err(a, b))
+        err[name][1] = max(err[name][1], ulp_diff(a, b))
+
+    def lane_eq(a, b, what):
+        check(ulp_diff(a, b) == 0, f"{what}: a K3/K4 lane differs from "
+              "K1/K2 on that lane")
+
+    shapes = [(n, LANES, v, m) for n in (N_BIG, N_RAGGED)
+              for v, m in (("4term", (False, 0.0)),
+                           ("5term_wm0", (True, 0.0)),
+                           ("5term_wm0.3", (True, 0.3)))]
+    # the ensemble's K4 shape: 8 lanes of 65,536 nodes, 5 terms, w_m = 0
+    shapes.append((SIM_N, 8, "5term_wm0", (True, 0.0)))
+    for n, lanes, variant, (marginal, w_m) in shapes:
+        n_pad = n + (-n) % mr.TILE
+        sp, kwp = _lane_stack(n, n_pad, lanes, n + len(variant), dev,
+                              marginal, w_m)
+        r = 5 if marginal else 4
+        lo, hi = mr.maiz_lohi_tiles_b(*sp, n, **kwp)
+        lo_p, hi_p = mr.maiz_lohi_plain_b(*sp, n, **kwp)
+        note("maiz_lohi_b", lo, lo_p)
+        note("maiz_lohi_b", hi, hi_p)
+        lohi = torch.stack([lo.amin(1), hi.amax(1)], -1)
+        ks = (1, mr.MAX_TILE_K) if lanes == LANES else (mr.MAX_TILE_K,)
+        for l in range(lanes):
+            lane = [x[l] for x in sp]
+            lkw = {a: b[l] for a, b in kwp.items()}
+            lo1, hi1 = mr.maiz_lohi_tiles(*lane, n, **lkw)
+            lane_eq(lo[l], lo1, f"K3 lo N={n} {variant}")
+            lane_eq(hi[l], hi1, f"K3 hi N={n} {variant}")
+        for k in ks:
+            got = mr.maiz_topk_b(*sp, n, lohi, w, k=k, **kwp)
+            want = mr.maiz_topk_plain_b(*sp, n, lohi, w, k=k, **kwp)
+            for a, b in zip(got, want):
+                note("maiz_topk_b", a, b)
+            for l in range(lanes):
+                one = mr.maiz_topk(*[x[l] for x in sp], n, lohi[l], w, k=k,
+                                   **{a: b[l] for a, b in kwp.items()})
+                for a, b in zip(got, one):
+                    lane_eq(a[l], b, f"K4 N={n} {variant} k={k}")
+        torch.cuda.synchronize()
+        tag = variant if lanes == LANES else f"{variant}_L{lanes}"
+        for k in ks:
+            times[("maiz_topk_b", n, tag, k)] = (
+                time_ms(lambda: mr.maiz_topk_b(*sp, n, lohi, w, k=k, **kwp),
+                        flush),
+                time_ms(lambda: mr.maiz_topk_plain_b(*sp, n, lohi, w, k=k,
+                                                     **kwp), flush,
+                        reps=11),
+                _k2_bound(n_pad, r, k, rates, lanes))
+        times[("maiz_lohi_b", n, tag, 0)] = (
+            time_ms(lambda: mr.maiz_lohi_tiles_b(*sp, n, **kwp), flush),
+            time_ms(lambda: mr.maiz_lohi_plain_b(*sp, n, **kwp), flush,
+                    reps=11),
+            _k1_bound(n_pad, r, rates, lanes))
+        del sp, kwp
+    for key, (ms, plain, (b, by)) in sorted(times.items(), key=str):
+        say(f"[7] {key[0]} N={key[1]} {key[2]}"
+            + (f" k={key[3]}" if key[0] == "maiz_topk_b" else "")
+            + f": kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+              f"bound {b * 1e3:.2f} us ({by})")
+    for name, (ae, ulp) in err.items():
+        say(f"[7] {name} vs plain: max abs err {ae}, max ulp diff {ulp}; "
+            "every lane == K1/K2 on that lane")
+        check(ulp == 0, f"{name} is not bitwise equal to its plain twin")
+    return err, times
+
+
+def phase_batched_ranking(dev):
+    """``ops.maiz_ranking_topk_batched`` on four fleets: K3 then K4, each
+    lane equal to the sequential fleet ranking on that fleet."""
+    import torch
+    from repro_torch.core.fleet import synthetic_fleet
+    from repro_torch.core.ranking import RankWeights
+    from repro_torch.kernels import ops
+    w = RankWeights()
+    wa = w.as_array(dev)
+    fleets = [synthetic_fleet(N_BIG, seed=s, device=dev)
+              for s in range(1, LANES + 1)]
+
+    def cols(f):
+        return (f.effective_power_kw(), f.pue, f.ci_now, f.ci_forecast,
+                f.flops_per_j, f.sched_term)
+
+    args = [torch.stack(c) for c in zip(*[cols(f) for f in fleets])]
+    (scores, top_s, top_i), n = counted(
+        lambda: ops.maiz_ranking_topk_batched(*args, wa, k=16))
+    check(n["maiz_lohi_b"] == 1 and n["maiz_topk_b"] == 1,
+          f"batched ranking launches {n}")
+    for l, f in enumerate(fleets):
+        want = ops.maiz_ranking_topk(*cols(f), wa, k=16)
+        for a, b in zip((scores[l], top_s[l], top_i[l]), want):
+            check(ulp_diff(a, b) == 0,
+                  f"batched ranking lane {l} != the sequential ranking")
+    ref = fleets[0].rank(weights=w)
+    check(bool(torch.isfinite(scores).all()) and scores.shape ==
+          (LANES, N_BIG), "batched scores malformed")
+    check(abs_err(scores[0], ref) <= 1e-5, "batched lane 0 != Eq. 1")
+    say(f"[8] batched ranking {LANES} x N={N_BIG}: best nodes "
+        f"{top_i[:, 0].tolist()}, every lane == maiz_ranking_topk, "
+        f"launches {n}")
+    return n
+
+
+def _grid_runs(S, cfg, grid, n, seeds, dev):
+    """The (policy x seed) runs ``sweep_policies`` builds, in its order."""
+    fleets = {s: S.synthetic_lifecycle_fleet(
+        n, dataclasses.replace(cfg, seed=s), device=dev) for s in seeds}
+    runs = []
+    for name, pcfg in grid.items():
+        for s in seeds:
+            c = dataclasses.replace(cfg, seed=s, policy=pcfg)
+            runs.append((name, s, fleets[s] + (c, S.generate_jobs(c))))
+    return runs
+
+
+def _same_run(a, b, emissions_rel=1e-4):
+    keys = ("rank_sweeps", "arrivals_placed", "jobs_completed",
+            "jobs_dropped", "jobs_deferred", "migrations", "evictions",
+            "deadline_misses", "defer_delay_h")
+    return (np.array_equal(a.node_log, b.node_log)
+            and np.array_equal(a.first_node, b.first_node)
+            and np.array_equal(a.start_epoch, b.start_epoch)
+            and all(getattr(a, k) == getattr(b, k) for k in keys)
+            and abs(a.emissions_g / b.emissions_g - 1) <= emissions_rel)
+
+
+def phase_ensemble(dev):
+    """sweep_policies on the card: 8 kernel lanes in one bucket, held lane
+    by lane against the scan driver and the host loop."""
+    import torch
+    from repro_torch.core import simulator as S
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.core.ranking import RankWeights
+    n = SIM_N
+    cfg = S.SimConfig(epochs=24, arrival_rate=12.0, mean_duration_h=12.0,
+                      migration_budget=2, deferrable_frac=0.1, shortlist=64,
+                      use_kernel=True)
+    grid = {f"reactive_g{f}": PolicyConfig(defer_green_factor=f)
+            for f in ENS_FACTORS}
+    S.sweep_policies(dataclasses.replace(cfg, epochs=2), grid, n=n,
+                     seeds=ENS_SEEDS, device=dev)          # warm-up
+    t0 = time.perf_counter()
+    records, cnt = counted(lambda: S.sweep_policies(
+        cfg, grid, n=n, seeds=ENS_SEEDS, device=dev))
+    ens_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
+    grid_runs = _grid_runs(S, cfg, grid, n, ENS_SEEDS, dev)
+    specs = [spec for _, _, spec in grid_runs]
+    ens = S.simulate_fleet_ensemble(specs)
+    for rec, r in zip(records, ens):
+        check(rec["deferred"] == r.jobs_deferred
+              and rec["emissions_g"] == r.emissions_g,
+              "sweep_policies records != the ensemble's lanes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [S.simulate_fleet_scan(*sp[:4], jobs=sp[4], pad_plan=True)
+           for sp in specs]
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
+    # one lane or eight: the same decisions; the f32 emission sums may be
+    # reduced in another order on the card
+    for (name, seed, _), a, b in zip(grid_runs, ens, seq):
+        check(_same_run(a, b, 1e-5), f"ensemble lane ({name}, seed {seed}) "
+              "!= its own simulate_fleet_scan")
+    t0 = time.perf_counter()
+    host = [S.simulate_fleet(*sp[:4], jobs=sp[4]) for sp in specs]
+    host_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
+    same_host = [_same_run(a, h) for a, h in zip(ens, host)]
+    check(same_host[0], f"ensemble lane ({grid_runs[0][0]}, seed "
+          f"{grid_runs[0][1]}) != the host loop simulate_fleet")
+    plain_specs = [sp[:3] + (dataclasses.replace(sp[3], use_kernel=False),
+                             sp[4]) for sp in specs]
+    t0 = time.perf_counter()
+    plain = S.simulate_fleet_ensemble(plain_specs)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
+    moved = sum(int((a.node_log != b.node_log).sum())
+                for a, b in zip(ens, plain))
+    sweeps = sum(r.rank_sweeps for r in ens)
+    placed = sum(r.arrivals_placed for r in ens)
+    spj = sweeps / max(placed, 1)
+    check(spj < 0.2 and cnt["maiz_topk_b"] > 0,
+          f"ensemble: sweeps/job {spj:.3f}, launches {cnt}")
+    for r in ens:
+        check(math.isfinite(r.emissions_g) and r.emissions_series.shape ==
+              (cfg.epochs,), "ensemble emissions malformed")
+    syncs = ens[0].host_syncs / cfg.epochs
+    short = [sp[:3] + (dataclasses.replace(sp[3], epochs=4),
+                       S.generate_jobs(dataclasses.replace(sp[3], epochs=4)))
+             for sp in specs]
+    _, dev_ms, prof_ms, prof_top = device_busy(
+        lambda: S.simulate_fleet_ensemble(short), top=6)
+    jobs = sum(sp[4].n for sp in specs)
+    say(f"[9] sweep_policies {len(specs)} lanes x n={n} x {cfg.epochs} "
+        f"epochs ({jobs} jobs): ensemble {ens_ms:.1f} ms/epoch (K4 "
+        f"launches {cnt['maiz_topk_b']}, {sweeps} sweeps, {spj:.3f} "
+        f"sweeps/job, {syncs:.1f} host syncs/epoch; 4 epochs "
+        f"{busy_note(dev_ms, prof_ms)}); {len(specs)} sequential scans "
+        f"{seq_ms:.1f} ms/epoch, {len(specs)} host loops {host_ms:.1f} "
+        f"ms/epoch; plain-sweep ensemble {plain_ms:.1f} ms/epoch; every lane "
+        f"== its scan, {sum(same_host)}/{len(host)} lanes == the host loop; "
+        f"kernel vs plain sweep: {moved} jobs placed differently")
+    say(f"[9] 4 profiled epochs: {prof_top}")
+    say("[9] records: " + json.dumps([
+        {k: rec[k] for k in ("policy", "seed", "emissions_g", "deferred",
+                             "avg_start_delay_h")} for rec in records]))
+    front = S.pareto_frontier(records)
+    say(f"[9] pareto frontier: {[p['policy'] for p in front]}")
+    # a small mixed stream, w2 = 0 (the forecast's solver differs between
+    # the card and the CPU): the card's ensemble == the CPU's
+    small = S.SimConfig(epochs=24, arrival_rate=8.0, mean_duration_h=10.0,
+                        shortlist=32, history_h=48, horizon_h=12,
+                        migration_budget=2, deferrable_frac=0.3,
+                        outage=(0, 12, 6), flash_crowd=(20, 3, 2.5),
+                        weights=RankWeights(0.35, 0.0, 0.5, 0.15),
+                        use_kernel=True)
+    out = []
+    for d in (dev, "cpu"):
+        sp = []
+        for seed in (11, 12, 13):
+            c = dataclasses.replace(small, seed=seed)
+            f, t, ri = S.synthetic_lifecycle_fleet(96, c, chips_per_node=64,
+                                                   device=d)
+            sp.append((f, t, ri, c, S.generate_jobs(c)))
+        out.append(S.simulate_fleet_ensemble(sp))
+    check(all(_same_run(a, b) for a, b in zip(*out)),
+          "ensemble: card and CPU lanes disagree on the 96-node stream")
+    say(f"[9] n=96 stream, 3 lanes: card == CPU ("
+        f"{sum(r.migrations for r in out[0])} migrations, "
+        f"{sum(r.evictions for r in out[0])} evictions)")
+    return cnt
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -482,21 +779,30 @@ def main() -> int:
     phase_build()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     err, times = phase_kernels(dev, rates, flush)
+    err_b, times_b = phase_batched_kernels(dev, rates, flush)
+    err.update(err_b)
+    times.update(times_b)
     del flush
-    launches = {"maiz_lohi": 0, "maiz_topk": 0}
+    launches = {k: 0 for k in REPLACES}
     n3 = phase_ranking(dev)
     n4 = phase_placement(dev)
     n5 = phase_simulator(dev)
-    for part in (n3, n4, n5):
+    phase_scenario_c(dev)
+    n8 = phase_batched_ranking(dev)
+    n9 = phase_ensemble(dev)
+    for part in (n3, n4, n5, n8, n9):
         for k, v in part.items():
             launches[k] += v
-    phase_scenario_c(dev)
     for k in launches:
         check(launches[k] > 0, f"{k} never launched on the main path")
     # the main path's shapes: K1 as the fused ranking runs it, K2 as the
-    # placement engine's sweep runs it (k = shortlist + 1 capped at 64)
+    # placement engine's sweep runs it (k = shortlist + 1 capped at 64),
+    # K3 as the batched ranking runs it, K4 as the ensemble's rounds run
+    # it (8 lanes of 65,536 nodes, the 5-term score with w_m = 0)
     main_key = {"maiz_lohi": ("maiz_lohi", N_BIG, "4term", 0),
-                "maiz_topk": ("maiz_topk", N_BIG, "4term", 64)}
+                "maiz_topk": ("maiz_topk", N_BIG, "4term", 64),
+                "maiz_lohi_b": ("maiz_lohi_b", N_BIG, "4term", 0),
+                "maiz_topk_b": ("maiz_topk_b", SIM_N, "5term_wm0_L8", 64)}
     kernels = []
     for k, key in main_key.items():
         ms, plain, (b, by) = times[key]

@@ -1,8 +1,8 @@
 """Fused top-k shortlist placement: O(N + J·K) instead of O(J·N).
 
-Torch twin of ``repro.core.placement`` (the sequential engines; the
-batched ensemble engine is ROADMAP Queue 1 item 9).  The design and the
-exactness argument are the reference's:
+Torch twin of ``repro.core.placement``: the sequential engines and the
+hand-batched ensemble engine ``place_lifecycle_batched``.  The design and
+the exactness argument are the reference's:
 
 1. **Frozen normalizers.**  The Eq. 1 min-max lo/hi are computed once per
    placement call, so a node's score depends only on its own free
@@ -29,18 +29,24 @@ capacity live on the host; the device holds the capacity the sweeps read
 and the frozen context.  Each arrival placed from the shortlist rescores
 its node on the device and reads the one score back (one sync per event);
 each sweep reads back its masked argmin and the K+1 candidates.
+
+``place_lifecycle_batched`` runs the arrival-only event streams of L
+ensemble lanes together: an inner walk over events with O(L·K) shortlist
+work per step, and one batched O(L·N) sweep per round for the lanes that
+stalled.  Its loop tests read one flag back from the device each
+(``HostSyncs`` counts them).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.energy import DEFAULT_ENERGY, EnergyModel
-from repro_torch.core.fleet import IDLE_POWER_FRAC, Fleet
+from repro_torch.core.fleet import FIELDS, IDLE_POWER_FRAC, Fleet
 from repro_torch.core.ranking import RankWeights
 
 
@@ -397,3 +403,264 @@ def place_lifecycle_shortlist(fleet: Fleet, demands, nodes,
             cap[chosen] -= d
             out[e] = chosen
     return _result(fleet, out, cap, ctx, weights, sweeps)
+
+
+# ---------------------------------------------------------------------------
+# hand-batched lifecycle engine: an explicit lane axis for the ensemble
+# ---------------------------------------------------------------------------
+
+
+class HostSyncs:
+    """Counts the device-to-host reads a driver makes: each loop test of
+    the batched engine reads one flag back and waits for the device."""
+
+    def __init__(self) -> None:
+        self.n = 0
+
+    def any(self, x: torch.Tensor) -> bool:
+        self.n += 1
+        return bool(x.any())
+
+
+def _lane(fleet: Fleet, l: int) -> Fleet:
+    return Fleet(**{f: getattr(fleet, f)[l] for f in FIELDS})
+
+
+def stacked_ctx(fleet: Fleet, weights: RankWeights, horizon_h: float,
+                energy) -> Dict[str, object]:
+    """The (L, ...) frozen context: each lane's sequential ``frozen_ctx``,
+    stacked (bitwise that lane's context by construction).  Per-lane
+    scalars become (L, 1) columns that broadcast against (L, N) rows;
+    python-float constants stay as they are."""
+    L = fleet.capacity.shape[0]
+    ems = energy if isinstance(energy, (list, tuple)) else [energy] * L
+    per = [frozen_ctx(_lane(fleet, l), weights, horizon_h, energy=ems[l])
+           for l in range(L)]
+    ctx = {}
+    for k, v in per[0].items():
+        if not isinstance(v, torch.Tensor):
+            ctx[k] = v
+            continue
+        x = torch.stack([c[k] for c in per])
+        ctx[k] = x[:, None] if x.dim() == 1 else x
+    return ctx
+
+
+def _one_score_b(cap_b: torch.Tensor, b: torch.Tensor, ctx,
+                 w: RankWeights) -> torch.Tensor:
+    """Per-lane O(1) rescore: lane l's node ``b[l]`` at free chips
+    ``cap_b[l]`` — ``_one_score`` gathered per lane, bitwise per lane.
+    ``b`` may hold the padding id N where the result is not used."""
+    n = ctx["a_now"].shape[1]
+    idx = b.clamp(0, n - 1)[:, None]
+    g = {k: (v.gather(1, idx) if k in _GATHERED else v)
+         for k, v in ctx.items()}
+    return _ctx_scores(cap_b[:, None], g, w)[:, 0]
+
+
+def _batched_sweep(fleet: Fleet, ctx, weights: RankWeights,
+                   horizon_h: float, use_kernel: bool, k_cand: int):
+    """One round's sweep for every lane: cap (L, N) -> (scores (L, N), top
+    (K+1) scores, their node ids), each lane in (score, node index) order."""
+    from repro_torch.kernels.ops import lex_head, maiz_ranking_topk_batched
+
+    if not use_kernel:
+        def sweep(cap):
+            scores = _ctx_scores(cap, ctx, weights)
+            top_s, idx = lex_head(scores, k_cand)
+            return scores, top_s, idx.to(torch.int32)
+        return sweep
+
+    # the sequential engine's stream threading, one lane axis wider: ec
+    # from the lanes' own idle/dynamic fractions (the values frozen_ctx
+    # holds), the marginal term via pk/cap/ct + the per-lane (L, 4) en
+    lane_em = EnergyModel(idle_frac=ctx["idle_f"], dyn_frac=ctx["dyn_f"])
+    L, dev = fleet.capacity.shape[0], fleet.capacity.device
+
+    def col(k):
+        v = ctx[k]
+        return v if isinstance(v, torch.Tensor) else torch.full(
+            (L, 1), v, dtype=torch.float32, device=dev)
+
+    mkw = {}
+    if "m_dyn" in ctx:
+        mkw = dict(pk=fleet.power_kw * horizon_h, chips_total=ctx["ct_f"],
+                   en=torch.cat([col(k) for k in ("idle_f", "dyn_f",
+                                                  "emb_h", "w_m")], dim=1))
+    sched = fleet.sched_term
+    w_arr = weights.as_array(fleet.capacity.device)
+
+    def sweep(cap):
+        ec = fleet.effective_power_kw(cap, energy=lane_em) * horizon_h
+        kw = dict(mkw, cap=cap.to(torch.float32)) if mkw else {}
+        return maiz_ranking_topk_batched(
+            ec, fleet.pue, fleet.ci_now, fleet.ci_forecast,
+            fleet.flops_per_j, sched, w_arr, k=k_cand, lohi=ctx["lohi"],
+            **kw)
+    return sweep
+
+
+def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
+                            weights: RankWeights = RankWeights(),
+                            horizon_h: float = 1.0, *,
+                            engine: str = "shortlist", shortlist: int = 32,
+                            use_kernel: bool = False,
+                            capacity: Optional[torch.Tensor] = None,
+                            n_events: Optional[torch.Tensor] = None,
+                            energy: Union[None, EnergyModel,
+                                          Sequence[EnergyModel]] = None,
+                            syncs: Optional[HostSyncs] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Arrival-only lifecycle placement over a leading lane axis — the
+    batched twin of ``place_lifecycle_shortlist`` (with ``eager_sweep``)
+    and ``place_lifecycle_full_rerank`` (``engine="full"``).
+
+    ``fleet`` carries (L, N) leaves, ``demands`` is (L, E) arrival chips
+    (pads 0), ``capacity`` the (L, N) starting capacity (the normalizers
+    stay frozen at ``fleet.capacity``), ``n_events`` the (L,) event counts,
+    ``energy`` one model for all lanes or one per lane.  Returns (node
+    (L, E), capacity (L, N), n_sweeps (L,)): per lane the sequential
+    engine's decisions, tie-breaks and sweep counts.
+
+    Two nested loops with any-reduced conditions (one host read each,
+    counted in ``syncs``): the inner walk consumes events with O(K)
+    shortlist work per lane per step, and a lane whose event needs a
+    fresh sweep stalls; the outer round runs one batched sweep (the rank
+    kernel K4 with ``use_kernel``) and lands every stalled lane's event
+    from it on that lane's current capacity.  The walk reads only the
+    shortlist's capacity mirror ``slcap`` and the round's ``cap_max``;
+    its placements reach ``cap`` as one scatter per round.  The sweep
+    scores every lane each round and is applied where ``need`` is set."""
+    if engine not in ("shortlist", "full"):
+        raise ValueError(f"unknown batched engine: {engine!r}")
+    syncs = HostSyncs() if syncs is None else syncs
+    L, N = fleet.capacity.shape
+    E = demands.shape[1]
+    dev = fleet.capacity.device
+    K = min(max(shortlist, 1), N)
+    k_cand = min(K + 1, N)
+    full_cover = K >= N
+    inf = torch.tensor(torch.inf, device=dev)
+    lanes = torch.arange(L, device=dev)
+    karange = torch.arange(K, device=dev)
+    ctx = stacked_ctx(fleet, weights, horizon_h, energy)
+    cap = (fleet.capacity if capacity is None else capacity).to(
+        torch.int32).clone()
+    healthy = fleet.healthy
+    demands = demands.to(torch.int64)
+    n_ev = torch.full((L,), E, device=dev) if n_events is None \
+        else n_events.to(torch.int64)
+    out = torch.full((L, E), -1, dtype=torch.int64, device=dev)
+    sweeps = torch.zeros(L, dtype=torch.int64, device=dev)
+
+    def hmax(c):
+        return torch.where(healthy, c, 0).amax(1)
+
+    def ev_demand(ptr):
+        p = ptr.clamp(max=E - 1)
+        return p, demands.gather(1, p[:, None])[:, 0]
+
+    def land(scores, d):
+        """Each lane's masked argmin over ``scores`` on its current
+        capacity: (best node, whether it is feasible)."""
+        masked = torch.where((cap >= d[:, None]) & healthy, scores, inf)
+        best = torch.argmin(masked, dim=1)
+        return best, torch.isfinite(masked.gather(1, best[:, None])[:, 0])
+
+    if engine == "full":
+        # the O(L·N) oracle: every live arrival is one batched rescore
+        n_max = int(n_ev.max())
+        syncs.n += 1
+        for e in range(n_max):
+            d = demands[:, e]
+            live = (e < n_ev) & (d > 0)
+            best, ok = land(_ctx_scores(cap, ctx, weights), d)
+            ok = live & ok
+            cap.scatter_add_(1, best[:, None],
+                             torch.where(ok, -d, 0).to(torch.int32)[:, None])
+            out[:, e] = torch.where(ok, best, out[:, e])
+            sweeps += live.to(torch.int64)
+        return out, cap, sweeps
+
+    sweep_topk = _batched_sweep(fleet, ctx, weights, horizon_h, use_kernel,
+                                k_cand)
+    slcap = cap.gather(1, torch.full((L, K), N - 1, device=dev))
+    sl_s = torch.full((L, K), torch.inf, device=dev)
+    sl_i = torch.full((L, K), N, dtype=torch.int64, device=dev)
+    bound_s = torch.full((L,), torch.inf, device=dev)
+    bound_i = torch.full((L,), N, dtype=torch.int64, device=dev)
+    cap_max = hmax(cap)
+    dirty = torch.ones(L, dtype=torch.bool, device=dev)
+    ptr = torch.zeros(L, dtype=torch.int64, device=dev)
+    ptr0 = ptr.clone()
+    need = torch.zeros(L, dtype=torch.bool, device=dev)
+    seg = torch.arange(E, device=dev)[None, :]
+
+    while syncs.any((ptr < n_ev) | need):
+        slh = healthy.gather(1, sl_i.clamp(max=N - 1))
+        # ---- inner walk: O(K) per lane per event, stalls on a sweep ----
+        while syncs.any((ptr < n_ev) & ~need):
+            act = (ptr < n_ev) & ~need
+            p, d = ev_demand(ptr)
+            is_arr = act & (d > 0)
+            sm = torch.where((slcap >= d[:, None]) & slh, sl_s, inf)
+            m = sm.amin(1)
+            kbest = torch.argmin(torch.where(sm == m[:, None], sl_i, N), 1)
+            bnode = sl_i.gather(1, kbest[:, None])[:, 0]
+            feasible = torch.isfinite(m)
+            beats = (m < bound_s) | ((m == bound_s) & (bnode < bound_i))
+            use_sl = ~dirty & feasible & beats
+            dead = (d > cap_max) | (~dirty & ~feasible
+                                    & ~torch.isfinite(bound_s))
+            place_sl = is_arr & use_sl
+            stall = is_arr & ~use_sl & ~dead
+            cap_b = slcap.gather(1, kbest[:, None])[:, 0] - d
+            new_s = _one_score_b(cap_b, bnode, ctx, weights)
+            hit = place_sl[:, None] & (karange[None, :] == kbest[:, None])
+            sl_s = torch.where(hit, new_s[:, None], sl_s)
+            slcap = torch.where(hit, slcap - d[:, None].to(slcap.dtype),
+                                slcap)
+            out[lanes, p] = torch.where(place_sl, bnode, out[lanes, p])
+            ptr = torch.where(act & ~stall, ptr + 1, ptr)
+            need = need | stall
+        # the walk's placements (events [ptr0, ptr) that landed) reach the
+        # full capacity as one scatter-add
+        newly = (seg >= ptr0[:, None]) & (seg < ptr[:, None]) & (out >= 0)
+        cap.scatter_add_(1, out.clamp(0, N - 1),
+                         torch.where(newly, -demands, 0).to(torch.int32))
+        # ---- round boundary: one sweep for every lane, applied where a
+        # lane stalled (at that lane's current capacity) -----------------
+        scores, cand_s, cand_i = sweep_topk(cap)
+        p, d = ev_demand(ptr)
+        best, ok = land(scores, d)
+        cap_b = cap.gather(1, best[:, None])[:, 0] - d
+        new_s = _one_score_b(cap_b, best, ctx, weights)
+        cand_i = cand_i.to(torch.int64)
+        sl_s2, sl_i2 = cand_s[:, :K], cand_i[:, :K]
+        if full_cover:
+            bound_s2 = torch.full((L,), torch.inf, device=dev)
+            bound_i2 = torch.full((L,), N, dtype=torch.int64, device=dev)
+        else:
+            bound_s2, bound_i2 = cand_s[:, K], cand_i[:, K]
+        sl_s2 = torch.where(ok[:, None] & (sl_i2 == best[:, None]),
+                            new_s[:, None], sl_s2)
+        cm2 = hmax(cap)                  # pre-placement, as in land_from
+        out[lanes, p] = torch.where(need, torch.where(ok, best, -1),
+                                    out[lanes, p])
+        cap.scatter_add_(1, best[:, None], torch.where(
+            need & ok, -d, 0).to(torch.int32)[:, None])
+        slcap2 = cap.gather(1, sl_i2)
+        col = need[:, None]
+        slcap = torch.where(col, slcap2, slcap)
+        sl_s = torch.where(col, sl_s2, sl_s)
+        sl_i = torch.where(col, sl_i2, sl_i)
+        bound_s = torch.where(need, bound_s2, bound_s)
+        bound_i = torch.where(need, bound_i2, bound_i)
+        cap_max = torch.where(need, cm2, cap_max)
+        sweeps += need.to(torch.int64)
+        dirty = dirty & ~need
+        ptr = torch.where(need, ptr + 1, ptr)
+        ptr0 = ptr
+        need = torch.zeros_like(need)
+    return out, cap, sweeps

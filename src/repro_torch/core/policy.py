@@ -1,8 +1,10 @@
 """Carbon policy subsystem: pluggable migration + deferral policies.
 
 The port's own copy of ``repro.core.policy`` (pure numpy, so it is copied
-as it is; the port imports nothing of the JAX package).  The port's host
-loop supports the reactive policies; ``migration="lookahead"`` and
+as it is; the port imports nothing of the JAX package).  The shared
+expressions run with ``xp=numpy`` in the host loop and ``xp=torch`` on the
+scanned driver's device tensors, in the reference's op order.  The port's
+drivers support the reactive policies; ``migration="lookahead"`` and
 ``deferral="slo"`` raise there (ROADMAP Queue 1 items 6-7).
 
 MAIZX's headline reduction comes from acting on *forecasted* carbon
@@ -159,7 +161,7 @@ def slo_deferral(defer_green_factor: float = 0.95,
 
 
 # ---------------------------------------------------------------------------
-# shared expressions (xp = np on the host path, jnp in the scanned core)
+# shared expressions (xp = np on the host path, torch in the scanned core)
 # ---------------------------------------------------------------------------
 
 

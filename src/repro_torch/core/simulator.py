@@ -1,5 +1,5 @@
 """Rolling multi-epoch fleet simulator: arrivals, departures, migration
-(torch twin of ``repro.core.simulator``'s host loop).
+(torch twin of ``repro.core.simulator``).
 
 Each hourly epoch:
 
@@ -20,9 +20,20 @@ reference's numpy code, so the same placements give the same emissions.
 ``paper_scenario_alloc`` is the paper experiment as the N=3 / T=8760
 special case.
 
+**Two drivers.**  ``simulate_fleet`` is the host loop: one placement-engine
+call per epoch, Python job bookkeeping, f64 accounting — the oracle.
+``simulate_fleet_scan`` keeps the whole job table on the device as a
+fixed-capacity slot table with padded event buffers (``ScanPlan``) and
+runs each epoch as masked tensor code around the batched placement engine
+(``placement.place_lifecycle_batched``); ``simulate_fleet_ensemble`` runs
+L such trajectories stacked on a leading lane axis, one engine call per
+epoch for all lanes (the scan is its one-lane case), and
+``sweep_policies`` drives a (policy x seed) grid through it.  Placements
+and counters match the host loop exactly, emissions to f32 tolerance.
+
 Not ported yet (raise ``NotImplementedError``): signal faults, serving
 traffic, tenants and SLO deferral (ROADMAP Queue 1 item 7), the look-ahead
-planner (items 6-7), the scanned driver and the ensemble (items 8-9).
+planner (items 6-7), and the ensemble's device sharding (item 1).
 """
 from __future__ import annotations
 
@@ -37,7 +48,8 @@ from repro_torch.core import forecast, telemetry
 from repro_torch.core import policy as policylib
 from repro_torch.core.energy import DEFAULT_ENERGY, EnergyModel
 from repro_torch.core.fleet import Fleet, fleet_tensors
-from repro_torch.core.placement import (place_lifecycle_full_rerank,
+from repro_torch.core.placement import (HostSyncs, place_lifecycle_batched,
+                                        place_lifecycle_full_rerank,
                                         place_lifecycle_shortlist)
 from repro_torch.core.policy import Policy, PolicyConfig
 from repro_torch.core.ranking import RankWeights
@@ -78,6 +90,9 @@ class SimConfig:
     energy: EnergyModel = DEFAULT_ENERGY
     power_off_idle: bool = True     # nodes with no jobs draw zero
     n_tenants: int = 0              # not ported yet (> 0 raises)
+    # manual override for the scanned core's job-table width (0 = the
+    # sound ScanPlan bound); named by the slot-overflow error message
+    scan_slots: int = 0
     # straggler bonus of powered-off nodes, so SCHEDULE_WEIGHT favours
     # consolidation onto already-on nodes; 0 disables
     consolidate: float = 1.0
@@ -178,6 +193,9 @@ class SimResult:
     start_epoch: Optional[np.ndarray] = None  # (J,) first-placement epoch
     util: Optional[np.ndarray] = None   # (N, T) when record_matrices
     on: Optional[np.ndarray] = None
+    # device reads the scanned driver waited for (its whole bucket's, each
+    # a loop test of the batched placement engine); 0 for the host loop
+    host_syncs: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +241,9 @@ def _epoch_core(traces, ridx, pue, power_kw, chips_total, straggler,
      use_forecast, defer_window) = statics
     ci_now = traces[:, t][ridx]
     if use_forecast:
-        window = traces[:, t - history_h:t]
-        fc, _ = forecast.forecast_regions(window, horizon_h, 0)  # (R, H)
-        ci_fc = torch.mean(fc, dim=-1)[ridx]
-        # greenest achievable CFP rate inside the deferral window; node-less
-        # regions are masked (a clamped 0.0 forecast times +inf is NaN)
-        fut_rate = torch.where(torch.isfinite(region_pue)[:, None],
-                               fc[:, :defer_window] * region_pue[:, None],
-                               torch.inf).min()
+        ci_fc_r, fut_rate = _forecast_step(traces, region_pue, t, history_h,
+                                           horizon_h, defer_window)
+        ci_fc = ci_fc_r[ridx]
     else:
         ci_fc = ci_now
         fut_rate = torch.tensor(torch.inf, device=traces.device)
@@ -239,6 +252,22 @@ def _epoch_core(traces, ridx, pue, power_kw, chips_total, straggler,
         cap, cap, healthy, demands, nodes, statics, energy=energy)
     cur_rate = torch.where(healthy, ci_now * pue, torch.inf).min()
     return node, cap_out, n_sweeps, ci_now, cur_rate, fut_rate
+
+
+def _forecast_step(traces, region_pue, a: int, history_h: int,
+                   horizon_h: int, defer_window: int):
+    """The forecast inputs of the epoch that reads trace column ``a``:
+    (per-region mean FCFP forecast (R,), the greenest CFP rate inside the
+    deferral window).  One fit per epoch window in both drivers, so the
+    scanned core's hoisted forecast is the host loop's, bit for bit."""
+    window = traces[:, a - history_h:a]
+    fc, _ = forecast.forecast_regions(window, horizon_h, 0)      # (R, H)
+    # node-less regions are masked (a clamped 0.0 forecast times +inf is
+    # NaN)
+    fut_rate = torch.where(torch.isfinite(region_pue)[:, None],
+                           fc[:, :defer_window] * region_pue[:, None],
+                           torch.inf).min()
+    return torch.mean(fc, dim=-1), fut_rate
 
 
 def _region_pue(n_regions: int, ridx: np.ndarray, pue) -> np.ndarray:
@@ -555,6 +584,743 @@ def _place_blind(dem: np.ndarray, tgt: np.ndarray, cap: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# the scanned trajectory: a fixed-slot job table and padded event buffers,
+# every tensor carrying a leading lane axis (L = 1 for simulate_fleet_scan)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """Static shapes of the scanned core, derived from the job schedule.
+
+    Every per-epoch buffer is padded to a sound upper bound computed on
+    the host:
+
+    - ``slots``: job-table size — interval bound on concurrently active
+      jobs (a job can hold chips only during ``[arrive, arrive +
+      defer_slack + duration)``);
+    - ``a_max`` / ``rel_cap`` / ``d_cap``: most new arrivals, end-of-life
+      releases and carried deferrals in any epoch;
+    - ``m_evict``: eviction buffer — ``slots`` with outage windows, else 0.
+
+    The core still counts any bound violation in ``overflow`` (a nonzero
+    value is an internal error, raised after the run)."""
+    slots: int
+    a_max: int
+    d_cap: int
+    rel_cap: int
+    m_evict: int
+    arr_ids: np.ndarray     # (T, a_max) job ids arriving per epoch, -1 pad
+
+
+def _scan_plan(cfg: SimConfig, jobs: JobSchedule, pol: Policy,
+               pad: bool = False) -> ScanPlan:
+    """The scanned core's static shapes (the reference's ``_scan_plan``).
+    ``pad`` rounds every buffer up to ``_pad_bucket`` sizes — pads are
+    exact no-ops, and seed ensembles with slightly different schedules
+    then share one bucket."""
+    T = cfg.epochs
+    arrive = np.asarray(jobs.arrive, np.int64)
+    dur = np.asarray(jobs.duration, np.int64)
+    slack = pol.slack
+    in_h = arrive < T           # jobs arriving past the horizon never run
+    counts = np.bincount(arrive[in_h], minlength=T) if arrive.size else \
+        np.zeros(T, np.int64)
+    a_max = max(int(counts.max(initial=0)), 1)
+    if pad:
+        a_max = _pad_bucket(a_max)
+    arr_ids = np.full((T, a_max), -1, np.int32)
+    if arrive.size:
+        # the host loop's by_arrival order: ascending job id per epoch
+        order = np.argsort(arrive, kind="stable")
+        order = order[arrive[order] < T]
+        ofs = np.concatenate([[0], np.cumsum(counts)])
+        pos = np.arange(order.size) - ofs[arrive[order]]
+        arr_ids[arrive[order], pos] = order
+    hi = T + int((dur + slack).max(initial=0)) + 2
+    diff = np.zeros(hi, np.int64)
+    np.add.at(diff, arrive[in_h], 1)
+    np.add.at(diff, (arrive + slack + dur)[in_h], -1)
+    slots = max(int(np.cumsum(diff).max(initial=0)), a_max, 1,
+                int(cfg.scan_slots))
+    # the end-of-life release epoch lies in [arrive + dur, ... + slack]
+    rdiff = np.zeros(hi, np.int64)
+    np.add.at(rdiff, np.minimum((arrive + dur)[in_h], hi - 1), 1)
+    np.add.at(rdiff, np.minimum((arrive + dur + slack)[in_h] + 1, hi - 1),
+              -1)
+    rel_cap = max(int(np.cumsum(rdiff)[:T].max(initial=0)), 1)
+    d_cap = policylib.sound_queue_bound(arrive, slack, T)
+    if pad:
+        slots = _pad_bucket(slots)
+        rel_cap = _pad_bucket(rel_cap)
+        if d_cap > 0:
+            d_cap = _pad_bucket(d_cap)
+    m_evict = slots if _outage_windows(cfg.outage) else 0
+    return ScanPlan(slots=slots, a_max=a_max, d_cap=d_cap, rel_cap=rel_cap,
+                    m_evict=m_evict, arr_ids=arr_ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Dims:
+    """The buffer sizes and trajectory-shaping config one bucket shares
+    (the reference's ``dims`` tuple, by name)."""
+    epochs: int
+    slots: int
+    a_max: int
+    d_cap: int
+    rel_cap: int
+    m_evict: int
+    budget: int
+    chips_max: int
+    history_h: int
+    defer_max_h: int
+    outage: tuple
+    power_off_idle: bool
+    consolidate: float
+    policy: PolicyConfig
+
+
+@dataclasses.dataclass
+class _ScanRun:
+    """One prepared trajectory: schedule-derived plan + static key, ready
+    to be built into scan inputs alone or stacked into a bucket."""
+    fleet0: Fleet
+    region_ci: np.ndarray
+    ridx: np.ndarray
+    cfg: SimConfig
+    jobs: JobSchedule
+    pol: Policy
+    plan: ScanPlan
+    statics: tuple
+    mig_nmax: int           # widest region (columns of the mig_perm table)
+
+
+def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
+                      ridx: np.ndarray, cfg: SimConfig,
+                      jobs: Optional[JobSchedule] = None,
+                      pad_plan: bool = False) -> _ScanRun:
+    if cfg.engine not in ("shortlist", "full"):
+        raise ValueError(
+            f"scanned core supports engine='shortlist'|'full', got "
+            f"{cfg.engine!r} (blind/spread comparators are host-only)")
+    _check_ported(cfg)
+    jobs = jobs if jobs is not None else generate_jobs(cfg)
+    pol = Policy.for_jobs(cfg.policy, jobs.arrive, jobs.deferrable,
+                          cfg.defer_max_h, jobs.deadline, jobs.value)
+    plan = _scan_plan(cfg, jobs, pol, pad=pad_plan)
+    statics = (cfg.engine, cfg.shortlist, cfg.use_kernel,
+               cfg.weights.graph_key(), cfg.horizon_h, cfg.history_h,
+               cfg.use_forecast, pol.defer_window(cfg.defer_max_h))
+    sizes = np.bincount(np.asarray(ridx, np.int64),
+                        minlength=region_ci.shape[0])
+    return _ScanRun(fleet0=fleet0, region_ci=np.asarray(region_ci),
+                    ridx=np.asarray(ridx), cfg=cfg, jobs=jobs, pol=pol,
+                    plan=plan, statics=statics,
+                    mig_nmax=max(int(sizes.max(initial=0)), 1))
+
+
+def _bucket_key(run: _ScanRun) -> tuple:
+    """Everything that must match for two runs to share one batched
+    trajectory; the buffer sizes are maxed over the bucket instead."""
+    cfg = run.cfg
+    return (run.statics, cfg.epochs, run.fleet0.n, run.region_ci.shape,
+            cfg.migration_budget, cfg.defer_max_h,
+            _outage_windows(cfg.outage), cfg.power_off_idle,
+            float(cfg.consolidate), cfg.policy.graph_key(),
+            str(run.fleet0.device))
+
+
+def _shared_dims(runs, pad: bool):
+    """A bucket's shared ``_Dims``: every buffer size is the member-wise
+    maximum (padding is an exact no-op for each member, by ``ScanPlan``'s
+    own soundness argument).  Returns ``(dims, Jp, mig_nmax)``."""
+    cfg = runs[0].cfg
+    slots = max(r.plan.slots for r in runs)
+    outs = _outage_windows(cfg.outage)
+    dims = _Dims(
+        epochs=cfg.epochs, slots=slots,
+        a_max=max(r.plan.a_max for r in runs),
+        d_cap=max(r.plan.d_cap for r in runs),
+        rel_cap=max(r.plan.rel_cap for r in runs),
+        m_evict=slots if outs else 0, budget=cfg.migration_budget,
+        chips_max=max(int(np.max(r.jobs.chips, initial=1)) for r in runs),
+        history_h=cfg.history_h, defer_max_h=cfg.defer_max_h, outage=outs,
+        power_off_idle=cfg.power_off_idle,
+        consolidate=float(cfg.consolidate), policy=cfg.policy.graph_key())
+    jp = max((_pad_bucket(max(r.jobs.n, 1)) if pad else max(r.jobs.n, 1))
+             for r in runs)
+    return dims, jp, max(r.mig_nmax for r in runs)
+
+
+def _build_arrs(run: _ScanRun, dims: _Dims, jp: int, mig_nmax: int,
+                fc_cache: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+    """Device inputs of ONE trajectory at the bucket's shared shapes.
+
+    Padding conventions (exact no-ops): padded jobs arrive past the
+    horizon; padded ``arr_ids`` hold -1; padded ``mig_perm`` columns hold
+    the node count N with +inf pue.  The forecast is fitted here for every
+    epoch window, with the host loop's own per-epoch call
+    (``_forecast_step``); ``fc_cache`` shares the fits between runs of
+    one fleet and trace set."""
+    fleet0, cfg, jobs, plan = run.fleet0, run.cfg, run.jobs, run.plan
+    region_ci, ridx = run.region_ci, run.ridx
+    N, T, J = fleet0.n, cfg.epochs, jobs.n
+    dev = fleet0.device
+
+    def jconst(x, fill, dtype):
+        out = np.full(jp, fill, dtype)
+        out[:J] = np.asarray(x, dtype)[:J]
+        return torch.from_numpy(out).to(dev)
+
+    R = region_ci.shape[0]
+    ridx_np = np.asarray(ridx, np.int64)
+    pue_np = fleet0.pue.cpu().numpy()
+    # per-region pue-ascending node order for the migration policy's best
+    # feasible rate (rate = pue · ci_region: within a region the order of
+    # the rates never changes)
+    sizes = np.bincount(ridx_np, minlength=R)
+    mig_perm = np.full((R, mig_nmax), N, np.int64)
+    mig_pue = np.full((R, mig_nmax), np.inf, np.float32)
+    order = np.lexsort((pue_np, ridx_np))
+    col = np.arange(order.size) \
+        - np.concatenate([[0], np.cumsum(sizes)])[ridx_np[order]]
+    mig_perm[ridx_np[order], col] = order
+    mig_pue[ridx_np[order], col] = pue_np[order]
+    arr_ids = np.full((T, dims.a_max), -1, np.int64)
+    arr_ids[:, :plan.a_max] = plan.arr_ids
+    traces = torch.from_numpy(region_ci.astype(np.float32)).to(dev)
+    region_pue = torch.from_numpy(_region_pue(
+        R, ridx_np, pue_np.astype(np.float64)).astype(np.float32)).to(dev)
+
+    def f32(v):
+        return torch.tensor(float(v), dtype=torch.float32, device=dev)
+
+    em = cfg.energy
+    arrs = dict(
+        mig_perm=torch.from_numpy(mig_perm).to(dev),
+        mig_pue=torch.from_numpy(mig_pue).to(dev),
+        traces=traces, ridx=torch.from_numpy(ridx_np).to(dev),
+        pue=fleet0.pue, power_kw=fleet0.power_kw,
+        chips_total=fleet0.chips_total, flops_per_j=fleet0.flops_per_j,
+        straggler=fleet0.straggler_score, healthy=fleet0.healthy,
+        capacity=fleet0.capacity.to(torch.int32),
+        chips=jconst(jobs.chips, 0, np.int64),
+        duration=jconst(jobs.duration, 1, np.int64),
+        arrive=jconst(jobs.arrive, T + 1, np.int64),
+        deferrable=jconst(jobs.deferrable, False, bool),
+        arr_ids=torch.from_numpy(arr_ids).to(dev),
+        green_factor=f32(cfg.policy.defer_green_factor),
+        green_gate=f32(cfg.policy.green_gate),
+        # the EnergyModel as f32 scalars (the host loop's em_dev values)
+        en_idle=f32(em.idle_frac), en_dyn=f32(em.dyn_frac),
+        en_chipw=f32(em.chip_power_w), en_hostw=f32(em.host_power_w),
+        en_embodied=f32(em.embodied_g_per_node_h),
+        en_wmarg=f32(cfg.weights.marginal), en_ekwh=f32(em.e_kwh_h),
+        en_ckpt=f32(em.ckpt_kwh(cfg.migration_overhead_h)))
+    if cfg.use_forecast:
+        key = (id(region_ci), id(fleet0))
+        if fc_cache is None or key not in fc_cache:
+            horizon_h, history_h, defer_window = (run.statics[4],
+                                                  run.statics[5],
+                                                  run.statics[7])
+            steps = [_forecast_step(traces, region_pue, history_h + t,
+                                    history_h, horizon_h, defer_window)
+                     for t in range(T)]
+            fc = (torch.stack([c for c, _ in steps]),       # (T, R)
+                  torch.stack([f for _, f in steps]))       # (T,)
+            if fc_cache is not None:
+                fc_cache[key] = fc
+        else:
+            fc = fc_cache[key]
+        arrs["ci_fc_r"], arrs["fut"] = fc
+    return arrs
+
+
+def _take(arr, idx, valid, fill):
+    """Per-lane masked gather ``arr[l, idx[l, j]]`` that never reads an
+    out-of-range index (clamped, then masked)."""
+    v = arr.gather(1, idx.clamp(0, arr.shape[1] - 1))
+    return torch.where(valid, v, fill)
+
+
+def _nonzero_sized(mask: torch.Tensor, size: int, fill: int
+                   ) -> torch.Tensor:
+    """Per lane, the positions of ``mask``'s True entries in ascending
+    order, cut or padded with ``fill`` to ``size`` — ``jnp.nonzero(mask,
+    size=size, fill_value=fill)`` by a cumsum scatter (unique targets; the
+    discarded column ``size`` takes the rest)."""
+    L, M = mask.shape
+    rank = mask.cumsum(1) - 1
+    tgt = torch.where(mask & (rank < size), rank, size)
+    out = torch.full((L, size + 1), fill, dtype=torch.int64,
+                     device=mask.device)
+    out.scatter_(1, tgt, torch.arange(M, device=mask.device).expand(L, M))
+    return out[:, :size]
+
+
+def _scatter_drop(buf: torch.Tensor, idx: torch.Tensor, src, *,
+                  add: bool) -> torch.Tensor:
+    """``buf.at[l, idx].set/add(src, mode="drop")``: index ``buf.shape[1]``
+    is the drop sentinel (a spare column, sliced off).  ``set`` targets
+    are unique apart from the sentinel; ``add`` is integer or exact."""
+    L, W = buf.shape
+    ext = torch.cat([buf, buf.new_zeros((L, 1))], dim=1)
+    src = torch.as_tensor(src, dtype=buf.dtype, device=buf.device
+                          ).expand(idx.shape)
+    if add:
+        ext.scatter_add_(1, idx, src)
+    else:
+        ext.scatter_(1, idx, src)
+    return ext[:, :W]
+
+
+def _lane_energy(arrs, l: int) -> EnergyModel:
+    """Lane ``l``'s EnergyModel as f32 0-d tensors (``EnergyModel.device``
+    of the run's model, which the host loop hands its engine)."""
+    return EnergyModel(
+        idle_frac=arrs["en_idle"][l], chip_power_w=arrs["en_chipw"][l],
+        host_power_w=arrs["en_hostw"][l],
+        embodied_g_per_node_h=arrs["en_embodied"][l],
+        w_marginal=arrs["en_wmarg"][l], dyn_frac=arrs["en_dyn"][l])
+
+
+def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
+    """The whole trajectory of L stacked lanes: a Python loop over epochs,
+    each ``epoch_pre`` (releases, evictions + migration policy, the
+    compacted arrival stream) -> the batched placement engine ->
+    ``epoch_post`` (outcomes, the deferral carry, emission accounting).
+    Both halves are loop-free masked tensor code over the (L, ...) axes.
+
+    Returns (carry, ys): the final (cap, njobs, slot_jid, slot_node,
+    slot_end, defer_ids, mig_cost, overflow), each (L, ...), and the
+    per-epoch outputs stacked as (L, T, ...), all on the host.
+
+    An epoch's releases are commutative capacity edits on a dirty engine,
+    so they are applied as one scatter and the engine starts at the
+    post-release capacity while the normalizers see the pre-release one;
+    the best feasible rate per chip demand runs a cummax of free capacity
+    along each region's static pue order plus a searchsorted."""
+    (engine, shortlist, use_kernel, weights, horizon_h, history_h,
+     use_forecast, defer_window) = statics
+    T, S = dims.epochs, dims.slots
+    L, N = arrs["capacity"].shape
+    dev = arrs["capacity"].device
+    budget = min(dims.budget, S)    # can't migrate more than can be active
+    m_evict, d_cap, a_max = dims.m_evict, dims.d_cap, dims.a_max
+    rel_cap, chips_max = dims.rel_cap, dims.chips_max
+    pcfg = dims.policy
+    m_cap = budget + m_evict
+    n_narr = d_cap + a_max
+    has_defer = d_cap > 0
+    alloc_cap = min(S, n_narr)
+    EV = m_cap + n_narr             # padded event-buffer width
+    INT_MAX = 2 ** 31 - 1
+    inf = torch.inf
+    chips_d, pue, ridx = arrs["chips"], arrs["pue"], arrs["ridx"]
+    energies = [_lane_energy(arrs, l) for l in range(L)]
+    cr = torch.arange(chips_max + 1, device=dev, dtype=torch.int32)
+    i64 = dict(dtype=torch.int64, device=dev)
+    empty = torch.zeros((L, 0), **i64)
+
+    def epoch_pre(st, t):
+        cap, njobs, slot_jid, slot_node, slot_end, defer_ids, mig_cost, \
+            overflow = st
+        a = t + history_h
+        healthy = arrs["healthy"]
+        for reg, t0, length in dims.outage:
+            if t0 <= t < t0 + length:
+                healthy = healthy & (ridx != reg)
+        ci_col_r = arrs["traces"][:, :, a]                       # (L, R)
+        ci_col = ci_col_r.gather(1, ridx)                        # (L, N)
+
+        # ---- 1. end-of-life releases (one scatter) -----------------------
+        rel_mask = (slot_jid >= 0) & (slot_end == t)
+        completed_t = rel_mask.sum(1)
+        rel_idx = _nonzero_sized(rel_mask, rel_cap, S)
+        rel_valid = rel_idx < S
+        rel_node = _take(slot_node, rel_idx, rel_valid, -1)
+        rel_jid = _take(slot_jid, rel_idx, rel_valid, -1)
+        rel_chips = _take(chips_d, rel_jid.clamp(min=0), rel_valid, 0)
+        njobs = _scatter_drop(njobs, torch.where(rel_valid, rel_node, N),
+                              -1, add=True)
+        slot_jid = torch.where(rel_mask, -1, slot_jid)
+        overflow = overflow + (completed_t - rel_cap).clamp(min=0)
+
+        # ---- 2. forced evictions + migration policy ----------------------
+        occupied = slot_jid >= 0
+        node_healthy = _take(healthy, slot_node, occupied, False)
+        stay_mask = occupied & node_healthy
+        seg_slot, seg_ok = [], []
+        evictions_t = migrations_t = torch.zeros(L, **i64)
+        mig_cost_t = torch.zeros(L, dtype=torch.float32, device=dev)
+        if m_evict > 0:
+            evict_mask = occupied & ~node_healthy
+            evictions_t = evict_mask.sum(1)
+            ekey = torch.where(evict_mask, slot_jid, INT_MAX)
+            ekey_s, evict_slot = torch.sort(ekey, dim=1, stable=True)
+            seg_slot.append(evict_slot[:, :m_evict])
+            seg_ok.append(ekey_s[:, :m_evict] < INT_MAX)
+        if budget > 0:
+            rate = torch.where(healthy, pue * ci_col, inf)
+            # best achievable CFP rate per chip demand: within a region the
+            # first prefix (in pue order) whose free-capacity cummax covers
+            # the demand holds the region's least feasible rate
+            perm, pue_sorted = arrs["mig_perm"], arrs["mig_pue"]
+            nmax = perm.shape[2]
+            flat = perm.reshape(L, -1)
+            capg = _take(torch.where(healthy, cap, -1), flat, flat < N,
+                         -1).reshape(perm.shape)
+            cmax = torch.cummax(capg, dim=2).values.contiguous()
+            idx = torch.searchsorted(
+                cmax, cr.expand(cmax.shape[:2] + cr.shape).contiguous())
+            ok = idx < nmax
+            pb = pue_sorted.gather(2, idx.clamp(0, nmax - 1))
+            best_ge = torch.where(ok, pb * ci_col_r[:, :, None],
+                                  inf).amin(1)                   # (L, C+1)
+            s_chips = _take(chips_d, slot_jid.clamp(min=0), stay_mask, 0)
+            br = best_ge.gather(1, s_chips.clamp(0, chips_max))
+            rate_cur = _take(rate, slot_node, stay_mask, inf)
+            remaining = (slot_end - t).clamp(min=0).to(torch.float32)
+            chips_f = s_chips.to(torch.float32)
+            gain = policylib.migration_gain(
+                torch, pcfg, rate_cur=rate_cur, best_rate=br, chips=chips_f,
+                remaining=remaining, e_kwh_h=arrs["en_ekwh"][:, None],
+                ckpt=arrs["en_ckpt"][:, None] * chips_f,
+                green_gate=arrs["green_gate"][:, None])
+            # (-gain, job id) order by two stable sorts, minor key first;
+            # only gain > 0 is ever moved, so the order of ±0.0 ties (which
+            # torch's sort and XLA's differ on) cannot change a mover
+            mk1 = torch.where(stay_mask, -gain, inf)
+            mk2 = torch.where(stay_mask, slot_jid, INT_MAX)
+            o2 = torch.sort(mk2, dim=1, stable=True).indices
+            o1 = torch.sort(mk1.gather(1, o2), dim=1, stable=True).indices
+            mig_slot = o2.gather(1, o1)[:, :budget]
+            mig_ok = stay_mask.gather(1, mig_slot) \
+                & (gain.gather(1, mig_slot) > 0.0)
+            migrations_t = mig_ok.sum(1)
+            mnode = slot_node.gather(1, mig_slot).clamp(0, N - 1)
+            mchip = chips_d.gather(1, slot_jid.gather(1, mig_slot).clamp(
+                min=0))
+            mc_vec = torch.where(
+                mig_ok, arrs["en_ckpt"][:, None] * mchip.to(torch.float32)
+                * pue.gather(1, mnode) * ci_col.gather(1, mnode), 0.0)
+            mig_cost_t = mc_vec.sum(1)
+            seg_slot.append(mig_slot)
+            seg_ok.append(mig_ok)
+        if m_cap > 0:
+            mov_slot = torch.cat(seg_slot, dim=1)
+            mov_ok = torch.cat(seg_ok, dim=1)
+            mov_jid = _take(slot_jid, mov_slot, mov_ok, -1)
+            mov_old = _take(slot_node, mov_slot, mov_ok, -1)
+            mov_chips = _take(chips_d, mov_jid.clamp(min=0), mov_ok, 0)
+            njobs = _scatter_drop(njobs, torch.where(mov_ok, mov_old, N),
+                                  -1, add=True)
+        else:
+            mov_slot = mov_jid = mov_old = mov_chips = empty
+            mov_ok = empty.to(torch.bool)
+
+        # ---- 3. release credits, the compacted arrival stream -----------
+        strag = arrs["straggler"] + dims.consolidate \
+            * (njobs == 0).to(torch.float32)
+        cap_start = _scatter_drop(
+            cap, torch.where(rel_valid, rel_node, N), rel_chips, add=True)
+        cap_start = _scatter_drop(
+            cap_start, torch.where(mov_ok, mov_old, N), mov_chips, add=True)
+        arr_row = arrs["arr_ids"][:, t]
+        narr_jid = torch.cat([defer_ids, arr_row], 1) if has_defer \
+            else arr_row
+        narr_chips = _take(chips_d, narr_jid.clamp(min=0), narr_jid >= 0, 0)
+        dem_full = torch.cat([mov_chips, narr_chips], dim=1)
+        # pads are exact no-ops for the engine, so it walks only the real
+        # arrivals (order kept) and stops at their count
+        ev_idx = _nonzero_sized(dem_full > 0, EV, EV)
+        n_ev = (dem_full > 0).sum(1)
+        dem = _take(dem_full, ev_idx, ev_idx < EV, 0)
+        if use_forecast:
+            ci_fc = arrs["ci_fc_r"][:, t].gather(1, ridx)
+            fut_rate = arrs["fut"][:, t]
+        else:
+            ci_fc = ci_col
+            fut_rate = torch.full((L,), inf, device=dev)
+        cur_rate = torch.where(healthy, ci_col * pue, inf).amin(1)
+        return dict(cap_ctx=cap, ci_col=ci_col, ci_fc=ci_fc, healthy=healthy,
+                    strag=strag, cap_start=cap_start, dem=dem, n_ev=n_ev,
+                    ev_idx=ev_idx, fut_rate=fut_rate, cur_rate=cur_rate,
+                    njobs=njobs, slot_jid=slot_jid, slot_node=slot_node,
+                    slot_end=slot_end, mov_slot=mov_slot, mov_jid=mov_jid,
+                    narr_jid=narr_jid, narr_chips=narr_chips,
+                    completed_t=completed_t, evictions_t=evictions_t,
+                    migrations_t=migrations_t,
+                    mig_cost=mig_cost + mig_cost_t, overflow=overflow)
+
+    def epoch_post(mid, t, out_c, cap2, n_sw):
+        slot_jid, slot_node = mid["slot_jid"], mid["slot_node"]
+        slot_end, njobs = mid["slot_end"], mid["njobs"]
+        mov_slot, mov_jid = mid["mov_slot"], mid["mov_jid"]
+        narr_jid, narr_chips = mid["narr_jid"], mid["narr_chips"]
+        overflow = mid["overflow"]
+        out = _scatter_drop(torch.full((L, EV), -1, **i64), mid["ev_idx"],
+                            out_c, add=False)
+
+        # ---- 4. record outcomes ------------------------------------------
+        green = policylib.wants_defer(mid["fut_rate"], mid["cur_rate"],
+                                      arrs["green_factor"])
+        placed_t = dropped_t = torch.zeros(L, **i64)
+        if m_cap > 0:
+            mnode_new = out[:, :m_cap]
+            mov_win = (mov_jid >= 0) & (mnode_new >= 0)
+            mov_fail = (mov_jid >= 0) & (mnode_new < 0)
+            slot_node = _scatter_drop(
+                slot_node, torch.where(mov_win, mov_slot, S), mnode_new,
+                add=False)
+            slot_jid = _scatter_drop(
+                slot_jid, torch.where(mov_fail, mov_slot, S), -1, add=False)
+            njobs = _scatter_drop(njobs, torch.where(mov_win, mnode_new, N),
+                                  1, add=True)
+            placed_t = placed_t + mov_win.sum(1)
+            dropped_t = dropped_t + mov_fail.sum(1)
+            ys_mov_node = torch.where(mov_win, mnode_new, -1)
+        else:
+            ys_mov_node = empty
+        nnode = out[:, m_cap:]
+        valid = narr_jid >= 0
+        jsafe = narr_jid.clamp(min=0)
+        if has_defer:
+            in_win = (t - arrs["arrive"].gather(1, jsafe)) < dims.defer_max_h
+            can_defer = valid & arrs["deferrable"].gather(1, jsafe) & in_win
+            takeback = can_defer & green[:, None] & (nnode >= 0)
+            defer_again = takeback | (can_defer & (nnode < 0))
+            # taken-back placements release their chips again (the host
+            # loop's pure-release redo call == a scatter)
+            cap2 = _scatter_drop(cap2, torch.where(takeback, nnode, N),
+                                 narr_chips, add=True)
+            deferred_t = defer_again.sum(1)
+            didx = _nonzero_sized(defer_again, d_cap, n_narr)
+            defer_ids = _take(narr_jid, didx, didx < n_narr, -1)
+            overflow = overflow + (deferred_t - d_cap).clamp(min=0)
+        else:
+            takeback = defer_again = torch.zeros_like(valid)
+            deferred_t = torch.zeros(L, **i64)
+            defer_ids = torch.full((L, d_cap), -1, **i64)
+        place_new = valid & (nnode >= 0) & ~takeback
+        drop_new = valid & (nnode < 0) & ~defer_again
+        # a dropped job is a deadline miss only if it ever had start slack
+        # (the host counts pol.slack > 0, defer_max_h-gated)
+        slackable = arrs["deferrable"].gather(1, jsafe) \
+            if dims.defer_max_h > 0 else torch.zeros_like(valid)
+        miss_t = (drop_new & slackable).sum(1)
+        free_idx = _nonzero_sized(slot_jid < 0, alloc_cap, S)
+        rank = place_new.cumsum(1) - 1
+        tgt_slot = torch.where(place_new & (rank < alloc_cap),
+                               free_idx.gather(1, rank.clamp(0,
+                                                             alloc_cap - 1)),
+                               S)
+        overflow = overflow + (place_new & (tgt_slot >= S)).sum(1)
+        slot_jid = _scatter_drop(slot_jid, tgt_slot, narr_jid, add=False)
+        slot_node = _scatter_drop(slot_node, tgt_slot, nnode, add=False)
+        slot_end = _scatter_drop(slot_end, tgt_slot,
+                                 t + arrs["duration"].gather(1, jsafe),
+                                 add=False)
+        njobs = _scatter_drop(njobs, torch.where(place_new, nnode, N), 1,
+                              add=True)
+        placed_t = placed_t + place_new.sum(1)
+        dropped_t = dropped_t + drop_new.sum(1)
+
+        # ---- 5. emission accounting (f32 on the device) -------------------
+        on = (njobs > 0) if dims.power_off_idle \
+            else torch.ones((L, N), dtype=torch.bool, device=dev)
+        occ = 1.0 - cap2.to(torch.float32) \
+            / arrs["chips_total"].to(torch.float32).clamp(min=1.0)
+        energy = arrs["power_kw"] * (arrs["en_idle"][:, None]
+                                     + arrs["en_dyn"][:, None] * occ) * on
+        node_g = energy * pue * mid["ci_col"] \
+            + arrs["en_embodied"][:, None] * on
+        carry = (cap2, njobs, slot_jid, slot_node, slot_end, defer_ids,
+                 mid["mig_cost"], overflow)
+        ys = dict(e_t=node_g.sum(1), n_sw=n_sw,
+                  completed_t=mid["completed_t"], dropped_t=dropped_t,
+                  placed_t=placed_t, deferred_t=deferred_t,
+                  mig_t=mid["migrations_t"], evi_t=mid["evictions_t"],
+                  miss_t=miss_t, mov_jid=mov_jid, mov_node=ys_mov_node,
+                  new_jid=torch.where(place_new, narr_jid, -1),
+                  new_node=torch.where(place_new, nnode, -1),
+                  ov_t=overflow)
+        return carry, ys
+
+    st = (arrs["capacity"], torch.zeros((L, N), **i64),
+          torch.full((L, S), -1, **i64), torch.zeros((L, S), **i64),
+          torch.zeros((L, S), **i64), torch.full((L, d_cap), -1, **i64),
+          torch.zeros(L, dtype=torch.float32, device=dev),
+          torch.zeros(L, **i64))
+    ys_all = []
+    for t in range(T):
+        mid = epoch_pre(st, t)
+        # the Fleet _place_epoch builds, with (L, N) leaves
+        fleet = Fleet(ci_now=mid["ci_col"], ci_forecast=mid["ci_fc"],
+                      pue=pue, power_kw=arrs["power_kw"],
+                      capacity=mid["cap_ctx"], healthy=mid["healthy"],
+                      straggler_score=mid["strag"],
+                      flops_per_j=arrs["flops_per_j"],
+                      chips_total=arrs["chips_total"])
+        out_c, cap2, n_sw = place_lifecycle_batched(
+            fleet, mid["dem"], weights, horizon_h=1.0, engine=engine,
+            shortlist=shortlist, use_kernel=use_kernel,
+            capacity=mid["cap_start"], n_events=mid["n_ev"],
+            energy=energies, syncs=syncs)
+        st, ys = epoch_post(mid, t, out_c, cap2, n_sw)
+        ys_all.append(ys)
+    carry = [c.cpu().numpy() for c in st]
+    ys = {k: torch.stack([y[k] for y in ys_all], dim=1).cpu().numpy()
+          for k in ys_all[0]}
+    return carry, ys
+
+
+def _scan_result(run: _ScanRun, carry, ys, host_syncs: int) -> SimResult:
+    """Unpack one lane's (carry, ys) into a ``SimResult`` on the host."""
+    jobs, plan, T, J = run.jobs, run.plan, run.cfg.epochs, run.jobs.n
+    defer_f, mig_cost_f, overflow_f = carry[5], carry[6], carry[7]
+    if int(overflow_f) != 0:
+        bad = int(np.argmax(ys["ov_t"] > 0))  # first epoch whose cumulative
+        raise RuntimeError(                   # overflow count is nonzero
+            f"scanned simulator overflowed its static job-slot capacity "
+            f"S={plan.slots} at epoch {bad}: {int(overflow_f)} event(s) "
+            f"beyond ScanPlan(slots={plan.slots}, a_max={plan.a_max}, "
+            f"d_cap={plan.d_cap}, rel_cap={plan.rel_cap}, "
+            f"m_evict={plan.m_evict}).  The sound bound should never be "
+            f"exceeded — please report; as a workaround, rerun with "
+            f"SimConfig(scan_slots={plan.slots + int(overflow_f)}) to "
+            f"widen the job table")
+    series = ys["e_t"].astype(np.float64)
+    # replay the per-event placement log chronologically: within an epoch
+    # movers precede new arrivals (host step-4 order); a job appears at
+    # most once per epoch, so first/last occurrence give first/final node
+    ev_jid = np.concatenate([ys["mov_jid"], ys["new_jid"]], axis=1).ravel()
+    ev_node = np.concatenate([ys["mov_node"], ys["new_node"]],
+                             axis=1).ravel()
+    mask = (ev_jid >= 0) & (ev_node >= 0)
+    j_m, n_m = ev_jid[mask], ev_node[mask]
+    node_log = np.full(J, -1, np.int64)
+    first_node = np.full(J, -1, np.int64)
+    uniq, first_idx = np.unique(j_m, return_index=True)
+    first_node[uniq] = n_m[first_idx]
+    uniq_r, last_idx = np.unique(j_m[::-1], return_index=True)
+    node_log[uniq_r] = n_m[::-1][last_idx]
+    # a first placement always comes through the arrival stream, so the
+    # new-arrival log rows give the start epochs
+    new_jid, new_node = ys["new_jid"], ys["new_node"]
+    ep_rows = np.repeat(np.arange(T, dtype=np.int64), new_jid.shape[1])
+    nmask = (new_jid.ravel() >= 0) & (new_node.ravel() >= 0)
+    start_epoch = np.full(J, -1, np.int64)
+    uniq_s, first_s = np.unique(new_jid.ravel()[nmask], return_index=True)
+    start_epoch[uniq_s] = ep_rows[nmask][first_s]
+    started = start_epoch >= 0
+    delay_h = int((start_epoch[started]
+                   - np.asarray(jobs.arrive)[started]).sum())
+    # jobs still waiting in the deferral carry never ran -> dropped, and
+    # (every carried job has slack > 0) a deadline miss
+    still_q = int((defer_f >= 0).sum())
+    mig_cost = float(mig_cost_f)
+    return SimResult(
+        emissions_g=float(series.sum()) + mig_cost,
+        migration_cost_g=mig_cost,
+        rank_sweeps=int(ys["n_sw"].sum()),
+        arrivals_placed=int(ys["placed_t"].sum()),
+        jobs_completed=int(ys["completed_t"].sum()),
+        jobs_dropped=int(ys["dropped_t"].sum()) + still_q,
+        jobs_deferred=int(ys["deferred_t"].sum()),
+        migrations=int(ys["mig_t"].sum()),
+        evictions=int(ys["evi_t"].sum()),
+        node_log=node_log, first_node=first_node,
+        emissions_series=series,
+        deadline_misses=int(ys["miss_t"].sum()) + still_q,
+        defer_delay_h=delay_h,
+        jobs_active_end=int((carry[2] >= 0).sum()),
+        start_epoch=start_epoch, host_syncs=host_syncs)
+
+
+def _run_bucket(members, pad_plan: bool) -> list:
+    """One bucket of prepared runs as ONE batched trajectory; results in
+    member order."""
+    dims, jp, nmax = _shared_dims(members, pad_plan)
+    cache: dict = {}
+    built = [_build_arrs(m, dims, jp, nmax, cache) for m in members]
+    stacked = {k: torch.stack([b[k] for b in built]) for k in built[0]}
+    del built
+    syncs = HostSyncs()
+    carry, ys = _trajectory(stacked, members[0].statics, dims, syncs)
+    return [_scan_result(m, [c[l] for c in carry],
+                         {k: v[l] for k, v in ys.items()}, syncs.n)
+            for l, m in enumerate(members)]
+
+
+def simulate_fleet_scan(fleet0: Fleet, region_ci: np.ndarray,
+                        ridx: np.ndarray, cfg: SimConfig,
+                        jobs: Optional[JobSchedule] = None, *,
+                        pad_plan: bool = False) -> SimResult:
+    """``simulate_fleet`` with the epoch loop driven over a fixed-capacity
+    job-slot table and padded event buffers (``ScanPlan``) on
+    ``fleet0``'s device: the ensemble's trajectory at one lane.
+
+    Same trajectory semantics as the host loop for ``engine in
+    ("shortlist", "full")`` — arrivals, end-of-life releases, outage
+    evictions, budget/cost-model migration, deferrable batch jobs.  The
+    job bookkeeping is masked tensor code on the device, and the
+    accounting is f32 there; the placement events of each epoch go
+    through ``placement.place_lifecycle_batched``.
+
+    Equivalence contract (the reference's): placements (``node_log``,
+    ``first_node``), start epochs and every integer counter match the host
+    loop exactly; ``emissions_g``, ``emissions_series`` and
+    ``migration_cost_g`` to f32 accumulation tolerance (rel 1e-4; the host
+    loop accounts in f64 numpy).  Integer divergence could only come from
+    f32-vs-f64 near-ties in the migration-gain order or the deferral
+    green-hour test.  ``pad_plan`` rounds every buffer to ``_pad_bucket``
+    sizes (behaviour-neutral).  ``SimResult.host_syncs`` counts the reads
+    the device waited for."""
+    run = _prepare_scan_run(fleet0, region_ci, ridx, cfg, jobs, pad_plan)
+    return _run_bucket([run], pad_plan)[0]
+
+
+def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
+                            shard=False) -> list:
+    """Run an ensemble of trajectories as ONE batched trajectory per graph
+    bucket.
+
+    ``runs`` is a sequence of ``(fleet0, region_ci, ridx, cfg)`` or
+    ``(fleet0, region_ci, ridx, cfg, jobs)`` tuples — the arguments
+    ``simulate_fleet_scan`` takes; the result list matches input order and
+    each member equals ``simulate_fleet_scan`` on it (placements and every
+    integer counter exact, emissions to the f32 accounting's tolerance).
+
+    Members are grouped by ``_bucket_key`` (placement statics, epochs,
+    fleet/trace shapes, graph-shaping config fields, the policy's
+    ``graph_key`` and the device), so a threshold grid over one seed set is
+    a single bucket; within a bucket every input is stacked on a leading
+    lane axis and buffer sizes are the member-wise maxima.  Each epoch's
+    placement is one ``place_lifecycle_batched`` call for all lanes:
+    ``use_kernel=True`` lanes run one K4 launch per placement round.
+    ``shard`` (spreading lanes or the node axis over several devices) is
+    not ported."""
+    if shard:
+        raise NotImplementedError(
+            "simulate_fleet_ensemble(shard=...) — the ('e', 'n') device "
+            "mesh — is not ported to repro_torch yet (ROADMAP Queue 1 "
+            "item 1)")
+    preps = [_prepare_scan_run(spec[0], spec[1], spec[2], spec[3],
+                               spec[4] if len(spec) > 4 else None, pad_plan)
+             for spec in runs]
+    buckets: Dict[tuple, list] = {}
+    for i, p in enumerate(preps):
+        buckets.setdefault(_bucket_key(p), []).append(i)
+    results: list = [None] * len(preps)
+    for idxs in buckets.values():
+        for i, r in zip(idxs, _run_bucket([preps[i] for i in idxs],
+                                          pad_plan)):
+            results[i] = r
+    return results
+
+
+# ---------------------------------------------------------------------------
 # synthetic lifecycle fleet (traces + node arrays)
 # ---------------------------------------------------------------------------
 
@@ -586,6 +1352,101 @@ def synthetic_lifecycle_fleet(n: int, cfg: SimConfig,
         straggler_score=straggler, flops_per_j=flops,
         chips_total=np.full(n, chips_per_node))
     return fleet, traces, ridx
+
+
+# ---------------------------------------------------------------------------
+# policy Pareto sweep harness
+# ---------------------------------------------------------------------------
+
+
+def sweep_policies(cfg: SimConfig, policies, *, n: int = 1024,
+                   seeds=(0,), chips_per_node: int = 256,
+                   region: Optional[int] = None, ensemble: bool = True,
+                   shard=False, device: DeviceLike = None) -> list:
+    """Run a seed ensemble per policy through the scanned core and return
+    flat records for the carbon-vs-latency Pareto study.
+
+    ``policies`` maps name -> ``PolicyConfig`` (a dict or (name, cfg)
+    pairs); each (policy, seed) pair re-derives the fleet (on ``device``,
+    the card by default), traces and job schedule from
+    ``dataclasses.replace(cfg, seed=seed, policy=pcfg)``.  ``ensemble=True``
+    runs the whole grid through ``simulate_fleet_ensemble`` (points whose
+    policies share a ``graph_key`` become lanes of one batched
+    trajectory); ``ensemble=False`` runs ``simulate_fleet_scan`` point by
+    point.  Both pad the plans, and the records are equal either way.
+    Latency is reported as ``avg_start_delay_h`` (mean placement delay
+    over started jobs) and ``miss_rate`` (deadline misses over
+    slack-carrying jobs inside the horizon)."""
+    items = policies.items() if isinstance(policies, dict) else policies
+    fleet_cache: Dict[int, tuple] = {}   # fleet/traces depend on seed only
+    runs, metas = [], []
+    for name, pcfg in items:
+        for seed in seeds:
+            c = dataclasses.replace(cfg, seed=int(seed), policy=pcfg)
+            if int(seed) not in fleet_cache:
+                fleet_cache[int(seed)] = synthetic_lifecycle_fleet(
+                    n, c, chips_per_node=chips_per_node, region=region,
+                    device=device)
+            fleet, traces, ridx = fleet_cache[int(seed)]
+            jobs = generate_jobs(c)
+            runs.append((fleet, traces, ridx, c, jobs))
+            metas.append((name, int(seed), c, jobs))
+    if ensemble:
+        rs = simulate_fleet_ensemble(runs, pad_plan=True, shard=shard)
+    else:
+        if shard:
+            raise NotImplementedError(
+                "sweep_policies(shard=...) is not ported to repro_torch "
+                "yet (ROADMAP Queue 1 item 1)")
+        rs = [simulate_fleet_scan(f, t, ri, c, jobs=j, pad_plan=True)
+              for f, t, ri, c, j in runs]
+    records = []
+    for (name, seed, c, jobs), r in zip(metas, rs):
+        pol = Policy.for_jobs(c.policy, jobs.arrive, jobs.deferrable,
+                              c.defer_max_h, jobs.deadline, jobs.value)
+        in_h = np.asarray(jobs.arrive) < c.epochs
+        slo_jobs = int(((pol.slack > 0) & in_h).sum())
+        started = int((r.start_epoch >= 0).sum())
+        records.append({
+            "policy": name, "seed": seed, "n": n,
+            "epochs": c.epochs, "jobs": int(jobs.n),
+            "emissions_g": float(r.emissions_g),
+            "migration_cost_g": float(r.migration_cost_g),
+            "migrations": int(r.migrations),
+            "completed": int(r.jobs_completed),
+            "dropped": int(r.jobs_dropped),
+            "deferred": int(r.jobs_deferred),
+            "deadline_misses": int(r.deadline_misses),
+            "defer_delay_h": int(r.defer_delay_h),
+            "avg_start_delay_h": r.defer_delay_h / max(started, 1),
+            "miss_rate": r.deadline_misses / max(slo_jobs, 1),
+        })
+    return records
+
+
+def pareto_frontier(records: list, x: str = "avg_start_delay_h",
+                    y: str = "emissions_g") -> list:
+    """Seed-aggregate ``sweep_policies`` records per policy (mean) and
+    return the non-dominated carbon/latency frontier, sorted by ``x``
+    ascending — ``y`` strictly decreases along the result."""
+    by: Dict[str, list] = {}
+    for r in records:
+        by.setdefault(r["policy"], []).append(r)
+    pts = []
+    for name, rs in by.items():
+        p = {"policy": name,
+             "seeds": sorted(r["seed"] for r in rs),
+             "miss_rate": float(np.mean([r["miss_rate"] for r in rs]))}
+        p[x] = float(np.mean([r[x] for r in rs]))
+        p[y] = float(np.mean([r[y] for r in rs]))
+        pts.append(p)
+    pts.sort(key=lambda p: (p[x], p[y]))
+    front, best = [], np.inf
+    for p in pts:
+        if p[y] < best:
+            front.append(p)
+            best = p[y]
+    return front
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,26 @@
 // Fleet-scale MAIZ ranking (Eq. 2 + Eq. 1 + tile top-k) for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of src/repro/kernels/maizx_rank.py:
-//   K1 maiz_lohi  <- _lohi_kernel  (sweep 1: per-tile min/max of the Eq. 1
-//                                   terms, folded to the (R, 2) normalizers
-//                                   by the wrapper)
-//   K2 maiz_topk  <- _topk_kernel  (sweep 2: normalized weighted score per
-//                                   node + tile-local top-k by k rounds of
-//                                   lexicographic (score, index) argmin)
+// Replaces the four Pallas TPU kernels of src/repro/kernels/maizx_rank.py:
+//   K1 maiz_lohi    <- _lohi_kernel    (sweep 1: per-tile min/max of the
+//                                       Eq. 1 terms, folded to the (R, 2)
+//                                       normalizers by the wrapper)
+//   K2 maiz_topk    <- _topk_kernel    (sweep 2: normalized weighted score
+//                                       per node + tile-local top-k by k
+//                                       rounds of lexicographic (score,
+//                                       index) argmin)
+//   K3 maiz_lohi_b  <- _lohi_kernel_b  (K1 over a leading lane axis, a
+//                                       per-lane en block)
+//   K4 maiz_topk_b  <- _topk_kernel_b  (K2 over a leading lane axis, a
+//                                       per-lane lohi, shared weights)
 //
 // Layout: one block per 1024-node tile (the TPU kernel's (8, 128) block),
 // TPB = 256 threads, each owning NPT = 4 nodes at stride TPB so every load
 // is coalesced.  Nothing carries over between blocks, so the grid order is
-// free (the TPU grid's sequential order was never relied on).
+// free (the TPU grid's sequential order was never relied on).  The batched
+// kernels are the same templates with the lane on blockIdx.y: each block
+// offsets its stream, en, lohi and output pointers by its lane, so lane l
+// computes exactly what K1/K2 compute on lane l's arrays (one launch for
+// all lanes instead of L).
 //
 // Bound on an H100: both sweeps stream each node input once.  K1 reads 24
 // B/node (36 with the marginal streams pk/cap/ct) and writes only nt x R x 2
@@ -77,11 +86,29 @@ __device__ __forceinline__ void node_terms(const Streams& s, int64_t i, int r,
   }
 }
 
+// The lane's view of the node streams: every stream (L, n) row-major, so
+// lane l starts at l * n.  Absent marginal streams stay null.
+__device__ __forceinline__ Streams lane_streams(Streams s, int64_t off) {
+  return Streams{s.ec + off, s.pue + off, s.ci + off, s.fc + off,
+                 s.eff + off, s.sw + off, s.pk ? s.pk + off : nullptr,
+                 s.cap ? s.cap + off : nullptr, s.ct ? s.ct + off : nullptr};
+}
+
+// BATCHED = false is K1 (grid (nt, 1)); true is K3 (grid (nt, L), lane on
+// blockIdx.y, en (L, 4), lo/hi (L, nt, r)).
+template <bool BATCHED>
 __global__ void lohi_kernel(Streams s, int r, const float* __restrict__ en,
-                            int64_t n_valid, float* __restrict__ lo,
-                            float* __restrict__ hi) {
+                            int64_t n, int64_t n_valid,
+                            float* __restrict__ lo, float* __restrict__ hi) {
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
+  if (BATCHED) {
+    const int64_t lane = blockIdx.y;
+    s = lane_streams(s, lane * n);
+    if (en) en += lane * 4;
+    lo += lane * gridDim.x * r;
+    hi += lane * gridDim.x * r;
+  }
   float tlo[MAX_R], thi[MAX_R];
 #pragma unroll
   for (int q = 0; q < MAX_R; ++q) {
@@ -138,14 +165,28 @@ __device__ __forceinline__ void lex_min(float& s, int& p, float s2, int p2) {
   }
 }
 
+// BATCHED = false is K2 (grid (nt, 1)); true is K4 (grid (nt, L), lane on
+// blockIdx.y, en (L, 4), lohi (L, r, 2), scores (L, n), tmin/targ
+// (L, nt, k); the weights are shared).  targ holds lane-local node ids.
+template <bool BATCHED>
 __global__ void topk_kernel(Streams s, int r, const float* __restrict__ en,
                             const float* __restrict__ lohi,
-                            const float* __restrict__ w, int64_t n_valid,
-                            int k, float* __restrict__ scores,
+                            const float* __restrict__ w, int64_t n,
+                            int64_t n_valid, int k,
+                            float* __restrict__ scores,
                             float* __restrict__ tmin,
                             int* __restrict__ targ) {
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
+  if (BATCHED) {
+    const int64_t lane = blockIdx.y;
+    s = lane_streams(s, lane * n);
+    if (en) en += lane * 4;
+    lohi += lane * r * 2;
+    scores += lane * n;
+    tmin += lane * gridDim.x * k;
+    targ += lane * gridDim.x * k;
+  }
   // per-term (lo, reciprocal span) exactly as _tile_score's norm()
   float lo[MAX_R], rcp[MAX_R];
 #pragma unroll
@@ -222,8 +263,33 @@ Streams make_streams(const void* ec, const void* pue, const void* ci,
                  (const float*)pk, (const float*)cap, (const float*)ct};
 }
 
+template <bool BATCHED>
+int launch_lohi(const Streams& s, const void* en, int r, long long lanes,
+                long long n, long long n_valid, void* lo, void* hi,
+                void* stream) {
+  const dim3 grid((unsigned)(n / TILE), (unsigned)lanes);
+  lohi_kernel<BATCHED><<<grid, TPB, 0, (cudaStream_t)stream>>>(
+      s, r, (const float*)en, (int64_t)n, (int64_t)n_valid, (float*)lo,
+      (float*)hi);
+  return (int)cudaGetLastError();
+}
+
+template <bool BATCHED>
+int launch_topk(const Streams& s, const void* en, int r, const void* lohi,
+                const void* w, int k, long long lanes, long long n,
+                long long n_valid, void* scores, void* tmin, void* targ,
+                void* stream) {
+  const dim3 grid((unsigned)(n / TILE), (unsigned)lanes);
+  topk_kernel<BATCHED><<<grid, TPB, 0, (cudaStream_t)stream>>>(
+      s, r, (const float*)en, (const float*)lohi, (const float*)w,
+      (int64_t)n, (int64_t)n_valid, k, (float*)scores, (float*)tmin,
+      (int*)targ);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// K1: node streams (n,), en (4,) or null, lo/hi (n / 1024, r).
 extern "C" int maiz_lohi_launch(const void* ec, const void* pue,
                                 const void* ci, const void* fc,
                                 const void* eff, const void* sw,
@@ -231,13 +297,12 @@ extern "C" int maiz_lohi_launch(const void* ec, const void* pue,
                                 const void* ct, const void* en, int r,
                                 long long n, long long n_valid, void* lo,
                                 void* hi, void* stream) {
-  const int nt = (int)(n / TILE);
-  lohi_kernel<<<nt, TPB, 0, (cudaStream_t)stream>>>(
-      make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct), r,
-      (const float*)en, (int64_t)n_valid, (float*)lo, (float*)hi);
-  return (int)cudaGetLastError();
+  const Streams s = make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct);
+  return launch_lohi<false>(s, en, r, 1, n, n_valid, lo, hi, stream);
 }
 
+// K2: node streams (n,), lohi (r, 2), w (4,), scores (n,), tmin/targ
+// (n / 1024, k).
 extern "C" int maiz_topk_launch(const void* ec, const void* pue,
                                 const void* ci, const void* fc,
                                 const void* eff, const void* sw,
@@ -246,10 +311,37 @@ extern "C" int maiz_topk_launch(const void* ec, const void* pue,
                                 const void* lohi, const void* w, int k,
                                 long long n, long long n_valid, void* scores,
                                 void* tmin, void* targ, void* stream) {
-  const int nt = (int)(n / TILE);
-  topk_kernel<<<nt, TPB, 0, (cudaStream_t)stream>>>(
-      make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct), r,
-      (const float*)en, (const float*)lohi, (const float*)w,
-      (int64_t)n_valid, k, (float*)scores, (float*)tmin, (int*)targ);
-  return (int)cudaGetLastError();
+  const Streams s = make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct);
+  return launch_topk<false>(s, en, r, lohi, w, k, 1, n, n_valid, scores, tmin,
+                            targ, stream);
+}
+
+// K3: node streams (lanes, n), en (lanes, 4) or null, lo/hi
+// (lanes, n / 1024, r).
+extern "C" int maiz_lohi_b_launch(const void* ec, const void* pue,
+                                  const void* ci, const void* fc,
+                                  const void* eff, const void* sw,
+                                  const void* pk, const void* cap,
+                                  const void* ct, const void* en, int r,
+                                  long long lanes, long long n,
+                                  long long n_valid, void* lo, void* hi,
+                                  void* stream) {
+  const Streams s = make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct);
+  return launch_lohi<true>(s, en, r, lanes, n, n_valid, lo, hi, stream);
+}
+
+// K4: node streams (lanes, n), lohi (lanes, r, 2), w (4,), scores
+// (lanes, n), tmin/targ (lanes, n / 1024, k).
+extern "C" int maiz_topk_b_launch(const void* ec, const void* pue,
+                                  const void* ci, const void* fc,
+                                  const void* eff, const void* sw,
+                                  const void* pk, const void* cap,
+                                  const void* ct, const void* en, int r,
+                                  const void* lohi, const void* w, int k,
+                                  long long lanes, long long n,
+                                  long long n_valid, void* scores,
+                                  void* tmin, void* targ, void* stream) {
+  const Streams s = make_streams(ec, pue, ci, fc, eff, sw, pk, cap, ct);
+  return launch_topk<true>(s, en, r, lohi, w, k, lanes, n, n_valid, scores,
+                           tmin, targ, stream);
 }

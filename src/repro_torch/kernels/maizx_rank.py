@@ -11,6 +11,11 @@ K2 ``maiz_topk`` (replaces ``_topk_kernel``) — per node the normalized
     weighted score; per tile the local top-k by k rounds of lexicographic
     (score, index) min extraction, lowest index first on ties.
 
+K3 ``maiz_lohi_b`` / K4 ``maiz_topk_b`` (replace ``_lohi_kernel_b`` /
+    ``_topk_kernel_b``) — K1/K2 over a leading lane axis in one launch:
+    node streams (L, N), per-lane ``en`` (L, 4) and ``lohi`` (L, R, 2),
+    shared weights.  Each lane is bitwise what K1/K2 give on that lane.
+
 R = 5 when the marginal-CFP streams (``pk``/``cap``/``ct`` plus the (4,)
 ``en = [idle_frac, dyn_frac, embodied·horizon, w_marginal]``) are given,
 else 4.  The kernels are CUDA C++ for ``sm_90a`` in ``csrc/maizx_rank.cu``
@@ -18,9 +23,10 @@ else 4.  The kernels are CUDA C++ for ``sm_90a`` in ``csrc/maizx_rank.cu``
 into ``build/repro_torch_kernels/`` and bound with ``ctypes``.
 
 Each wrapper dispatches on the device of its inputs: CPU tensors go to the
-plain torch twin (``maiz_lohi_plain``/``maiz_topk_plain``), CUDA tensors to
-the kernel, which is built or the call raises.  ``launches`` on each wrapper
-counts kernel launches (plain-twin calls do not count).
+plain torch twin (``maiz_lohi_plain``/``maiz_topk_plain`` and their ``_b``
+forms), CUDA tensors to the kernel, which is built or the call raises.
+``launches`` on each wrapper counts kernel launches (plain-twin calls do
+not count).
 """
 from __future__ import annotations
 
@@ -65,6 +71,13 @@ def _check_tile_k(k: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+# The twins take node streams (N,) or (L, N); ``en`` (4,) or (L, 4) and
+# ``lohi`` (R, 2) or (L, R, 2) follow.  ``x[..., i:i + 1]`` picks a
+# per-lane scalar as an (L, 1) column that broadcasts against the lane's
+# row (a (1,) slice without lanes), so every element sees the same ops in
+# the same order with or without the lane axis.
+
+
 def _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en):
     """The Eq. 1 terms in the kernel's op order (``_tile_terms`` and
     ``_tile_mcfp`` of the reference)."""
@@ -74,8 +87,8 @@ def _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en):
         an = pk * pue
         an = an * ci
         inv = torch.reciprocal(torch.clamp_min(ct, 1.0))
-        m_dyn = an * inv * en[1]
-        m_wake = an * en[0] + en[2]
+        m_dyn = an * inv * en[..., 1:2]
+        m_wake = an * en[..., 0:1] + en[..., 2:3]
         terms.append(m_dyn + torch.where(cap == ct, m_wake, 0.0))
     return terms
 
@@ -87,15 +100,16 @@ def _valid(n: int, n_valid: int, device) -> torch.Tensor:
 def maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
                     cap=None, ct=None, en=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's plain twin: per-tile (lo, hi), each (nt, R) f32."""
-    n = ec.shape[0]
-    nt = n // TILE
+    """K1's plain twin: per-tile (lo, hi), each (nt, R) f32 ((L, nt, R)
+    for (L, N) streams)."""
+    n = ec.shape[-1]
+    tiles = ec.shape[:-1] + (n // TILE, TILE)
     valid = _valid(n, n_valid, ec.device)
     terms = _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en)
-    lo = torch.stack([torch.where(valid, t, _BIG).reshape(nt, TILE).amin(1)
-                      for t in terms], dim=1)
-    hi = torch.stack([torch.where(valid, t, -_BIG).reshape(nt, TILE).amax(1)
-                      for t in terms], dim=1)
+    lo = torch.stack([torch.where(valid, t, _BIG).reshape(tiles).amin(-1)
+                      for t in terms], dim=-1)
+    hi = torch.stack([torch.where(valid, t, -_BIG).reshape(tiles).amax(-1)
+                      for t in terms], dim=-1)
     return lo, hi
 
 
@@ -104,7 +118,7 @@ def _scores_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi, w, pk, cap, ct,
     terms = _terms(ec, pue, ci, fc, eff, sw, pk, cap, ct, en)
 
     def norm(x, i):
-        lo, hi = lohi[i, 0], lohi[i, 1]
+        lo, hi = lohi[..., i, 0:1], lohi[..., i, 1:2]
         span = hi - lo
         rcp = torch.where(span > 1e-12,
                           torch.reciprocal(torch.clamp_min(span, 1e-12)), 0.0)
@@ -114,8 +128,8 @@ def _scores_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi, w, pk, cap, ct,
              + w[2] * (1.0 - norm(terms[2], 2)) + w[3] * norm(terms[3], 3))
     if en is not None:
         # select-then-add: with w_m == 0 this adds ±0.0, a bitwise no-op
-        score = score + en[3] * norm(terms[4], 4)
-    return torch.where(_valid(ec.shape[0], n_valid, ec.device), score,
+        score = score + en[..., 3:4] * norm(terms[4], 4)
+    return torch.where(_valid(ec.shape[-1], n_valid, ec.device), score,
                        torch.inf)
 
 
@@ -123,11 +137,14 @@ def _tile_topk_plain(scores: torch.Tensor, k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k rounds of min extraction per tile, literally ``_tile_topk``: the
     winner is set to +inf, so a tile with fewer than k finite scores keeps
-    re-selecting the lowest id that holds +inf."""
-    nt = scores.shape[0] // TILE
-    cur = scores.reshape(nt, TILE).clone()
+    re-selecting the lowest id that holds +inf.  ``scores`` (..., N) ->
+    (..., nt, k) each; node ids are local to their lane."""
+    lead, n = scores.shape[:-1], scores.shape[-1]
+    nt = n // TILE
+    cur = scores.reshape(-1, TILE).clone()
     fids = torch.arange(TILE, device=scores.device, dtype=torch.int32)
-    base = torch.arange(nt, device=scores.device, dtype=torch.int32) * TILE
+    base = (torch.arange(cur.shape[0], device=scores.device,
+                         dtype=torch.int32) % nt) * TILE
     tmin, targ = [], []
     for _ in range(k):
         m = cur.amin(1, keepdim=True)
@@ -135,17 +152,55 @@ def _tile_topk_plain(scores: torch.Tensor, k: int
         tmin.append(m[:, 0])
         targ.append(pos[:, 0] + base)
         cur = torch.where(fids == pos, torch.inf, cur)
-    return torch.stack(tmin, 1), torch.stack(targ, 1)
+    shape = lead + (nt, k)
+    return torch.stack(tmin, 1).reshape(shape), \
+        torch.stack(targ, 1).reshape(shape)
 
 
 def maiz_topk_plain(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights,
                     *, k: int, pk=None, cap=None, ct=None, en=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's plain twin: (scores (N,), tmin (nt, k) f32, targ (nt, k) i32)."""
+    """K2's plain twin: (scores (N,), tmin (nt, k) f32, targ (nt, k) i32),
+    each with a leading lane axis for (L, N) streams."""
     scores = _scores_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi, weights,
                            pk, cap, ct, en)
     tmin, targ = _tile_topk_plain(scores, k)
     return scores, tmin, targ
+
+
+def maiz_lohi_plain_b(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
+                      cap=None, ct=None, en=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's plain twin: (L, N) streams, ``en`` (L, 4) -> per-tile (lo, hi),
+    each (L, nt, R)."""
+    _check_lanes(ec, en, None)
+    return maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
+                           cap=cap, ct=ct, en=en)
+
+
+def maiz_topk_plain_b(ec, pue, ci, fc, eff, sw, n_valid: int, lohi,
+                      weights, *, k: int, pk=None, cap=None, ct=None,
+                      en=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's plain twin: (L, N) streams, ``lohi`` (L, R, 2), shared
+    ``weights`` (4,) -> (scores (L, N), tmin (L, nt, k), targ (L, nt, k))."""
+    _check_lanes(ec, en, lohi)
+    return maiz_topk_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi,
+                           weights, k=k, pk=pk, cap=cap, ct=ct, en=en)
+
+
+def _check_lanes(ec, en, lohi) -> None:
+    """The batched forms take (L, N) streams with per-lane en/lohi."""
+    if ec.dim() != 2:
+        raise ValueError(f"batched rank kernels take (L, N) node streams; "
+                         f"got {tuple(ec.shape)}")
+    L = ec.shape[0]
+    if en is not None and tuple(en.shape) != (L, 4):
+        raise ValueError(f"en must be ({L}, 4); got {tuple(en.shape)}")
+    r = 5 if en is not None else 4
+    if lohi is not None and tuple(lohi.shape) != (L, r, 2):
+        raise ValueError(f"lohi must be ({L}, {r}, 2); got "
+                         f"{tuple(lohi.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +256,11 @@ def _lib() -> ctypes.CDLL:
         lib.maiz_topk_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll]
                                          + [p] * 4)
         lib.maiz_topk_launch.restype = i
+        lib.maiz_lohi_b_launch.argtypes = [p] * 10 + [i, ll, ll, ll, p, p, p]
+        lib.maiz_lohi_b_launch.restype = i
+        lib.maiz_topk_b_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll, ll]
+                                           + [p] * 4)
+        lib.maiz_topk_b_launch.restype = i
         _LIB = lib
     return _LIB
 
@@ -211,9 +271,10 @@ def _check(status: int, name: str) -> None:
 
 
 def _kernel_args(streams, extra):
-    """Validate the node streams for a launch and return their pointers
-    (null for absent marginal streams)."""
-    n = streams[0].shape[0]
+    """Validate the node streams for a launch, all (N,) or all (L, N), and
+    return (N, their pointers) (null for absent marginal streams)."""
+    shape = tuple(streams[0].shape)
+    n = shape[-1]
     if n % TILE:
         raise ValueError(f"node arrays must be padded to {TILE}: N={n}")
     ptrs = []
@@ -222,9 +283,9 @@ def _kernel_args(streams, extra):
             ptrs.append(None)
             continue
         if (x.device.type != "cuda" or x.dtype != torch.float32
-                or not x.is_contiguous() or x.shape != (n,)):
+                or not x.is_contiguous() or tuple(x.shape) != shape):
             raise ValueError("rank kernel streams must be contiguous f32 "
-                             f"(N,) CUDA tensors; got {x.dtype} "
+                             f"{shape} CUDA tensors; got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
         ptrs.append(x.data_ptr())
     return n, ptrs
@@ -307,10 +368,86 @@ def maiz_topk(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights, *,
     return scores, tmin, targ
 
 
-maiz_lohi.launches = 0
-maiz_topk.launches = 0
+# one launch handles at most this many lanes (the grid's y dimension)
+MAX_LANES = 65535
+
+
+def maiz_lohi_b(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
+                cap=None, ct=None, en=None) -> torch.Tensor:
+    """Batched sweep 1: node arrays (L, N) with N % 1024 == 0, ``en``
+    (L, 4) -> the per-lane (L, R, 2) lo/hi in one launch."""
+    if ec.device.type == "cpu":
+        lo, hi = maiz_lohi_plain_b(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
+                                   cap=cap, ct=ct, en=en)
+    else:
+        lo, hi = maiz_lohi_tiles_b(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
+                                   cap=cap, ct=ct, en=en)
+    return torch.stack([lo.amin(1), hi.amax(1)], dim=-1)
+
+
+def maiz_lohi_tiles_b(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
+                      cap=None, ct=None, en=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K3: per-lane, per-tile (lo, hi), each (L, nt, R)."""
+    _check_lanes(ec, en, None)
+    L = ec.shape[0]
+    if not 1 <= L <= MAX_LANES:
+        raise ValueError(f"{L} lanes is outside [1, {MAX_LANES}]")
+    r = 5 if en is not None else 4
+    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
+    en_p = _small(en, (L, 4), "en")
+    nt = n // TILE
+    lo = torch.empty((L, nt, r), dtype=torch.float32, device=ec.device)
+    hi = torch.empty_like(lo)
+    stream = torch.cuda.current_stream(ec.device).cuda_stream
+    _check(_lib().maiz_lohi_b_launch(*ptrs, en_p, r, L, n, int(n_valid),
+                                     lo.data_ptr(), hi.data_ptr(), stream),
+           "maiz_lohi_b")
+    maiz_lohi_b.launches += 1
+    return lo, hi
+
+
+def maiz_topk_b(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights, *,
+                k: int, pk=None, cap=None, ct=None, en=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched sweep 2: node arrays (L, N), ``lohi`` (L, R, 2), shared
+    ``weights`` (4,), ``en`` (L, 4).  Returns (scores (L, N), tmin
+    (L, nt, k), targ (L, nt, k)) from one launch; each lane equals
+    ``maiz_topk`` on that lane."""
+    _check_tile_k(k)
+    _check_lanes(ec, en, lohi)
+    if ec.device.type == "cpu":
+        return maiz_topk_plain_b(ec, pue, ci, fc, eff, sw, n_valid, lohi,
+                                 weights, k=k, pk=pk, cap=cap, ct=ct, en=en)
+    L = ec.shape[0]
+    if not 1 <= L <= MAX_LANES:
+        raise ValueError(f"{L} lanes is outside [1, {MAX_LANES}]")
+    r = 5 if en is not None else 4
+    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
+    en_p = _small(en, (L, 4), "en")
+    lohi_p = _small(lohi, (L, r, 2), "lohi")
+    w_p = _small(weights, (4,), "weights")
+    nt = n // TILE
+    dev = ec.device
+    scores = torch.empty((L, n), dtype=torch.float32, device=dev)
+    tmin = torch.empty((L, nt, k), dtype=torch.float32, device=dev)
+    targ = torch.empty((L, nt, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check(_lib().maiz_topk_b_launch(*ptrs, en_p, r, lohi_p, w_p, k, L, n,
+                                     int(n_valid), scores.data_ptr(),
+                                     tmin.data_ptr(), targ.data_ptr(),
+                                     stream),
+           "maiz_topk_b")
+    maiz_topk_b.launches += 1
+    return scores, tmin, targ
+
+
+WRAPPERS = (maiz_lohi, maiz_topk, maiz_lohi_b, maiz_topk_b)
 
 
 def reset_launch_counts() -> None:
-    maiz_lohi.launches = 0
-    maiz_topk.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()

@@ -9,16 +9,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.maizx_rank import (MAX_TILE_K, TILE, maiz_lohi,
-                                            maiz_topk)
+                                            maiz_lohi_b, maiz_topk,
+                                            maiz_topk_b)
 
 
 def lex_head(values: torch.Tensor, k: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first ``k`` of ``values`` in (value, position) order: a stable
-    ascending sort keeps the lower position first on ties, which is
-    ``lax.top_k(-values, k)``'s rule."""
-    order = torch.sort(values, stable=True).indices[:k]
-    return values[order], order
+    """The first ``k`` of ``values`` along the last axis in (value,
+    position) order: a stable ascending sort keeps the lower position first
+    on ties, which is ``lax.top_k(-values, k)``'s rule."""
+    order = torch.sort(values, dim=-1, stable=True).indices[..., :k]
+    return values.gather(-1, order), order
 
 
 def maiz_ranking_topk(ec, pue, ci_now, ci_fc, eff, sched, weights, *,
@@ -66,6 +67,51 @@ def maiz_ranking_topk(ec, pue, ci_now, ci_fc, eff, sched, weights, *,
     # keeps the global (score, node) order
     top_s, pos = lex_head(tmin.reshape(-1), k_out)
     return scores, top_s, targ.reshape(-1)[pos]
+
+
+def maiz_ranking_topk_batched(ec, pue, ci_now, ci_fc, eff, sched, weights,
+                              *, k: int = 16,
+                              lohi: Optional[torch.Tensor] = None,
+                              pk: Optional[torch.Tensor] = None,
+                              cap: Optional[torch.Tensor] = None,
+                              chips_total: Optional[torch.Tensor] = None,
+                              en: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``maiz_ranking_topk`` over a leading ensemble-lane axis.
+
+    Node arrays (L, N), shared ``weights`` (4,), optional per-lane ``lohi``
+    (L, R, 2) and marginal streams (``pk``/``cap``/``chips_total`` (L, N),
+    ``en`` (L, 4)).  Sweep 1 (without ``lohi``) and sweep 2 are one launch
+    each for all lanes; each lane's tile candidates are merged in (score,
+    node index) order.  Each lane's (scores, topk_scores, topk_nodes) equals
+    ``maiz_ranking_topk`` on that lane."""
+    L, n = ec.shape
+    k_out = min(k, n)
+    k_tile = min(k_out, MAX_TILE_K)
+    pad = (-n) % TILE
+
+    def padded(x):
+        return F.pad(x.to(torch.float32), (0, pad)).contiguous()
+
+    args = tuple(padded(a) for a in (ec, pue, ci_now, ci_fc, eff, sched))
+    mkw = {}
+    if en is not None:
+        mkw = dict(pk=padded(pk), cap=padded(cap), ct=padded(chips_total),
+                   en=en.to(torch.float32).contiguous())
+    if lohi is None:
+        lohi = maiz_lohi_b(*args, n, **mkw)
+    scores, tmin, targ = maiz_topk_b(
+        *args, n, lohi.contiguous(), weights.to(torch.float32).contiguous(),
+        k=k_tile, **mkw)
+    scores = scores[:, :n]
+    if k_out > k_tile:
+        # the same oversized-shortlist merge as the sequential wrapper, per
+        # lane from the full score rows
+        top_s, pos = lex_head(scores, k_out)
+        return scores, top_s, pos.to(torch.int32)
+    top_s, pos = lex_head(tmin.reshape(L, -1), k_out)
+    return scores, top_s, targ.reshape(L, -1).gather(1, pos)
 
 
 def maiz_ranking_fused(ec, pue, ci_now, ci_fc, eff, sched, weights

@@ -1,13 +1,19 @@
-"""The port's CUDA rank kernels on the card: K1/K2 bitwise equal to their
-plain torch twins (on the same card, and on the CPU), and the placement
-engine's kernel path equal to its CPU path.  Skips without a GPU; run on
-the card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+"""The port's CUDA rank kernels on the card: K1/K2 and the batched K3/K4
+bitwise equal to their plain torch twins (on the same card, and on the
+CPU), each K3/K4 lane equal to K1/K2 on that lane, and the placement
+engines' and the ensemble's kernel paths equal to their CPU paths.
+Skips without a GPU; run on the card with ``python -m pytest -q -m cuda
+tests/test_torch_cuda.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import fleet as fleetlib
 from repro_torch.core import placement as P
+from repro_torch.core import simulator as S
+from repro_torch.core.ranking import RankWeights
 from repro_torch.kernels import maizx_rank as mr
 from repro_torch.kernels import ops
 
@@ -107,3 +113,74 @@ def test_placement_kernel_path_equals_cpu_path(dev):
     _eq(a.capacity, b.capacity)
     assert a.n_sweeps == b.n_sweeps
     _eq(P.place_jobs_shortlist(f_gpu, demands, shortlist=16).node, c.node)
+
+
+def _lane_streams(L, n, seed, dev, marginal):
+    per = [_streams(n, seed + l, dev, marginal) for l in range(L)]
+    s = [torch.stack([p[0][i] for p in per]) for i in range(6)]
+    kw = {k: torch.stack([p[1][k] for p in per]) for k in per[0][1]}
+    return s, kw
+
+
+@pytest.mark.parametrize("n,n_valid", [(3072, 3000), (66560, 65541)])
+@pytest.mark.parametrize("w_m", [None, 0.0, 0.3])
+@pytest.mark.parametrize("k", [1, 64])
+def test_batched_kernels_bitwise_equal_plain_and_sequential(dev, n, n_valid,
+                                                            w_m, k):
+    L = 3
+    s, kw = _lane_streams(L, n, n + k, dev, w_m is not None)
+    if w_m is not None:
+        kw["en"] = torch.tensor([[0.35, 0.65, 120.0, w_m],
+                                 [0.25, 0.75, 0.0, w_m],
+                                 [0.4, 0.6, 30.0, w_m]], device=dev)
+    mr.reset_launch_counts()
+    lo, hi = mr.maiz_lohi_tiles_b(*s, n_valid, **kw)
+    lo_p, hi_p = mr.maiz_lohi_plain_b(*s, n_valid, **kw)
+    _eq(lo, lo_p)
+    _eq(hi, hi_p)
+    lohi = torch.stack([lo.amin(1), hi.amax(1)], -1)
+    w = torch.tensor(W4, device=dev)
+    got = mr.maiz_topk_b(*s, n_valid, lohi, w, k=k, **kw)
+    want = mr.maiz_topk_plain_b(*s, n_valid, lohi, w, k=k, **kw)
+    for x, y in zip(got, want):
+        _eq(x, y)
+    assert mr.maiz_lohi_b.launches == 1 and mr.maiz_topk_b.launches == 1
+    for l in range(L):
+        lkw = {a: b[l].contiguous() for a, b in kw.items()}
+        lane = [x[l].contiguous() for x in s]
+        lo1, hi1 = mr.maiz_lohi_tiles(*lane, n_valid, **lkw)
+        _eq(lo[l], lo1)
+        _eq(hi[l], hi1)
+        for x, y in zip(got, mr.maiz_topk(*lane, n_valid, lohi[l], w, k=k,
+                                          **lkw)):
+            _eq(x[l], y)
+    torch.cuda.synchronize()
+
+
+def test_ensemble_kernel_lanes_equal_cpu_and_host_loop(dev):
+    """w2 = 0: the forecast (gels on the card, gelsd on the CPU) is not an
+    input, so the card's and the CPU's trajectories must agree."""
+    cfg = S.SimConfig(epochs=12, arrival_rate=6.0, mean_duration_h=6.0,
+                      shortlist=16, history_h=48, horizon_h=8,
+                      migration_budget=2, outage=(0, 4, 4), use_kernel=True,
+                      weights=RankWeights(0.35, 0.0, 0.5, 0.15))
+    out = {}
+    for d in (dev, "cpu"):
+        runs = []
+        for seed in (0, 1):
+            c = dataclasses.replace(cfg, seed=seed)
+            f, t, r = S.synthetic_lifecycle_fleet(2048, c, chips_per_node=64,
+                                                  device=d)
+            runs.append((f, t, r, c, S.generate_jobs(c)))
+        mr.reset_launch_counts()
+        out[str(d)] = S.simulate_fleet_ensemble(runs)
+        if d == dev:
+            assert mr.maiz_topk_b.launches > 0
+            host = [S.simulate_fleet(*spec[:4], jobs=spec[4])
+                    for spec in runs]
+    for a, b, h in zip(out[str(dev)], out["cpu"], host):
+        assert np.array_equal(a.node_log, b.node_log)
+        assert np.array_equal(a.start_epoch, b.start_epoch)
+        assert a.rank_sweeps == b.rank_sweeps
+        assert np.array_equal(a.node_log, h.node_log)
+        assert a.rank_sweeps == h.rank_sweeps

@@ -218,3 +218,134 @@ def test_cpu_path_never_counts_kernel_launches():
     ops.maiz_ranking_fused(*[torch.from_numpy(x) for x in s],
                            torch.from_numpy(W4))
     assert mr.maiz_lohi.launches == 0 and mr.maiz_topk.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: the batched twins over a leading lane axis
+# ---------------------------------------------------------------------------
+
+
+def _ulps(a, b) -> int:
+    """Largest distance in f32 units in the last place (0 = bitwise)."""
+    a = bits(a).astype(np.int64)
+    b = bits(b).astype(np.int64)
+    a = np.where(a < 0, -(a & 0x7FFFFFFF), a)
+    b = np.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int(np.abs(a - b).max())
+
+
+def _within_ulps_of_one(a, b, ulps=2):
+    """Equal infinities, finite values within ``ulps`` f32 ulps of 1.0:
+    the scores are weighted sums of terms normalized to [0, 1], so the
+    reference kernel's rounding gap is an absolute one (up to 4 ulp of a
+    0.03 score, ROADMAP Queue 3)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    fin = np.isfinite(b)
+    np.testing.assert_array_equal(a[~fin], b[~fin])
+    assert np.abs(a[fin] - b[fin]).max() <= ulps * np.finfo(np.float32).eps
+
+
+def _lanes(rng, L, n, marginal, w_m):
+    """(L, N) streams plus per-lane en rows (other idle/embodied per lane,
+    the same w_m)."""
+    per = [_streams(rng, n, marginal) for _ in range(L)]
+    s = [np.stack([p[0][i] for p in per]) for i in range(6)]
+    extra = en = None
+    if marginal:
+        extra = [np.stack([p[1][i] for p in per]) for i in range(3)]
+        en = np.asarray([[0.35, 0.65, 120.0, w_m], [0.25, 0.75, 0.0, w_m],
+                         [0.4, 0.6, 30.0, w_m]], np.float32)[:L]
+    return s, extra, en
+
+
+@pytest.mark.parametrize("n", [2048, 3000])
+@pytest.mark.parametrize("variant", ["4term", "5term_wm0", "5term_wm"])
+def test_k3_k4_plain_per_lane_and_against_pallas(n, variant):
+    """L = 3 lanes: each lane of the K3/K4 twins is bitwise the sequential
+    K1/K2 twins on that lane and the reference oracles; against the
+    reference's batched Pallas kernels in interpret mode, K3 is exact and
+    K4 within 2 ulp with tile candidate ids exact (the gap is the
+    reference kernel's own, ROADMAP Queue 3)."""
+    ref = load_reference()
+    L, k = 3, 8
+    marginal = variant != "4term"
+    rng = np.random.default_rng(n + len(variant))
+    s, extra, en = _lanes(rng, L, n, marginal, 0.3 if variant ==
+                          "5term_wm" else 0.0)
+    pad = (-n) % mr.TILE
+    args_p = [_pad(torch.from_numpy(x), pad) for x in s]
+    args_j = [jnp().pad(jnp().asarray(x), ((0, 0), (0, pad))) for x in s]
+    kw_p = kw_j = {}
+    if marginal:
+        kw_p = dict(pk=_pad(torch.from_numpy(extra[0]), pad),
+                    cap=_pad(torch.from_numpy(extra[1]), pad),
+                    ct=_pad(torch.from_numpy(extra[2]), pad),
+                    en=torch.from_numpy(en))
+        kw_j = dict(pk=jnp().pad(jnp().asarray(extra[0]), ((0, 0), (0, pad))),
+                    cap=jnp().pad(jnp().asarray(extra[1]), ((0, 0), (0, pad))),
+                    ct=jnp().pad(jnp().asarray(extra[2]), ((0, 0), (0, pad))),
+                    en=jnp().asarray(en))
+    n_valid = jnp().full((1, 1), n, jnp().int32)
+    lohi = mr.maiz_lohi_b(*args_p, n, **kw_p)
+    assert lohi.shape == (L, 5 if marginal else 4, 2)
+    assert _ulps(lohi, ref.maizx_rank.maiz_lohi_pallas_b(
+        *args_j, n_valid, interpret=True, **kw_j)) <= 1
+    w = torch.from_numpy(W4)
+    got = mr.maiz_topk_b(*args_p, n, lohi, w, k=k, **kw_p)
+    sc_j, tmin_j, targ_j = ref.maizx_rank.maiz_topk_pallas_b(
+        *args_j, n_valid, jnp().asarray(lohi.numpy()), jnp().asarray(W4),
+        k=k, interpret=True, **kw_j)
+    _within_ulps_of_one(got[0].numpy(), sc_j)
+    _within_ulps_of_one(got[1].numpy(), tmin_j)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(targ_j))
+    for l in range(L):
+        lane_p = [x[l] for x in args_p]
+        lkw = {a: (b[l]) for a, b in kw_p.items()}
+        lohi_l = mr.maiz_lohi(*lane_p, n, **lkw)
+        np.testing.assert_array_equal(bits(lohi[l]), bits(lohi_l))
+        for x, y in zip(got, mr.maiz_topk(*lane_p, n, lohi_l, w, k=k,
+                                          **lkw)):
+            np.testing.assert_array_equal(x[l].numpy().view(np.int32),
+                                          y.numpy().view(np.int32))
+        okw_p = okw_j = {}
+        if marginal:
+            okw_p = dict(pk=torch.from_numpy(extra[0][l]),
+                         cap=torch.from_numpy(extra[1][l]),
+                         chips_total=torch.from_numpy(extra[2][l]),
+                         en=torch.from_numpy(en[l]))
+            okw_j = {a: jnp().asarray(b.numpy()) for a, b in okw_p.items()}
+        lane_j = [jnp().asarray(x[l]) for x in s]
+        oracle_lohi = ref.kref.term_lohi(*lane_j, **okw_j)
+        np.testing.assert_array_equal(bits(lohi[l]), bits(oracle_lohi))
+        want, _, _ = ref.kref.maiz_ranking_ref(
+            *lane_j, oracle_lohi, jnp().asarray(W4), **okw_j)
+        np.testing.assert_array_equal(bits(got[0][l, :n]), bits(want))
+        # the merged shortlist: one batched call == the sequential wrapper
+        for kk in (16, 65):
+            a = ops.maiz_ranking_topk_batched(
+                *[torch.from_numpy(x) for x in s], w, k=kk,
+                **({} if not marginal else dict(
+                    pk=torch.from_numpy(extra[0]),
+                    cap=torch.from_numpy(extra[1]),
+                    chips_total=torch.from_numpy(extra[2]),
+                    en=torch.from_numpy(en))))
+            b = ops.maiz_ranking_topk(*[torch.from_numpy(x[l]) for x in s],
+                                      w, k=kk, **okw_p)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x[l].numpy().view(np.int32),
+                                              y.numpy().view(np.int32))
+
+
+def test_batched_wrappers_check_shapes_and_never_count_on_cpu():
+    mr.reset_launch_counts()
+    x = torch.ones(2, 1024)
+    lohi = mr.maiz_lohi_b(*[x] * 6, 1024)
+    mr.maiz_topk_b(*[x] * 6, 1024, lohi, torch.from_numpy(W4), k=4)
+    assert all(f.launches == 0 for f in mr.WRAPPERS)
+    with pytest.raises(ValueError, match=r"\(2, 4, 2\)"):
+        mr.maiz_topk_b(*[x] * 6, 1024, lohi[:, :3], torch.from_numpy(W4),
+                       k=4)
+    with pytest.raises(ValueError, match=r"\(L, N\)"):
+        mr.maiz_lohi_b(*[x[0]] * 6, 1024)
+    with pytest.raises(ValueError, match="MAX_TILE_K"):
+        mr.maiz_topk_b(*[x] * 6, 1024, lohi, torch.from_numpy(W4), k=65)

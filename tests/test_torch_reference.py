@@ -175,7 +175,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 @pytest.mark.parametrize("entry", ["synthetic_fleet", "lifecycle",
                                    "paper", "experiment", "convert",
-                                   "energy"])
+                                   "energy", "sweep"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     from repro_torch import convert
@@ -192,6 +192,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
         "convert": lambda: convert.fleet_from_numpy(
             {f: np.ones(4) for f in fleet.FIELDS}),
         "energy": lambda: energy.DEFAULT_ENERGY.device(),
+        "sweep": lambda: simulator.sweep_policies(
+            simulator.SimConfig(epochs=2, history_h=4, horizon_h=2),
+            {"reactive": simulator.PolicyConfig()}, n=8),
     }
     with pytest.raises(RuntimeError, match="device="):
         calls[entry]()
