@@ -25,9 +25,24 @@ outputs against the port's CPU path and the paper headline:
      65,536-node fleets (8 lanes, one bucket, K4 per placement round);
      every lane == its own ``simulate_fleet_scan`` and the host loop; the
      plain-sweep grid for comparison; a 96-node stream card == CPU
+ 10. K5 ``flash_attention`` / K6 ``selective_scan`` vs their plain
+     versions at the serving path's shapes (granite-3-2b's prefill
+     attention, falcon-mamba-7b's prefill scan) and at ragged shapes, f32
+     and bf16, within the JAX suite's bars; times beside the bound, the
+     plain version and (K5) ``scaled_dot_product_attention``
+ 11. serving at full width and depth: ``launch.serve.serve`` places the
+     replica with ``place_jobs`` on a 64-pod fleet and serves 8 requests
+     (2 batches of 4 slots, prompt 512, 32 new tokens, greedy) with
+     granite-3-2b (40 layers; K5 on every prefill layer) and
+     falcon-mamba-7b (64 layers; K6 on every prefill layer), random
+     weights from a seed and a redrawn lm_head; each K5 / K6 launch of a
+     prefill within its bar of the plain version on that layer's own
+     inputs; each model's prefill logits through the kernels == the same
+     model through the plain versions on the card, on two prompt batches
+     (2e-2 / 8e-2 x max|logit|) and with f32 parameters (1e-4)
 
-Launch counts are set to 0 just before each of phases 3-5, 8 and 9 and
-read just after.  The line before the last is a JSON object with one entry per
+Launch counts are set to 0 just before each of phases 3-5, 8, 9 and 11
+and read just after.  The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero before that line.  Needs one CUDA device; run from
 anywhere with ``python3 chip_smoke.py``.
@@ -52,10 +67,27 @@ SIM_N = 65_536                  # simulator fleet
 LANES = 4                       # K3/K4 checks and the batched ranking
 ENS_FACTORS = (0.95, 0.85, 0.75, 0.65)   # the ensemble's deferral grid
 ENS_SEEDS = (1, 2)
-# device-memory rate (TB/s) and f32 peak outside the tensor cores
-# (TFLOP/s) by card name, from NVIDIA's data sheets; first match wins
-CARDS = (("H100 NVL", 3.9, 60.0), ("H100 PCIe", 2.0, 51.0),
-         ("H100", 3.35, 67.0), ("H200", 4.8, 67.0))
+# device-memory rate (TB/s), f32 peak outside the tensor cores and dense
+# bf16 tensor-core peak (TFLOP/s) by card name, from NVIDIA's data sheets;
+# first match wins
+CARDS = (("H100 NVL", 3.9, 60.0, 835.0), ("H100 PCIe", 2.0, 51.0, 756.0),
+         ("H100", 3.35, 67.0, 989.0), ("H200", 4.8, 67.0, 989.0))
+# exp2 results per clock per SM on the SFU (CUDA C Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
+SFU_PER_CLOCK = 16
+# the serving path (phase 11): full-width models, their prefill shapes
+SERVE_ARCHS = ("granite-3-2b", "falcon-mamba-7b")
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 512, 32
+# prefill logits, kernel route vs plain route: the JAX suite's
+# prefill-vs-forward bars (tests/test_decode_consistency.py), x max|logit|
+SERVE_BARS = {"granite-3-2b": 2e-2, "falcon-mamba-7b": 8e-2}
+# the same with f32 parameters on both routes: the CPU suite's f32 bar
+# (tests/test_torch_models.py), x max|logit|
+SERVE_F32_BAR = 1e-4
+# K5 / K6 vs their plain versions: the JAX suite's bars
+# (tests/test_kernels.py), applied as |a - b| <= bar + bar * |b|
+K5_BARS = {"float32": 5e-6, "bfloat16": 6e-3}
+K6_BARS = {"float32": 2e-6, "bfloat16": 5e-2}
 REPLACES = {
     "maiz_lohi": ("src/repro/kernels/maizx_rank.py:175",
                   "src/repro_torch/kernels/csrc/maizx_rank.cu"),
@@ -65,6 +97,10 @@ REPLACES = {
                     "src/repro_torch/kernels/csrc/maizx_rank.cu"),
     "maiz_topk_b": ("src/repro/kernels/maizx_rank.py:217",
                     "src/repro_torch/kernels/csrc/maizx_rank.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:33",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "selective_scan": ("src/repro/kernels/selective_scan.py:32",
+                       "src/repro_torch/kernels/csrc/selective_scan.cu"),
 }
 
 
@@ -128,11 +164,12 @@ def time_ms(fn, flush, reps=25, warm=3) -> float:
 
 
 def card_rates(name: str):
-    for key, tbps, tflops in CARDS:
+    """(bytes/s, f32 FLOP/s, bf16 tensor FLOP/s) of the card."""
+    for key, tbps, tflops, bf16 in CARDS:
         if key in name:
-            return tbps * 1e12, tflops * 1e12
+            return tbps * 1e12, tflops * 1e12, bf16 * 1e12
     say(f"[0] no rate table entry for {name!r}: using H100 SXM's")
-    return 3.35e12, 67e12
+    return 3.35e12, 67e12, 989e12
 
 
 def device_busy(fn, top=0):
@@ -142,6 +179,7 @@ def device_busy(fn, top=0):
     of the ``top`` largest device kernels and host ops by self time).
     The device ms is None when the profiler saw no device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -155,13 +193,17 @@ def device_busy(fn, top=0):
         return None, None, float("nan"), ""
     wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in ev)
+    # only the device's own events (kernels, copies, sets): a host op that
+    # launched a kernel also carries that kernel's time, so summing every
+    # event's device time counts it twice
+    dev = sorted((e for e in ev if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    us = sum(e.self_device_time_total for e in dev)
     summary = ""
     if top:
-        dev = sorted((e for e in ev
-                      if getattr(e, "self_device_time_total", 0) > 0),
-                     key=lambda e: -e.self_device_time_total)
-        host = sorted(ev, key=lambda e: -e.self_cpu_time_total)
+        host = sorted((e for e in ev if e.device_type != DeviceType.CUDA),
+                      key=lambda e: -e.self_cpu_time_total)
         summary = (
             f"{sum(e.count for e in dev)} device ops; top device: "
             + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f}"
@@ -179,9 +221,11 @@ def busy_note(dev_ms, wall_ms):
             f"({100 * dev_ms / wall_ms:.1f} %)")
 
 
-def bound_ms(nbytes: float, ops: float, rates):
-    bw, peak = rates
-    tb, to = nbytes / bw * 1e3, ops / peak * 1e3
+def bound_ms(nbytes: float, ops: float, rates, op_rate=None):
+    """The larger of bytes over the memory rate and ``ops`` over
+    ``op_rate`` (default: the f32 rate outside the tensor cores)."""
+    tb = nbytes / rates[0] * 1e3
+    to = ops / (op_rate or rates[1]) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -190,28 +234,46 @@ def bound_ms(nbytes: float, ops: float, rates):
 # ---------------------------------------------------------------------------
 
 
-def phase_card():
-    import torch
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
+def _smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
-    say(out.stdout.strip().splitlines()[0])
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    """The card's name and power limit; returns (name, SFU exp2/s from
+    the SM count and the maximum SM clock)."""
+    import torch
+    say(_smi("name,power.limit"))
     name = torch.cuda.get_device_name(0)
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     say(f"[0] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {name} "
-        f"count {torch.cuda.device_count()}")
-    return name
+        f"count {torch.cuda.device_count()}, {sms} SMs, max SM clock "
+        f"{mhz:.0f} MHz")
+    return name, sms * SFU_PER_CLOCK * mhz * 1e6
 
 
 def phase_build():
-    """Build the kernels; nvcc's -Xptxas -v report (registers, shared
-    memory, spills per kernel) is printed before the timing line."""
+    """Build every kernel source at once (one nvcc each); nvcc's -Xptxas
+    -v reports (registers, shared memory, spills per kernel) are printed
+    before the timing line."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import maizx_rank as mr
-    path, secs = mr.build(verbose=True)
-    mr._lib()
-    say(f"[1] built {path.name} in {secs:.2f} s")
+    from repro_torch.kernels import selective_scan as sc
+    mods = (mr, fa, sc)
+    t0 = time.perf_counter()
+    built = _build.build_many([(m.SOURCE, m.NVCC_FLAGS) for m in mods],
+                              verbose=True)
+    for m in mods:
+        _build.load(m.SOURCE, m.NVCC_FLAGS, m._bind)
+    say(f"[1] built {', '.join(p.name for p, _ in built)} in "
+        f"{time.perf_counter() - t0:.2f} s (each done at "
+        f"{', '.join(f'{t:.2f}' for _, t in built)} s)")
 
 
 def _streams(n, seed, dev, marginal, w_m):
@@ -329,16 +391,23 @@ def _k2_bound(n_pad, r, k, rates, lanes=1):
     return bound_ms(nbytes, ops, rates)
 
 
+def _wrappers():
+    from repro_torch.kernels import maizx_rank as mr
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+    return mr.WRAPPERS + (flash_attention, selective_scan)
+
+
 def counted(fn):
     """Run ``fn`` with every launch count set to 0 just before and read
     just after; returns (result, {kernel: launches})."""
     import torch
-    from repro_torch.kernels import maizx_rank as mr
     torch.cuda.synchronize()
-    mr.reset_launch_counts()
+    for f in _wrappers():
+        f.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {f.__name__: f.launches for f in mr.WRAPPERS}
+    return out, {f.__name__: f.launches for f in _wrappers()}
 
 
 def phase_ranking(dev):
@@ -762,6 +831,278 @@ def phase_ensemble(dev):
     return cnt
 
 
+def _allclose_err(got, want, bar):
+    """(max |got - want|, whether |got - want| <= bar + bar * |want|
+    everywhere): the JAX suite's ``assert_allclose(atol=bar, rtol=bar)``."""
+    import torch
+    g, w = got.detach().float(), want.detach().float()
+    d = (g - w).abs()
+    ok = bool(torch.isfinite(g).all()) and bool((d <= bar + bar * w.abs())
+                                                 .all())
+    return float(d.max()), ok
+
+
+def _k5_bound(B, H, K, S, hd, window, dtype, rates):
+    """q and o (B, H, S, hd), k and v (B, K, S, hd), each moved once; the
+    two products over the live (row, key) pairs, on the tensor cores'
+    bf16 rate for bf16 inputs and the f32 rate for f32."""
+    import torch
+    es = 2 if dtype == torch.bfloat16 else 4
+    nbytes = es * S * hd * (2 * B * H + 2 * B * K)
+    if window > 0:
+        pairs = sum(min(r + 1, window) for r in range(S))
+    else:
+        pairs = S * (S + 1) // 2
+    ops = 4 * B * H * hd * pairs
+    return bound_ms(nbytes, ops, rates,
+                    rates[2] if dtype == torch.bfloat16 else None)
+
+
+def _k6_bound(B, S, D, N, dtype, rates):
+    """dt, x and y (B, S, D), B and C (B, S, N), A (D, N) and the final
+    state (B, D, N) moved once; per (b, t, d, n) 5 FLOPs on the f32 pipes.
+    The one exp per (b, t, d, n) is left out: the SFU alone would take
+    about as long as the bytes, but a share of the exps can run as
+    polynomial code on the f32 pipes beside it, so the two together stay
+    under the bytes."""
+    import torch
+    es = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 3 * es * B * S * D + 4 * (2 * B * S * N + D * N + B * D * N)
+    return bound_ms(nbytes, 5 * B * S * D * N, rates)
+
+
+def phase_model_kernels(dev, rates, sfu, flush):
+    """K5/K6 vs their plain versions at the serving path's shapes and at
+    ragged ones, f32 and bf16; times at the path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    g = torch.Generator(device=dev).manual_seed(10)
+    err = {"flash_attention": [0.0, 0], "selective_scan": [0.0, 0]}
+    times = {}
+    gr, fm = get_config("granite-3-2b"), get_config("falcon-mamba-7b")
+    # (B, H, K, S, hd, window): granite's prefill, then a ragged band
+    k5_path = (SERVE_SLOTS, gr.n_heads, gr.n_kv_heads, SERVE_PROMPT,
+               gr.head_dim, 0)
+    for shape in (k5_path, (2, 6, 3, 77, 120, 30)):
+        B, H, K, S, hd, win = shape
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dt)
+            k = torch.randn(B, K, S, hd, generator=g, device=dev).to(dt)
+            v = torch.randn(B, K, S, hd, generator=g, device=dev).to(dt)
+            got = flash_attention(q, k, v, window=win)
+            want = attention_plain(q, k, v, window=win)
+            torch.cuda.synchronize()
+            e, ok = _allclose_err(got, want, K5_BARS[str(dt)[6:]])
+            err["flash_attention"][0] = max(err["flash_attention"][0], e)
+            say(f"[10] K5 {shape} {str(dt)[6:]}: max abs err {e:.3g} "
+                f"(bar {K5_BARS[str(dt)[6:]]})")
+            check(ok, f"K5 differs from its plain version at {shape} {dt}")
+            if shape == k5_path and dt == torch.bfloat16:
+                lib = None
+                try:
+                    F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True)
+                    lib = time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), flush)
+                except TypeError as ex:     # a torch without enable_gqa
+                    say(f"[10] SDPA with enable_gqa unavailable: {ex}")
+                times["flash_attention"] = (
+                    time_ms(lambda: flash_attention(q, k, v), flush),
+                    time_ms(lambda: attention_plain(q, k, v), flush),
+                    _k5_bound(*shape, dt, rates), lib)
+    # (B, S, D, N): falcon's prefill, then ragged S and D
+    k6_path = (SERVE_SLOTS, SERVE_PROMPT, fm.d_inner, fm.ssm_state)
+    for shape in (k6_path, (2, 37, 96, 16), (1, 45, 200, 8)):
+        B, S, D, N = shape
+        for dt in (torch.float32, torch.bfloat16):
+            d_t = (torch.rand(B, S, D, generator=g, device=dev) * 0.1
+                   + 0.01).to(dt)
+            x = torch.randn(B, S, D, generator=g, device=dev).to(dt)
+            b = torch.randn(B, S, N, generator=g, device=dev)
+            c = torch.randn(B, S, N, generator=g, device=dev)
+            a = -torch.exp(torch.randn(D, N, generator=g, device=dev) * 0.3)
+            y, h = selective_scan(d_t, x, b, c, a)
+            y_p, h_p = selective_scan_plain(d_t, x, b, c, a)
+            torch.cuda.synchronize()
+            bar = K6_BARS[str(dt)[6:]]
+            ey, oky = _allclose_err(y, y_p, bar)
+            eh, okh = _allclose_err(h, h_p, bar)
+            err["selective_scan"][0] = max(err["selective_scan"][0], ey, eh)
+            say(f"[10] K6 {shape} {str(dt)[6:]}: max abs err y {ey:.3g}, "
+                f"h_S {eh:.3g} (bar {bar})")
+            check(oky and okh, f"K6 differs from its plain version at "
+                  f"{shape} {dt}")
+            if shape == k6_path and dt == torch.float32:
+                times["selective_scan"] = (
+                    time_ms(lambda: selective_scan(d_t, x, b, c, a), flush),
+                    time_ms(lambda: selective_scan_plain(d_t, x, b, c, a),
+                            flush, reps=5, warm=1),
+                    _k6_bound(*shape, dt, rates), None)
+    for k, (ms, plain, (bd, by), lib) in times.items():
+        say(f"[10] {k} at the path's shape: kernel {ms * 1e3:.1f} us, "
+            f"plain {plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by})"
+            + (f", SDPA {lib * 1e3:.1f} us" if lib is not None else ""))
+    B, S, D, N = k6_path
+    say(f"[10] selective_scan: its {B * S * D * N:.3g} exps on the SFU "
+        f"alone would take {B * S * D * N / sfu * 1e6:.2f} us")
+    return err, times
+
+
+def phase_serving(dev):
+    """Serve each full-width model through ``launch.serve.serve``; its
+    prefill logits through the kernels == through the plain versions."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import ModelFlags, build_model
+    total = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = build_model(cfg).init(generator=gen, device=dev)
+        # a random head, so greedy tokens are not all 0 (the zero-init
+        # head gives uniform logits)
+        params["lm_head"] = (torch.randn(cfg.d_model, cfg.vocab,
+                                         generator=gen, device=dev)
+                             / math.sqrt(cfg.d_model)).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in _leaves(params))
+        say(f"[11] {arch}: {cfg.n_layers} layers, {n_par / 1e9:.3f} B "
+            f"parameters drawn in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        out, cnt = counted(lambda: serve(
+            cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+            max_new=SERVE_NEW, slots=SERVE_SLOTS, device=dev,
+            params=params, log=lambda m: say(f"[11] {m.strip()}")))
+        for k, v in cnt.items():
+            total[k] = total.get(k, 0) + v
+        kern = "flash_attention" if cfg.has_attention else "selective_scan"
+        other = "selective_scan" if cfg.has_attention else "flash_attention"
+        want = cfg.n_layers * out["prefills"]
+        check(cnt[kern] == want and cnt[other] == 0,
+              f"{arch}: launches {cnt}, expected {kern} = {want}")
+        check(out["requests"] == SERVE_REQUESTS and all(
+            len(r.tokens) == SERVE_NEW and 0 <= min(r.tokens)
+            and max(r.tokens) < cfg.vocab for r in out["results"]),
+            f"{arch}: wrong results")
+        check(len({t for r in out["results"] for t in r.tokens}) > 1,
+              f"{arch}: every generated token is the same")
+        cache = SERVE_PROMPT + SERVE_NEW + 8
+        kmodel = build_model(cfg)
+        pmodel = build_model(cfg, ModelFlags(use_kernel=False))
+        # (parameters, prompt seed): the first batch's prompts as serve()
+        # drew them (seed 0), another batch, and the first again with f32
+        # parameters on both routes
+        params32 = _tree_map(lambda t: t.float(), params)
+        for p_dt, seed in (("bf16", 0), ("bf16", 1), ("f32", 0)):
+            pr = params32 if p_dt == "f32" else params
+            prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+                2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
+            lk, caches, held = _held_prefill(kmodel, pr, prompts, cache)
+            lp, _ = pmodel.prefill(pr, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+            e_l, n_ok, n_held = held[kern]
+            check(n_held == cfg.n_layers and n_ok == n_held,
+                  f"{arch}: {n_held - n_ok} of {n_held} prefill {kern} "
+                  f"launches differ from the plain version on their own "
+                  f"inputs ({p_dt} parameters, prompts {seed})")
+            scale = float(lp.abs().max())
+            e = float((lk - lp).abs().max())
+            bar = SERVE_F32_BAR if p_dt == "f32" else SERVE_BARS[arch]
+            check(bool(torch.isfinite(lk).all()) and lk.shape == (
+                SERVE_SLOTS, cfg.vocab), f"{arch}: prefill logits not finite")
+            check(e <= bar * scale,
+                  f"{arch}: kernel-route prefill logits differ from the "
+                  f"plain route by {e} (max|logit| {scale}, {p_dt} "
+                  f"parameters, prompts {seed})")
+            say(f"[11] {arch}, {p_dt} parameters, prompts {seed}: each of "
+                f"the {n_held} {kern} launches within its bar of the plain "
+                f"version on that layer's inputs (max abs err {e_l:.4g}); "
+                f"prefill logits kernel vs plain route max abs err {e:.4g} "
+                f"= {e / scale:.3g} x max|logit| {scale:.4g} (bar {bar})")
+            del lk, lp, caches
+        del params32
+        torch.cuda.empty_cache()
+        prompts = torch.as_tensor(np.random.default_rng(0).integers(
+            2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
+        lk, caches = kmodel.prefill(params, {"tokens": prompts}, cache)
+        _, dev_ms, prof_ms, summ = device_busy(
+            lambda: kmodel.prefill(params, {"tokens": prompts}, cache),
+            top=5)
+        step = {"token": lk.argmax(-1),
+                "positions": torch.full((SERVE_SLOTS,), SERVE_PROMPT,
+                                        device=dev)}
+        _, dec_dev, dec_wall, dec_summ = device_busy(
+            lambda: kmodel.decode_step(params, caches, step), top=5)
+        pre = out["prefill_s"] / out["prefills"] * 1e3
+        dec = out["decode_s"] / out["decode_steps"] * 1e3
+        say(f"[11] {arch}: pod {out['pod']}, {out['tokens']} tokens, "
+            f"prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x"
+            f"{SERVE_PROMPT}, decode {dec:.2f} ms per step of "
+            f"{SERVE_SLOTS} tokens ({dec / SERVE_SLOTS:.2f} ms/token), "
+            f"{out['tok_per_s']:.1f} tok/s, {out['g_per_request']:.4f} "
+            f"gCO2/request; launches {cnt[kern]} {kern}; profiled prefill: "
+            f"{busy_note(dev_ms, prof_ms)}; {summ}")
+        say(f"[11] {arch}: profiled decode step: "
+            f"{busy_note(dec_dev, dec_wall)}; {dec_summ}")
+        del params, kmodel, pmodel, lk, caches
+        torch.cuda.empty_cache()
+    return total
+
+
+def _held_prefill(model, params, prompts, cache):
+    """``model.prefill`` with each K5 / K6 launch held against the plain
+    version on that layer's own inputs (the JAX suite's bar for the
+    output's dtype); returns (logits, caches, {kernel: [max abs err,
+    launches within the bar, launches]})."""
+    from repro_torch.models import attention, ssm
+    held = {"flash_attention": [0.0, 0, 0], "selective_scan": [0.0, 0, 0]}
+
+    def holding(op, name, bars):
+        def run(*a, **kw):
+            got = op(*a, **kw)
+            want = op(*a, **{**kw, "use_kernel": False})
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            bar = bars[str(got[0].dtype)[6:]]
+            errs = [_allclose_err(g, w, bar) for g, w in zip(got, want)]
+            rec = held[name]
+            rec[0] = max([rec[0]] + [e for e, _ in errs])
+            rec[1] += all(ok for _, ok in errs)
+            rec[2] += 1
+            return got if len(got) > 1 else got[0]
+        return run
+
+    ops = (attention.flash_attention_op, ssm.selective_scan_op)
+    attention.flash_attention_op = holding(ops[0], "flash_attention",
+                                           K5_BARS)
+    ssm.selective_scan_op = holding(ops[1], "selective_scan", K6_BARS)
+    try:
+        logits, caches = model.prefill(params, {"tokens": prompts}, cache)
+    finally:
+        attention.flash_attention_op, ssm.selective_scan_op = ops
+    return logits, caches, held
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -774,13 +1115,15 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
-    name = phase_card()
+    name, sfu = phase_card()
     rates = card_rates(name)
     phase_build()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     err, times = phase_kernels(dev, rates, flush)
     err_b, times_b = phase_batched_kernels(dev, rates, flush)
+    err_m, times_m = phase_model_kernels(dev, rates, sfu, flush)
     err.update(err_b)
+    err.update(err_m)
     times.update(times_b)
     del flush
     launches = {k: 0 for k in REPLACES}
@@ -790,7 +1133,8 @@ def main() -> int:
     phase_scenario_c(dev)
     n8 = phase_batched_ranking(dev)
     n9 = phase_ensemble(dev)
-    for part in (n3, n4, n5, n8, n9):
+    n11 = phase_serving(dev)
+    for part in (n3, n4, n5, n8, n9, n11):
         for k, v in part.items():
             launches[k] += v
     for k in launches:
@@ -811,7 +1155,14 @@ def main() -> int:
             "replaces": REPLACES[k][0], "launches": launches[k],
             "max_abs_err": err[k][0], "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None})
-    say(f"[7] total {time.perf_counter() - t_all:.1f} s")
+    # K5 / K6 at the serving path's shapes (phase 10), launched by phase 11
+    for k, (ms, plain, (b, by), lib) in times_m.items():
+        kernels.append({
+            "name": k, "route": "cuda", "source": REPLACES[k][1],
+            "replaces": REPLACES[k][0], "launches": launches[k],
+            "max_abs_err": err[k][0], "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib})
+    say(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

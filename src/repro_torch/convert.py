@@ -1,16 +1,18 @@
 """State carried into the port: the fleet, the energy model and the rank
-weights, from plain numpy arrays / numbers (for example the fields of a
-reference object read with ``np.asarray``).  These are this system's
-"weights": feeding both implementations the same state through here is
-how the port is held against the reference."""
+weights, and a model's parameters, from plain numpy arrays / numbers (for
+example the fields of a reference object read with ``np.asarray``).
+Feeding both implementations the same state through here is how the port
+is held against the reference."""
 from __future__ import annotations
 
 from collections.abc import Mapping
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.energy import EnergyModel
 from repro_torch.core.fleet import FIELDS, Fleet, fleet_tensors
 from repro_torch.core.ranking import RankWeights
@@ -47,3 +49,39 @@ def weights_from(src: Any) -> RankWeights:
     """``RankWeights`` from a mapping or an object with w1..w4, marginal."""
     return RankWeights(**{k: float(v) for k, v in
                           _fields(src, _WEIGHTS).items()})
+
+
+def tensor_from_numpy(a: np.ndarray, device: DeviceLike = None
+                      ) -> torch.Tensor:
+    """A numpy array (bfloat16 from ml_dtypes included) as a tensor of the
+    same dtype on ``device``."""
+    dev = resolve_device(device)
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: reuse bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def params_from_numpy(tree: Mapping, cfg: ArchConfig,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """A model's parameter tree (nested mappings of numpy arrays, e.g.
+    ``np.asarray`` of each leaf of the JAX model's ``init``) as the port's
+    parameters on ``device``: the same names, shapes and dtypes.  Raises
+    when a name or shape differs from ``build_model(cfg).template()``."""
+    from repro_torch.models.model import build_model
+    dev = resolve_device(device)
+
+    def conv(tpl, src, path):
+        if isinstance(tpl, dict):
+            if not isinstance(src, Mapping) or set(src) != set(tpl):
+                got = sorted(src) if isinstance(src, Mapping) else type(src)
+                raise KeyError(f"{path or 'params'}: expected keys "
+                               f"{sorted(tpl)}, got {got}")
+            return {k: conv(tpl[k], src[k], f"{path}/{k}") for k in tpl}
+        a = np.asarray(src)
+        if tuple(a.shape) != tuple(tpl.shape):
+            raise ValueError(f"{path}: shape {a.shape} != {tpl.shape}")
+        return tensor_from_numpy(a, dev)
+
+    return conv(build_model(cfg).template(), tree, "")

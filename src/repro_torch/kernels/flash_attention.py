@@ -1,0 +1,95 @@
+"""K5: causal GQA flash attention for Hopper (twin of
+``repro.kernels.flash_attention``).
+
+``flash_attention(q, k, v, window=...)`` takes q (B, H, S, hd) and k/v
+(B, K, S, hd) with H % K == 0 (query head h reads kv head h // (H / K)),
+masks causally and, with ``window > 0``, to the band row - window < col <=
+row, accumulates in f32 and returns q's dtype.  On CUDA tensors it launches
+the CUDA kernel ``csrc/flash_attention.cu`` (replaces ``_flash_kernel``;
+bound and design are noted there), built with ``nvcc`` at first use; on CPU
+tensors it runs the plain torch version ``attention_plain``, the math of
+``repro.kernels.ref.attention_ref``.  Any other device raises.
+``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+NVCC_FLAGS = _build.BASE_FLAGS
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Causal (optionally banded) GQA attention in plain torch: f32 scores,
+    softmax and products, q's dtype out."""
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    g = H // K
+    qf = q.reshape(B, K, g, S, hd).float()
+    s = torch.einsum("bkgsh,bkth->bkgst", qf, k.float()) * (hd ** -0.5)
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    mask = cols <= rows
+    if window > 0:
+        mask &= cols > rows - window
+    s = s.masked_fill(~mask, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,bkth->bkgsh", w, v.float())
+    return out.reshape(B, H, S, hd).to(q.dtype)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 7 + [
+        ctypes.c_float, p]
+    lib.flash_attention_launch.restype = i
+
+
+def _check_args(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention takes q (B, H, S, hd) and k/v "
+                         f"(B, K, S, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, hd = q.shape
+    if k.shape[0] != B or k.shape[2:] != (S, hd) or H % k.shape[1]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (need H % K == 0)")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention takes q/k/v of one dtype, f32 or "
+                         f"bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    for t in (q, k, v):
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("flash_attention's kernel takes contiguous "
+                             f"CUDA tensors; got one on {t.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """Causal GQA attention: q (B, H, S, hd), k/v (B, K, S, hd) -> (B, H,
+    S, hd) in q's dtype.  CPU tensors: the plain version; CUDA tensors:
+    the kernel (built at first use, or the call raises)."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, window=window)
+    _check_args(q, k, v)
+    B, H, S, hd = q.shape
+    out = torch.empty_like(q)
+    lib = _build.load(SOURCE, NVCC_FLAGS, _bind)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, H, k.shape[1], S, hd, int(window),
+        hd ** -0.5, stream), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -31,15 +31,11 @@ not count).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import _build
 
 TILE = 1024        # nodes per tile: the TPU kernel's (8, 128) block
 # the per-tile top-k is k rounds of a block-wide min extraction, so
@@ -48,11 +44,9 @@ TILE = 1024        # nodes per tile: the TPU kernel's (8, 128) block
 MAX_TILE_K = 64
 _BIG = 3e38        # finite sentinel for masked min/max (below f32 max)
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "maizx_rank.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
-    "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "maizx_rank.cu"
+# no FMA contraction: the kernels are bitwise equal to their plain twins
+NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",)
 
 
 def _check_tile_k(k: int) -> None:
@@ -207,67 +201,25 @@ def _check_lanes(ec, en, lohi) -> None:
 # build + bind the CUDA kernels (first use only; never at import)
 # ---------------------------------------------------------------------------
 
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    path = str(cand) if cand.exists() else shutil.which("nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the rank "
-                           "kernels are built from csrc/ at first use")
-    return path
-
-
-def build(verbose: bool = False) -> Tuple[Path, float]:
-    """Compile ``csrc/maizx_rank.cu`` into a content-named shared library
-    under ``build/repro_torch_kernels/`` (reused when it exists).  Returns
-    (library path, seconds spent compiling; 0.0 when reused).  ``verbose``
-    adds ``-Xptxas -v`` and prints the compiler's report."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = _BUILD_DIR / f"maizx_rank_{tag}.so"
-    if out.exists():
-        return out, 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.maiz_lohi_launch.argtypes = [p] * 10 + [i, ll, ll, p, p, p]
+    lib.maiz_lohi_launch.restype = i
+    lib.maiz_topk_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll]
+                                     + [p] * 4)
+    lib.maiz_topk_launch.restype = i
+    lib.maiz_lohi_b_launch.argtypes = [p] * 10 + [i, ll, ll, ll, p, p, p]
+    lib.maiz_lohi_b_launch.restype = i
+    lib.maiz_topk_b_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll, ll]
+                                       + [p] * 4)
+    lib.maiz_topk_b_launch.restype = i
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.maiz_lohi_launch.argtypes = [p] * 10 + [i, ll, ll, p, p, p]
-        lib.maiz_lohi_launch.restype = i
-        lib.maiz_topk_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll]
-                                         + [p] * 4)
-        lib.maiz_topk_launch.restype = i
-        lib.maiz_lohi_b_launch.argtypes = [p] * 10 + [i, ll, ll, ll, p, p, p]
-        lib.maiz_lohi_b_launch.restype = i
-        lib.maiz_topk_b_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll, ll]
-                                           + [p] * 4)
-        lib.maiz_topk_b_launch.restype = i
-        _LIB = lib
-    return _LIB
+    return _build.load(SOURCE, NVCC_FLAGS, _bind)
 
 
-def _check(status: int, name: str) -> None:
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {status}")
+_check = _build.check
 
 
 def _kernel_args(streams, extra):

@@ -1,6 +1,8 @@
-"""Public wrappers of the rank kernels (twin of ``repro.kernels.ops``'s
-ranking wrappers).  Each runs on its inputs' device: the CUDA kernels for
-CUDA tensors, their plain torch twins for CPU tensors."""
+"""Public wrappers of the kernels (twin of ``repro.kernels.ops``).  Each
+runs on its inputs' device: the CUDA kernels for CUDA tensors, their plain
+torch versions for CPU tensors.  ``use_kernel=False`` on the attention and
+scan wrappers runs the plain version on any device (the model's plain
+route, which ``chip_smoke.py`` holds the kernel route against)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,9 +10,33 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 flash_attention)
 from repro_torch.kernels.maizx_rank import (MAX_TILE_K, TILE, maiz_lohi,
                                             maiz_lohi_b, maiz_topk,
                                             maiz_topk_b)
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_plain)
+
+
+def flash_attention_op(q, k, v, *, window: int = 0,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """Causal GQA flash attention: q (B,H,S,hd), k/v (B,K,S,hd) -> (B,H,
+    S,hd) in q's dtype (K5)."""
+    if not use_kernel:
+        return attention_plain(q, k, v, window=window)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           window=window)
+
+
+def selective_scan_op(dt, x, b, c, a, *, use_kernel: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan (K6): dt/x (B,S,D), b/c (B,S,N), a (D,N) ->
+    (y (B,S,D) in x's dtype, final state (B,D,N) f32)."""
+    if not use_kernel:
+        return selective_scan_plain(dt, x, b, c, a)
+    f32 = [t.to(torch.float32).contiguous() for t in (b, c, a)]
+    return selective_scan(dt.to(x.dtype).contiguous(), x.contiguous(), *f32)
 
 
 def lex_head(values: torch.Tensor, k: int

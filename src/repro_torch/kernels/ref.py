@@ -1,8 +1,22 @@
-"""Plain-torch oracles for the rank kernels (twins of
-``repro.kernels.ref``'s ranking oracles)."""
+"""Plain-torch oracles for the kernels (twins of ``repro.kernels.ref``).
+The attention and scan oracles are the kernels' plain versions."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.flash_attention import attention_plain
+from repro_torch.kernels.selective_scan import selective_scan_plain
+
+
+def attention_ref(q, k, v, *, window: int = 0) -> torch.Tensor:
+    """Causal (optionally banded) GQA attention.
+    q: (B, H, S, hd); k/v: (B, K, S, hd)."""
+    return attention_plain(q, k, v, window=window)
+
+
+def selective_scan_ref(dt, x, b, c, a) -> torch.Tensor:
+    """The mamba1 selective-scan recurrence step by step: y (B, S, D)."""
+    return selective_scan_plain(dt, x, b, c, a)[0]
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:

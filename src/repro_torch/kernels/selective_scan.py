@@ -1,0 +1,99 @@
+"""K6: the Mamba-1 selective scan for Hopper (twin of
+``repro.kernels.selective_scan``).
+
+``selective_scan(dt, x, b, c, a)`` runs ``h_t = exp(dt_t·A) ⊙ h_{t-1} +
+(dt_t·x_t) ⊗ B_t`` from h₀ = 0 and returns ``y_t = Σ_N h_t ⊙ C_t`` (B, S,
+D) in x's dtype together with the final state h_S (B, D, N) in f32, which
+prefill hands to the decode cache.  dt/x (B, S, D) share a dtype (f32 or
+bf16); b/c (B, S, N) and a (D, N) are f32.  On CUDA tensors it launches
+the CUDA kernel ``csrc/selective_scan.cu`` (replaces ``_scan_kernel``;
+bound and design are noted there), built with ``nvcc`` at first use; on
+CPU tensors it runs the plain step-by-step loop ``selective_scan_plain``,
+the recurrence of ``repro.kernels.ref.selective_scan_ref``.  Any other
+device raises.  ``selective_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "selective_scan.cu"
+NVCC_FLAGS = _build.BASE_FLAGS
+STATE_SIZES = (8, 16)          # the kernel's instantiated N
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def selective_scan_plain(dt, x, b, c, a
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence step by step over S in plain torch: (y in x's dtype,
+    h_S f32)."""
+    Bsz, S, D = x.shape
+    dtf, xf, bf, cf = dt.float(), x.float(), b.float(), c.float()
+    h = torch.zeros((Bsz, D, a.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t, :, None] * a)             # (B, D, N)
+        dbx = (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        h = da * h + dbx
+        ys.append(torch.sum(h * cf[:, t, None, :], dim=-1))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((Bsz, 0, D))
+    return y.to(x.dtype), h
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.selective_scan_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.selective_scan_launch.restype = i
+
+
+def _check_args(dt, x, b, c, a) -> None:
+    if x.dim() != 3 or dt.shape != x.shape:
+        raise ValueError(f"dt/x must be (B, S, D); got {tuple(dt.shape)}, "
+                         f"{tuple(x.shape)}")
+    B, S, D = x.shape
+    N = a.shape[-1]
+    if (b.shape != (B, S, N) or c.shape != (B, S, N)
+            or a.shape != (D, N)):
+        raise ValueError(f"b/c must be ({B}, {S}, N) and a (D={D}, N); got "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}, "
+                         f"{tuple(a.shape)}")
+    if N not in STATE_SIZES:
+        raise ValueError(f"state size N={N} is not one of {STATE_SIZES}")
+    if (x.dtype not in _DTYPES or dt.dtype != x.dtype
+            or {b.dtype, c.dtype, a.dtype} != {torch.float32}):
+        raise ValueError("selective_scan takes dt/x of one dtype, f32 or "
+                         "bf16, and f32 b/c/a; got "
+                         f"{[t.dtype for t in (dt, x, b, c, a)]}")
+    for t in (dt, x, b, c, a):
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("selective_scan's kernel takes contiguous "
+                             f"CUDA tensors; got one on {t.device}")
+
+
+def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, D) in x's dtype, h_S (B, D, N) f32).  CPU tensors: the
+    plain version; CUDA tensors: the kernel (built at first use, or the
+    call raises)."""
+    if x.device.type == "cpu":
+        return selective_scan_plain(dt, x, b, c, a)
+    _check_args(dt, x, b, c, a)
+    B, S, D = x.shape
+    N = a.shape[-1]
+    y = torch.empty_like(x)
+    h_last = torch.empty((B, D, N), dtype=torch.float32, device=x.device)
+    lib = _build.load(SOURCE, NVCC_FLAGS, _bind)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib.selective_scan_launch(
+        dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
+        a.data_ptr(), y.data_ptr(), h_last.data_ptr(), _DTYPES[x.dtype],
+        B, S, D, N, stream), "selective_scan")
+    selective_scan.launches += 1
+    return y, h_last
+
+
+selective_scan.launches = 0

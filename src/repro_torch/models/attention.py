@@ -1,0 +1,133 @@
+"""GQA attention: prefill through the flash-attention kernel K5 + KV-cache
+decode (twin of ``repro.models.attention``).
+
+Prefill computes the whole causal (optionally banded) attention of the
+prompt in one K5 launch per layer; the JAX package's chunked
+``attention_core`` computes the same function.  Sliding-window attention
+(h2o-danube) keeps a ring-buffer KV cache whose size is the window.
+Decode is plain torch: one query row per sequence against the cache.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import Param
+from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
+
+
+def attn_template(cfg: ArchConfig) -> Dict[str, Param]:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": Param((D, H * hd), ("fsdp", "tp")),
+        "wk": Param((D, K * hd), ("fsdp", "tp")),
+        "wv": Param((D, K * hd), ("fsdp", "tp")),
+        "wo": Param((H * hd, D), ("tp", "fsdp")),
+    }
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_cache, K, hd)
+    v: torch.Tensor       # (B, S_cache, K, hd)
+
+
+def _project_qkv(cfg: ArchConfig, p, x, positions):
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, K, H // K, hd)
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    if cfg.rope != "none":
+        q = apply_rope(q.reshape(B, S, H, hd), positions,
+                       cfg.rope_theta).reshape(B, S, K, H // K, hd)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_prefill(cfg: ArchConfig, p, x, positions, cache_len: int, *,
+                      use_kernel: bool = True
+                      ) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill: returns the output and a cache sized ``cache_len``.
+
+    q (B, S, K, G, hd) goes to K5 as (B, H, S, hd) with head h = k·G + g,
+    so the kernel's h // G is the kv head.  For SWA the cache is the ring
+    buffer of the last ``window`` positions."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    window = cfg.window if cfg.attention == "swa" else 0
+    out = flash_attention_op(
+        q.reshape(B, S, H, hd).transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), window=window, use_kernel=use_kernel)
+    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    if cfg.attention == "swa":
+        cl = min(cache_len, cfg.window)
+        # the last min(S, cl) tokens land at slots pos % cl
+        n = min(S, cl)
+        slots = (S - n + torch.arange(n, device=x.device)) % cl
+        ck = k.new_zeros((B, cl) + k.shape[2:])
+        cv = v.new_zeros((B, cl) + v.shape[2:])
+        ck[:, slots] = k[:, -n:]
+        cv[:, slots] = v[:, -n:]
+    else:
+        ck = k.new_zeros((B, cache_len) + k.shape[2:])
+        cv = v.new_zeros((B, cache_len) + v.shape[2:])
+        ck[:, :S] = k
+        cv[:, :S] = v
+    return out @ p["wo"], KVCache(ck, cv)
+
+
+def cache_template(cfg: ArchConfig, batch: int,
+                   seq_len: int) -> Dict[str, Param]:
+    cl = min(seq_len, cfg.window) if cfg.attention == "swa" else seq_len
+    shp = (batch, cl, cfg.n_kv_heads, cfg.head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": Param(shp, axes, init="zeros"),
+            "v": Param(shp, axes, init="zeros")}
+
+
+def attention_decode(cfg: ArchConfig, p, x, cache: KVCache,
+                     positions: torch.Tensor,
+                     rope_positions: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
+    """x: (B, 1, D); positions: (B,) absolute position of the new token
+    (its cache slot).  Writes the new k/v into ``cache`` in place (the JAX
+    package returns an updated copy; in place saves a cache copy per layer
+    and step) and returns it."""
+    if rope_positions is not None:
+        raise NotImplementedError(
+            "M-RoPE decode positions are not ported yet: ROADMAP Queue 1 "
+            "item M6 (the frontend, M-RoPE and embeddings input)")
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions[:, None])
+    ck, cv = cache
+    cl = ck.shape[1]
+    is_swa = cfg.attention == "swa"
+    slot = positions % cl if is_swa else positions
+    rows = torch.arange(B, device=x.device)
+    ck[rows, slot] = k_new[:, 0]
+    cv[rows, slot] = v_new[:, 0]
+
+    scores = torch.einsum("bkgh,btkh->bkgt", q[:, 0].float(),
+                          ck.float()) * (hd ** -0.5)
+    slot_ids = torch.arange(cl, device=x.device)[None, :]      # (1, cl)
+    if is_swa:
+        # slot s holds absolute position p' with p' % cl == s and
+        # p' in (pos - cl, pos]; valid once written
+        ahead = (slot_ids > slot[:, None]).to(positions.dtype)
+        abs_pos = (positions[:, None] // cl - ahead) * cl + slot_ids
+        valid = ((abs_pos >= 0) & (abs_pos <= positions[:, None])
+                 & (abs_pos > positions[:, None] - cl))
+    else:
+        valid = slot_ids <= positions[:, None]
+    scores = scores.masked_fill(~valid[:, None, None], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,btkh->bkgh", w.to(cv.dtype), cv)
+    out = out.reshape(B, 1, H * hd) @ p["wo"]
+    return out, KVCache(ck, cv)

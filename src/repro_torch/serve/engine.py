@@ -1,0 +1,99 @@
+"""Batched serving engine: slot-based batching over a shared prefill/decode
+pair (twin of ``repro.serve.engine``).
+
+A fixed batch of B slots, each holding one request's cache rows; per-slot
+positions and an active mask let finished slots stop while the others
+decode.  Greedy or temperature sampling (a seeded ``torch.Generator``).
+The engine runs on ``device`` (the card unless the caller passes
+``device="cpu"``), moving the parameters there if they live elsewhere, and
+times its own prefill and decode calls (host clock; each ends in a device
+read of the sampled tokens).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import tree_map
+from repro_torch.models.model import Model
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: List[int]
+    prompt_len: int
+    steps: int
+
+
+class ServeEngine:
+    def __init__(self, model: Model, params, *, max_seq: int,
+                 batch_slots: int, temperature: float = 0.0, seed: int = 0,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.max_seq = max_seq
+        self.slots = batch_slots
+        self.temperature = temperature
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # seconds spent in prefill calls / decode steps, and their counts
+        self.timings: Dict[str, float] = dict(
+            prefill_s=0.0, prefills=0, decode_s=0.0, decode_steps=0)
+
+    # ------------------------------------------------------------------
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.temperature <= 0:
+            # first maximum on ties, as jnp.argmax
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0].to(
+            torch.int32)
+
+    # ------------------------------------------------------------------
+    def generate(self, prompts: np.ndarray, max_new: int,
+                 eos_id: Optional[int] = None) -> List[GenerationResult]:
+        """prompts: (B, P) int, B == batch_slots (pad rows for fewer).
+        Synchronized prefill + per-slot decode with active masking."""
+        B, P = prompts.shape
+        if B != self.slots:
+            raise ValueError(f"{B} prompt rows for {self.slots} slots")
+        t0 = time.perf_counter()
+        logits, caches = self.model.prefill(
+            self.params,
+            {"tokens": torch.as_tensor(np.asarray(prompts),
+                                       device=self.device).long()},
+            self.max_seq)
+        tok = self._sample(logits)
+        # honor EOS on the prefill-sampled token too: the token is still
+        # emitted, but its slot goes inactive before any decode step
+        active = (tok != eos_id) if eos_id is not None \
+            else torch.ones((B,), dtype=torch.bool, device=self.device)
+        out = [[t] for t in tok.tolist()]
+        self.timings["prefill_s"] += time.perf_counter() - t0
+        self.timings["prefills"] += 1
+        pos = torch.full((B,), P, dtype=torch.long, device=self.device)
+
+        for _ in range(max_new - 1):
+            if not bool(active.any()):
+                break
+            t0 = time.perf_counter()
+            logits, caches = self.model.decode_step(
+                self.params, caches, {"token": tok.long(), "positions": pos})
+            nxt = self._sample(logits)
+            if eos_id is not None:
+                active = active & (tok != eos_id)
+            nxt = torch.where(active, nxt, tok)
+            for i, (a, t) in enumerate(zip(active.tolist(), nxt.tolist())):
+                if a:
+                    out[i].append(t)
+            self.timings["decode_s"] += time.perf_counter() - t0
+            self.timings["decode_steps"] += 1
+            tok = nxt
+            pos = pos + active.long()
+
+        return [GenerationResult(toks, P, len(toks)) for toks in out]

@@ -184,3 +184,54 @@ def test_ensemble_kernel_lanes_equal_cpu_and_host_loop(dev):
         assert a.rank_sweeps == b.rank_sweeps
         assert np.array_equal(a.node_log, h.node_log)
         assert a.rank_sweeps == h.rank_sweeps
+
+
+# ---------------------------------------------------------------------------
+# K5 flash attention / K6 selective scan against their plain versions
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import (attention_plain,  # noqa: E402
+                                                 flash_attention)
+from repro_torch.kernels.selective_scan import (selective_scan,  # noqa: E402
+                                                selective_scan_plain)
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,window", [
+    (2, 4, 4, 256, 64, 0), (1, 8, 2, 128, 128, 0), (2, 4, 1, 256, 64, 0),
+    (2, 4, 4, 256, 64, 128), (1, 2, 2, 384, 128, 0), (1, 4, 2, 512, 32, 256),
+    (1, 4, 2, 200, 64, 0), (2, 6, 3, 77, 120, 30), (4, 32, 8, 512, 64, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, H, K, S, hd, window,
+                                              dtype):
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, K, S, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, K, S, hd, generator=g, device=dev).to(dtype)
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    assert flash_attention.launches == n + 1
+    want = attention_plain(q, k, v, window=window)
+    tol = 5e-6 if dtype == torch.float32 else 6e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 32, 128, 16), (1, 64, 256, 16),
+                                     (2, 48, 128, 8), (2, 37, 96, 16),
+                                     (1, 45, 200, 8), (4, 512, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain(dev, B, S, D, N, dtype):
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    dt = (torch.rand(B, S, D, generator=g, device=dev) * 0.1 + 0.01)
+    x = torch.randn(B, S, D, generator=g, device=dev)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.randn(D, N, generator=g, device=dev) * 0.3)
+    dt, x = dt.to(dtype), x.to(dtype)
+    n = selective_scan.launches
+    y, h = selective_scan(dt, x, b, c, a)
+    assert selective_scan.launches == n + 1
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    tol = 2e-6 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)

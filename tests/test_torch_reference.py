@@ -175,11 +175,16 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 @pytest.mark.parametrize("entry", ["synthetic_fleet", "lifecycle",
                                    "paper", "experiment", "convert",
-                                   "energy", "sweep"])
+                                   "energy", "sweep", "model_init",
+                                   "serve_engine", "serve_main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     from repro_torch import convert
+    from repro_torch.configs import get_config
     from repro_torch.core import energy, fleet, scenarios, simulator
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -195,6 +200,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
         "sweep": lambda: simulator.sweep_policies(
             simulator.SimConfig(epochs=2, history_h=4, horizon_h=2),
             {"reactive": simulator.PolicyConfig()}, n=8),
+        "model_init": lambda: build_model(
+            get_config("granite-3-2b").reduced()).init(0),
+        "serve_engine": lambda: ServeEngine(
+            build_model(get_config("falcon-mamba-7b").reduced()), {},
+            max_seq=8, batch_slots=1),
+        "serve_main": lambda: serve.main(["--requests", "1", "--max-new",
+                                          "2", "--prompt-len", "4"]),
     }
     with pytest.raises(RuntimeError, match="device="):
         calls[entry]()
