@@ -6,7 +6,10 @@ calls, holds each CUDA kernel against its plain torch twin, and checks the
 outputs against the port's CPU path and the paper headline:
 
   0. card: name and power limit (nvidia-smi), library versions
-  1. build: the rank kernels from ``src/repro_torch/kernels/csrc``
+  1. build: every kernel source in ``src/repro_torch/kernels/csrc`` at
+     once, with nvcc's register / shared-memory / spill report; SASS
+     counts (``cuobjdump``): K5's bf16 kernels run HMMA (tensor cores),
+     its f32 kernels FFMA only; K6's instructions against its exps
   2. K1 ``maiz_lohi`` / K2 ``maiz_topk`` vs their plain twins, bitwise, at
      N = 1,048,576 and a ragged N = 1,000,003; times (CUDA events, median
      of 25 after warm-up, L2 flushed) beside the byte/operation bound
@@ -27,9 +30,12 @@ outputs against the port's CPU path and the paper headline:
      plain-sweep grid for comparison; a 96-node stream card == CPU
  10. K5 ``flash_attention`` / K6 ``selective_scan`` vs their plain
      versions at the serving path's shapes (granite-3-2b's prefill
-     attention, falcon-mamba-7b's prefill scan) and at ragged shapes, f32
-     and bf16, within the JAX suite's bars; times beside the bound, the
-     plain version and (K5) ``scaled_dot_product_attention``
+     attention, falcon-mamba-7b's prefill scan), at ragged shapes and at
+     S 2048 (K6 with long and short memory), f32 and bf16, within the JAX
+     suite's bars; times of K5's two kernels (bf16 tensor cores, f32 FMA)
+     and of K6 beside the bound, the plain version and (K5)
+     ``scaled_dot_product_attention`` on the first backend that takes the
+     inputs (flash first; the backend is printed)
  11. serving at full width and depth: ``launch.serve.serve`` places the
      replica with ``place_jobs`` on a 64-pod fleet and serves 8 requests
      (2 batches of 4 slots, prompt 512, 32 new tokens, greedy) with
@@ -39,19 +45,22 @@ outputs against the port's CPU path and the paper headline:
      prefill within its bar of the plain version on that layer's own
      inputs; each model's prefill logits through the kernels == the same
      model through the plain versions on the card, on two prompt batches
-     (2e-2 / 8e-2 x max|logit|) and with f32 parameters (1e-4)
+     (2e-2 / 8e-2 x max|logit|) and with f32 parameters (1e-4); the
+     f32-parameter prefill is granite's path through K5's f32 kernel
 
 Launch counts are set to 0 just before each of phases 3-5, 8, 9 and 11
-and read just after.  The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
-check exits non-zero before that line.  Needs one CUDA device; run from
-anywhere with ``python3 chip_smoke.py``.
+(and each held prefill of phase 11) and read just after; K5 counts its
+bf16 and f32 kernels apart.  The line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device":
+{...}}``.  Any failed check exits non-zero before that line.  Needs one
+CUDA device; run from anywhere with ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -99,6 +108,8 @@ REPLACES = {
                     "src/repro_torch/kernels/csrc/maizx_rank.cu"),
     "flash_attention": ("src/repro/kernels/flash_attention.py:33",
                         "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_attention_f32": ("src/repro/kernels/flash_attention.py:33",
+                            "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "selective_scan": ("src/repro/kernels/selective_scan.py:32",
                        "src/repro_torch/kernels/csrc/selective_scan.cu"),
 }
@@ -274,6 +285,42 @@ def phase_build():
     say(f"[1] built {', '.join(p.name for p, _ in built)} in "
         f"{time.perf_counter() - t0:.2f} s (each done at "
         f"{', '.join(f'{t:.2f}' for _, t in built)} s)")
+    # K5's bf16 kernel runs on the tensor cores (HMMA), its f32 kernel on
+    # the FP32 pipes (FFMA, no HMMA)
+    counts = sass_counts(built[mods.index(fa)][0], ("HMMA", "FFMA"))
+    for fn, c in counts.items():
+        say(f"[1] SASS {fn}: {c['all']} instructions, {c['HMMA']} HMMA, "
+            f"{c['FFMA']} FFMA")
+    mma = [c for fn, c in counts.items() if "flash_mma_kernel" in fn]
+    fma = [c for fn, c in counts.items() if "flash_fwd_kernel" in fn]
+    check(len(mma) == 2 and all(c["HMMA"] > 0 for c in mma),
+          f"K5's bf16 kernels show no HMMA: {counts}")
+    check(len(fma) == 2 and all(c["HMMA"] == 0 < c["FFMA"] for c in fma),
+          f"K5's f32 kernels are not FMA kernels: {counts}")
+    # K6: its instructions against its exps (one MUFU.EX2 per expf)
+    for fn, c in sass_counts(built[mods.index(sc)][0],
+                             ("MUFU", "FMUL", "FADD", "FFMA")).items():
+        say(f"[1] SASS {fn}: {c['all']} instructions, {c['MUFU']} MUFU, "
+            f"{c['FMUL']} FMUL, {c['FADD']} FADD, {c['FFMA']} FFMA")
+
+
+def sass_counts(lib, opcodes):
+    """Per kernel of a built library (``cuobjdump -sass``), the number of
+    SASS instructions of each opcode."""
+    from repro_torch.kernels import _build
+    tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        counts[name.strip()] = {op: len(re.findall(rf"\b{op}\b", body))
+                                for op in opcodes}
+        # every instruction line starts with its address, /*0a10*/
+        counts[name.strip()]["all"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/",
+                                                     body))
+    return counts
 
 
 def _streams(n, seed, dev, marginal, w_m):
@@ -402,12 +449,20 @@ def counted(fn):
     """Run ``fn`` with every launch count set to 0 just before and read
     just after; returns (result, {kernel: launches})."""
     import torch
+    from repro_torch.kernels.flash_attention import flash_attention
     torch.cuda.synchronize()
     for f in _wrappers():
         f.launches = 0
+    routes = flash_attention.route_launches
+    for r in routes:
+        routes[r] = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {f.__name__: f.launches for f in _wrappers()}
+    cnt = {f.__name__: f.launches for f in _wrappers()}
+    # K5's two kernels: bf16 on the tensor cores, f32 on the FMA pipes
+    cnt["flash_attention"] = routes["bf16"]
+    cnt["flash_attention_f32"] = routes["f32"]
+    return out, cnt
 
 
 def phase_ranking(dev):
@@ -871,26 +926,60 @@ def _k6_bound(B, S, D, N, dtype, rates):
     return bound_ms(nbytes, 5 * B * S * D * N, rates)
 
 
-def phase_model_kernels(dev, rates, sfu, flush):
-    """K5/K6 vs their plain versions at the serving path's shapes and at
-    ragged ones, f32 and bf16; times at the path's shapes."""
+def _sdpa_ms(q, k, v, flush):
+    """Time of one ``scaled_dot_product_attention`` call on the same
+    inputs, with the first backend that takes them, in the order flash,
+    memory-efficient, cuDNN, math; GQA through ``enable_gqa``, or with k/v
+    expanded to the q heads beforehand where a backend refuses it.
+    Returns (ms, the backend's name)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    wide = (k.repeat_interleave(G, 1), v.repeat_interleave(G, 1))
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for gqa in (True, False):
+            kk, vv = (k, v) if gqa else wide
+            try:
+                with sdpa_kernel([backend]):
+                    F.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                   enable_gqa=gqa)
+                    ms = time_ms(lambda: F.scaled_dot_product_attention(
+                        q, kk, vv, is_causal=True, enable_gqa=gqa), flush)
+            except (RuntimeError, TypeError):
+                continue
+            return ms, backend.name + ("" if gqa else
+                                       " (k/v expanded to the q heads)")
+    return None, "none"
+
+
+def phase_model_kernels(dev, rates, sfu, flush):
+    """K5/K6 vs their plain versions at the serving path's shapes, at
+    ragged ones and at S 2048, f32 and bf16; times at the path's
+    shapes."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (attention_plain,
                                                      flash_attention)
     from repro_torch.kernels.selective_scan import (selective_scan,
                                                     selective_scan_plain)
     g = torch.Generator(device=dev).manual_seed(10)
-    err = {"flash_attention": [0.0, 0], "selective_scan": [0.0, 0]}
+    err = {k: [0.0, 0] for k in ("flash_attention", "flash_attention_f32",
+                                 "selective_scan")}
     times = {}
     gr, fm = get_config("granite-3-2b"), get_config("falcon-mamba-7b")
-    # (B, H, K, S, hd, window): granite's prefill, then a ragged band
+    # (B, H, K, S, hd, window): granite's prefill, a ragged band with
+    # danube's head dim, and granite's heads at S 2048
     k5_path = (SERVE_SLOTS, gr.n_heads, gr.n_kv_heads, SERVE_PROMPT,
                gr.head_dim, 0)
-    for shape in (k5_path, (2, 6, 3, 77, 120, 30)):
+    for shape in (k5_path, (2, 6, 3, 77, 120, 30),
+                  (1, gr.n_heads, gr.n_kv_heads, 2048, gr.head_dim, 0)):
         B, H, K, S, hd, win = shape
         for dt in (torch.bfloat16, torch.float32):
+            name = ("flash_attention" if dt == torch.bfloat16
+                    else "flash_attention_f32")
             q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dt)
             k = torch.randn(B, K, S, hd, generator=g, device=dev).to(dt)
             v = torch.randn(B, K, S, hd, generator=g, device=dev).to(dt)
@@ -898,30 +987,30 @@ def phase_model_kernels(dev, rates, sfu, flush):
             want = attention_plain(q, k, v, window=win)
             torch.cuda.synchronize()
             e, ok = _allclose_err(got, want, K5_BARS[str(dt)[6:]])
-            err["flash_attention"][0] = max(err["flash_attention"][0], e)
+            err[name][0] = max(err[name][0], e)
             say(f"[10] K5 {shape} {str(dt)[6:]}: max abs err {e:.3g} "
                 f"(bar {K5_BARS[str(dt)[6:]]})")
             check(ok, f"K5 differs from its plain version at {shape} {dt}")
-            if shape == k5_path and dt == torch.bfloat16:
-                lib = None
-                try:
-                    F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True)
-                    lib = time_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True, enable_gqa=True), flush)
-                except TypeError as ex:     # a torch without enable_gqa
-                    say(f"[10] SDPA with enable_gqa unavailable: {ex}")
-                times["flash_attention"] = (
+            del got, want
+            if shape == k5_path:
+                lib, backend = _sdpa_ms(q, k, v, flush)
+                say(f"[10] SDPA yardstick for {str(dt)[6:]}: {backend}")
+                times[name] = (
                     time_ms(lambda: flash_attention(q, k, v), flush),
                     time_ms(lambda: attention_plain(q, k, v), flush),
                     _k5_bound(*shape, dt, rates), lib)
-    # (B, S, D, N): falcon's prefill, then ragged S and D
+    # (B, S, D, N, dt range): falcon's prefill, ragged S and D, and 2048
+    # steps with long memory (dt ~ 0.005) and short memory (dt ~ 1)
     k6_path = (SERVE_SLOTS, SERVE_PROMPT, fm.d_inner, fm.ssm_state)
-    for shape in (k6_path, (2, 37, 96, 16), (1, 45, 200, 8)):
+    for shape, (lo, hi) in ((k6_path, (0.01, 0.11)),
+                            ((2, 37, 96, 16), (0.01, 0.11)),
+                            ((1, 45, 200, 8), (0.01, 0.11)),
+                            ((2, 2048, 1024, 16), (0.004, 0.006)),
+                            ((2, 2048, 1000, 8), (0.5, 1.5))):
         B, S, D, N = shape
         for dt in (torch.float32, torch.bfloat16):
-            d_t = (torch.rand(B, S, D, generator=g, device=dev) * 0.1
-                   + 0.01).to(dt)
+            d_t = (torch.rand(B, S, D, generator=g, device=dev) * (hi - lo)
+                   + lo).to(dt)
             x = torch.randn(B, S, D, generator=g, device=dev).to(dt)
             b = torch.randn(B, S, N, generator=g, device=dev)
             c = torch.randn(B, S, N, generator=g, device=dev)
@@ -933,8 +1022,9 @@ def phase_model_kernels(dev, rates, sfu, flush):
             ey, oky = _allclose_err(y, y_p, bar)
             eh, okh = _allclose_err(h, h_p, bar)
             err["selective_scan"][0] = max(err["selective_scan"][0], ey, eh)
-            say(f"[10] K6 {shape} {str(dt)[6:]}: max abs err y {ey:.3g}, "
-                f"h_S {eh:.3g} (bar {bar})")
+            say(f"[10] K6 {shape} dt in [{lo}, {hi}] {str(dt)[6:]}: max abs "
+                f"err y {ey:.3g}, h_S {eh:.3g} (bar {bar}); bitwise: y "
+                f"{ulp_diff(y, y_p) == 0}, h_S {ulp_diff(h, h_p) == 0}")
             check(oky and okh, f"K6 differs from its plain version at "
                   f"{shape} {dt}")
             if shape == k6_path and dt == torch.float32:
@@ -945,7 +1035,8 @@ def phase_model_kernels(dev, rates, sfu, flush):
                     _k6_bound(*shape, dt, rates), None)
     for k, (ms, plain, (bd, by), lib) in times.items():
         say(f"[10] {k} at the path's shape: kernel {ms * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by})"
+            f"plain {plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}), "
+            f"{100 * bd / ms:.1f} % of the bound"
             + (f", SDPA {lib * 1e3:.1f} us" if lib is not None else ""))
     B, S, D, N = k6_path
     say(f"[10] selective_scan: its {B * S * D * N:.3g} exps on the SFU "
@@ -1004,7 +1095,13 @@ def phase_serving(dev):
             pr = params32 if p_dt == "f32" else params
             prompts = torch.as_tensor(np.random.default_rng(seed).integers(
                 2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
-            lk, caches, held = _held_prefill(kmodel, pr, prompts, cache)
+            (lk, caches, held), c = counted(
+                lambda: _held_prefill(kmodel, pr, prompts, cache))
+            if p_dt == "f32":
+                # K5's f32 kernel: granite's prefill with f32 parameters
+                total["flash_attention_f32"] = (
+                    total.get("flash_attention_f32", 0)
+                    + c["flash_attention_f32"])
             lp, _ = pmodel.prefill(pr, {"tokens": prompts}, cache)
             torch.cuda.synchronize()
             e_l, n_ok, n_held = held[kern]

@@ -9,20 +9,36 @@
 // state in its scratch and drops it, this kernel also writes the final
 // state h_S (B, D, N) in f32: prefill hands it to the decode cache.
 //
-// Design.  Blocks over (channel tile, batch); the sequence loop runs inside
-// the block (the TPU kernel relied on its sequence grid axis running in
-// order, which CUDA blocks do not).  Each thread owns 4 of a channel's N
-// states in registers for the whole sequence, N / 4 neighbouring lanes
-// share a channel and add their parts of y_t with warp shuffles, so the
-// (D, N) state never leaves the chip and device-memory traffic stays
-// O(B * S * (D + N)).  Per chunk of 32 steps the block stages dt, x (its
-// channels) and B_t, C_t (shared by all channels) in shared memory with
-// coalesced loads, walks the chunk, and writes the chunk's y back
-// coalesced.  D and S may be ragged.  N is 8 or 16.  The recurrence rounds
-// each product and sum on its own (no FMA contraction), as PyTorch's
-// elementwise ops do, so over hundreds of steps the state tracks the plain
-// version's instead of drifting by an ulp a step; only y's sum over N
-// runs in another order.
+// Design.  Blocks over (tile of 64 channels, batch); the sequence loop
+// runs inside the block (the TPU kernel relied on its sequence grid axis
+// running in order, which CUDA blocks do not).  One thread per (b, d)
+// channel holds all N of its states in registers for the whole sequence,
+// so the (D, N) state never leaves the chip and device-memory traffic
+// stays O(B * S * (D + N)), and the per-step work of a channel (its dt and
+// x, dx = dt * x, y's sum over N, the store of y) is paid once per N
+// states.  (Two threads per channel, N / 2 states each and one shuffle for
+// y, gave twice the warps but ran 25 % slower at falcon-mamba-7b's
+// prefill.)  Neighbouring threads hold neighbouring channels, so the
+// dt/x reads and y writes of a step are coalesced rows of the (B, S, D)
+// layout.  dt and x (the block's channels) and B_t, C_t (shared by every
+// channel of a (b, t)) come through a two-stage ring of 32-step chunks in
+// shared memory, filled with 16-byte cp.async copies: chunk c + 1 is in
+// flight while chunk c is walked, one barrier per chunk.  B_t and C_t are
+// read as float4 broadcasts.  The step loop is unrolled by 4, so the exps
+// of later steps, which do not depend on the state, overlap the updates
+// of earlier ones.  The copies need D a multiple of 16 bytes of dt/x and
+// 16-byte aligned tensors; otherwise (vec = 0) the same kernel stages
+// element by element.  D and S may be ragged; N is 8 or 16.
+//
+// Arithmetic.  The decay is expf(__fmul_rn(dt, a)), the function
+// torch.exp computes on the card; the recurrence rounds each product and
+// sum on its own (no FMA contraction), as PyTorch's elementwise ops do, so
+// the final state h_S equals the plain version's bit for bit.  y's sum
+// over N takes the halving tree that torch.sum's warp reduction takes
+// over a last axis of 16 or 8, each product rounded before it is added,
+// so y equals the plain version's bit for bit too.  A faster exp
+// (ex2.approx of a pre-scaled argument) or a contracted update would drift
+// from the plain version by an ulp a step over long sequences.
 //
 // Bound on an H100.  At falcon-mamba-7b's prefill (B 4, S 512, D 8192,
 // N 16, f32 dt/x/y) the function moves ~204 MB (dt, x, y: 67 MB each; B,
@@ -31,10 +47,13 @@
 // (CUDA C Programming Guide, throughput table, cc 9.0), about 4.2e12/s at
 // 1.98 GHz on 132 SMs: ~64 us on the SFU alone.  A share of the exps could
 // run as polynomial code on the FP32 pipes, which the recurrence's ~1.3
-// GFLOP leaves mostly idle, so the operations need less than the bytes:
-// the bound is the bytes, ~61 us.  The design reads each input once and
-// keeps every exp on the SFU (expf = one ex2.approx plus range FMAs), so
-// it cannot go below ~64 us; splitting the exps is left for later.
+// GFLOP leaves mostly idle, so the bound is the bytes, ~61 us.  The
+// kernel keeps every exp on the SFU: expf is one MUFU.EX2 plus about six
+// FP32 and integer instructions of range reduction, so with the update and
+// y's tree a state-step issues about 13 instructions, ~105 us of issue for
+// 132 SMs at 1.98 GHz.  One thread per channel gives only 32,768 threads
+// at this shape, about 8 warps per SM, so latency is hidden by the 16
+// independent states of a step and the 4 unrolled steps, not by warps.
 //
 // C interface (loaded with ctypes): pointers and the stream as void*; the
 // launcher returns cudaGetLastError() as an int (or cudaErrorInvalidValue
@@ -43,11 +62,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int NPT = 4;  // states per thread
-constexpr int TC = 32;  // steps staged per chunk
+constexpr int CPB = 64;  // channels per block
+constexpr int TC = 32;   // steps per chunk
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -58,117 +78,209 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16-byte copy; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Sum of p[0, M) by halving: p[i] += p[i + M / 2], then the same over the
+// first half, down to p[0]; each sum rounded on its own.  (torch.sum
+// over a last axis of 8 or 16 on the card: a warp reduction with
+// shuffle-down offsets 8, 4, 2, 1.)
+template <int W, int M>
+__device__ __forceinline__ void halve(float (&p)[M]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) p[i] = __fadd_rn(p[i], p[i + W]);
+  if constexpr (W > 1) halve<W / 2>(p);
+}
+template <int M>
+__device__ __forceinline__ float tree_sum(float (&p)[M]) {
+  if constexpr (M > 1) halve<M / 2>(p);
+  return p[0];
+}
+
+// One stage of the ring: a chunk of TC steps.
 template <typename T, int N>
-__global__ void __launch_bounds__(THREADS)
+struct Stage {
+  T dt[TC][CPB];
+  T x[TC][CPB];
+  float4 b[TC][N / 4];
+  float4 c[TC][N / 4];
+};
+
+// Steps [t0, t0 + TC) of the block's channels [d0, d0 + CPB) and of B/C
+// into a stage; 0 past S and past D.
+template <typename T, int N, int THREADS>
+__device__ __forceinline__ void load_chunk(Stage<T, N>& st,
+                                           const T* __restrict__ dt,
+                                           const T* __restrict__ x,
+                                           const float* __restrict__ bm,
+                                           const float* __restrict__ cm,
+                                           long long row0, int t0, int d0,
+                                           int S, int D, bool vec) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte copy
+  constexpr int RC = CPB / E;        // copies per step row of dt or x
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < TC * RC / THREADS; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int tt = i / RC, cc = (i % RC) * E;
+      const bool ok = t0 + tt < S && d0 + cc < D;
+      const long long off = ok ? (row0 + t0 + tt) * D + d0 + cc : 0;
+      cp_async16(&st.dt[tt][cc], dt + off, ok ? 16 : 0);
+      cp_async16(&st.x[tt][cc], x + off, ok ? 16 : 0);
+    }
+    for (int i = threadIdx.x; i < TC * N / 4; i += THREADS) {
+      const int tt = i / (N / 4), q = i % (N / 4);
+      const bool ok = t0 + tt < S;
+      const long long off = ok ? (row0 + t0 + tt) * N + 4 * q : 0;
+      cp_async16(&st.b[tt][q], bm + off, ok ? 16 : 0);
+      cp_async16(&st.c[tt][q], cm + off, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TC * CPB; i += THREADS) {
+      const int tt = i / CPB, cc = i % CPB;
+      const bool ok = t0 + tt < S && d0 + cc < D;
+      const long long off = (row0 + t0 + tt) * D + d0 + cc;
+      store(&st.dt[tt][cc], ok ? to_f32(dt[off]) : 0.f);
+      store(&st.x[tt][cc], ok ? to_f32(x[off]) : 0.f);
+    }
+    float* b_s = &st.b[0][0].x;
+    float* c_s = &st.c[0][0].x;
+    for (int i = threadIdx.x; i < TC * N; i += THREADS) {
+      const int tt = i / N, nn = i % N;
+      const bool ok = t0 + tt < S;
+      const long long off = (row0 + t0 + tt) * N + nn;
+      b_s[tt * N + nn] = ok ? bm[off] : 0.f;
+      c_s[tt * N + nn] = ok ? cm[off] : 0.f;
+    }
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(CPB)
     scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
                 const float* __restrict__ bm, const float* __restrict__ cm,
                 const float* __restrict__ a, T* __restrict__ y,
-                float* __restrict__ h_last, int S, int D) {
-  constexpr int LPC = N / NPT;         // lanes per channel
-  constexpr int CPB = THREADS / LPC;   // channels per block
-  __shared__ float dt_s[TC][CPB];
-  __shared__ float x_s[TC][CPB];
-  __shared__ float y_s[TC][CPB];
-  __shared__ float b_s[TC][N];
-  __shared__ float c_s[TC][N];
+                float* __restrict__ h_last, int S, int D, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Stage<T, N>* ring = reinterpret_cast<Stage<T, N>*>(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int cl = tid / LPC, part = tid % LPC;
+  const int cl = threadIdx.x;  // this thread's channel in the tile
   const int d0 = blockIdx.x * CPB;
   const int d = d0 + cl;
   const int b = blockIdx.y;
   const long long row0 = (long long)b * S;  // first (b, t) row
 
-  float av[NPT], h[NPT];
+  float av[N], h[N];
 #pragma unroll
-  for (int n = 0; n < NPT; ++n) {
-    av[n] = d < D ? a[(long long)d * N + part * NPT + n] : 0.f;
+  for (int n = 0; n < N; ++n) {
+    av[n] = d < D ? a[(long long)d * N + n] : 0.f;
     h[n] = 0.f;
   }
 
-  for (int t0 = 0; t0 < S; t0 += TC) {
+  const int nc = (S + TC - 1) / TC;
+  load_chunk<T, N, CPB>(ring[0], dt, x, bm, cm, row0, 0, d0, S, D, vec);
+  cp_async_commit();
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = ci * TC;
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; chunk ci - 1's stage is free
+    if (ci + 1 < nc)
+      load_chunk<T, N, CPB>(ring[(ci + 1) & 1], dt, x, bm, cm, row0, t0 + TC,
+                            d0, S, D, vec);
+    cp_async_commit();
+    const Stage<T, N>& st = ring[ci & 1];
     const int tc = min(TC, S - t0);
-    __syncthreads();  // the previous chunk's y_s is written out
-    for (int i = tid; i < TC * CPB; i += THREADS) {
-      const int tt = i / CPB, cc = i % CPB;
-      const bool ok = tt < tc && d0 + cc < D;
-      const long long off = (row0 + t0 + tt) * D + d0 + cc;
-      dt_s[tt][cc] = ok ? to_f32(dt[off]) : 0.f;
-      x_s[tt][cc] = ok ? to_f32(x[off]) : 0.f;
-    }
-    for (int i = tid; i < TC * N; i += THREADS) {
-      const int tt = i / N, nn = i % N;
-      const bool ok = tt < tc;
-      const long long off = (row0 + t0 + tt) * N + nn;
-      b_s[tt][nn] = ok ? bm[off] : 0.f;
-      c_s[tt][nn] = ok ? cm[off] : 0.f;
-    }
-    __syncthreads();
+    T* yrow = y + (row0 + t0) * D + d;
+#pragma unroll 4
     for (int tt = 0; tt < tc; ++tt) {
-      const float dtv = dt_s[tt][cl];
-      const float dx = __fmul_rn(dtv, x_s[tt][cl]);
-      float ys = 0.f;
+      const float dtv = to_f32(st.dt[tt][cl]);
+      const float dx = __fmul_rn(dtv, to_f32(st.x[tt][cl]));
+      float bb[N], cc[N];
 #pragma unroll
-      for (int n = 0; n < NPT; ++n) {
-        const int nn = part * NPT + n;
+      for (int q = 0; q < N / 4; ++q) {
+        const float4 bq = st.b[tt][q], cq = st.c[tt][q];
+        bb[4 * q] = bq.x, bb[4 * q + 1] = bq.y;
+        bb[4 * q + 2] = bq.z, bb[4 * q + 3] = bq.w;
+        cc[4 * q] = cq.x, cc[4 * q + 1] = cq.y;
+        cc[4 * q + 2] = cq.z, cc[4 * q + 3] = cq.w;
+      }
+      float hc[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
         // each product and sum rounded on its own, in the plain
         // version's order
         const float da = expf(__fmul_rn(dtv, av[n]));
-        h[n] = __fadd_rn(__fmul_rn(da, h[n]), __fmul_rn(dx, b_s[tt][nn]));
-        ys += h[n] * c_s[tt][nn];
+        h[n] = __fadd_rn(__fmul_rn(da, h[n]), __fmul_rn(dx, bb[n]));
+        hc[n] = __fmul_rn(h[n], cc[n]);
       }
-#pragma unroll
-      for (int off = 1; off < LPC; off <<= 1)
-        ys += __shfl_xor_sync(0xffffffffu, ys, off);
-      if (part == 0) y_s[tt][cl] = ys;
-    }
-    __syncthreads();
-    for (int i = tid; i < TC * CPB; i += THREADS) {
-      const int tt = i / CPB, cc = i % CPB;
-      if (tt < tc && d0 + cc < D)
-        store(&y[(row0 + t0 + tt) * D + d0 + cc], y_s[tt][cc]);
+      // y: the halving tree over N that torch.sum's warp reduction takes
+      const float yv = tree_sum<N>(hc);
+      if (d < D) store(yrow + (long long)tt * D, yv);
     }
   }
   if (d < D) {
+    float4* hl =
+        reinterpret_cast<float4*>(h_last + ((long long)b * D + d) * N);
 #pragma unroll
-    for (int n = 0; n < NPT; ++n)
-      h_last[((long long)b * D + d) * N + part * NPT + n] = h[n];
+    for (int q = 0; q < N / 4; ++q)
+      hl[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
   }
 }
 
 template <typename T, int N>
 int launch(const void* dt, const void* x, const void* bm, const void* cm,
            const void* a, void* y, void* h_last, int B, int S, int D,
-           cudaStream_t stream) {
-  constexpr int CPB = THREADS / (N / NPT);
+           int vec, cudaStream_t stream) {
+  constexpr size_t smem = 2 * sizeof(Stage<T, N>);
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((D + CPB - 1) / CPB, B);
-  scan_kernel<T, N><<<grid, THREADS, 0, stream>>>(
+  scan_kernel<T, N><<<grid, CPB, smem, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<T*>(y),
-      static_cast<float*>(h_last), S, D);
+      static_cast<float*>(h_last), S, D, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dt, x and y share it).
+// dtype: 0 = float32, 1 = bfloat16 (dt, x and y share it).  vec: 1 =
+// 16-byte cp.async copies, which need D * sizeof(dtype) % 16 == 0 and
+// 16-byte aligned tensors; 0 = element-wise staging in the same kernel.
 extern "C" int selective_scan_launch(const void* dt, const void* x,
                                      const void* bm, const void* cm,
                                      const void* a, void* y, void* h_last,
                                      int dtype, int B, int S, int D, int N,
-                                     void* stream) {
+                                     int vec, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || D < 1 || (N != 8 && N != 16) ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (vec && D % (dtype == 0 ? 4 : 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return N == 8 ? launch<float, 8>(dt, x, bm, cm, a, y, h_last, B, S, D, st)
+    return N == 8 ? launch<float, 8>(dt, x, bm, cm, a, y, h_last, B, S, D,
+                                     vec, st)
                   : launch<float, 16>(dt, x, bm, cm, a, y, h_last, B, S, D,
-                                      st);
-  return N == 8
-             ? launch<__nv_bfloat16, 8>(dt, x, bm, cm, a, y, h_last, B, S, D,
-                                        st)
-             : launch<__nv_bfloat16, 16>(dt, x, bm, cm, a, y, h_last, B, S,
-                                         D, st);
+                                      vec, st);
+  return N == 8 ? launch<__nv_bfloat16, 8>(dt, x, bm, cm, a, y, h_last, B, S,
+                                           D, vec, st)
+                : launch<__nv_bfloat16, 16>(dt, x, bm, cm, a, y, h_last, B,
+                                            S, D, vec, st);
 }

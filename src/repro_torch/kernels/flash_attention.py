@@ -5,11 +5,15 @@
 (B, K, S, hd) with H % K == 0 (query head h reads kv head h // (H / K)),
 masks causally and, with ``window > 0``, to the band row - window < col <=
 row, accumulates in f32 and returns q's dtype.  On CUDA tensors it launches
-the CUDA kernel ``csrc/flash_attention.cu`` (replaces ``_flash_kernel``;
-bound and design are noted there), built with ``nvcc`` at first use; on CPU
-tensors it runs the plain torch version ``attention_plain``, the math of
+a CUDA kernel of ``csrc/flash_attention.cu`` (replaces ``_flash_kernel``;
+bound and design are noted there), built with ``nvcc`` at first use: bf16
+runs on the tensor cores (``mma.sync``), f32 on the FP32 pipes;
+``variant`` names the kernel a call takes.  On CPU tensors it runs the
+plain torch version ``attention_plain``, the math of
 ``repro.kernels.ref.attention_ref``.  Any other device raises.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches, and
+``flash_attention.route_launches`` splits them by route (``"bf16"``,
+``"f32"``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,26 @@ SOURCE = _build.CSRC / "flash_attention.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def variant(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """The kernel the launcher runs for q's dtype and head dim, as
+    ``route-kernel-HD[-staging]``: bf16 on the tensor cores (``mma``) with
+    16-byte ``cp.async`` copies when ``hd % 8 == 0`` and every tensor is
+    16-byte aligned (``aligned``), else the same kernel staging element by
+    element (``-elementwise``); f32 on the FP32 pipes (``fma``).  HD is the
+    instantiated head dim (64 or 128) that hd is padded to.  Raises for a
+    dtype or head dim no kernel takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes f32 or bf16, not {dtype}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} is not in [1, {MAX_HEAD_DIM}]")
+    HD = 64 if hd <= 64 else 128
+    if dtype == torch.float32:
+        return f"f32-fma-{HD}"
+    vec = hd % 8 == 0 and aligned
+    return f"bf16-mma-{HD}" + ("" if vec else "-elementwise")
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,7 +72,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 7 + [
-        ctypes.c_float, p]
+        ctypes.c_float, i, p]
     lib.flash_attention_launch.restype = i
 
 
@@ -61,11 +85,10 @@ def _check_args(q, k, v) -> None:
     if k.shape[0] != B or k.shape[2:] != (S, hd) or H % k.shape[1]:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (need H % K == 0)")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention takes q/k/v of one dtype, f32 or "
                          f"bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    variant(q.dtype, hd)
     for t in (q, k, v):
         if t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError("flash_attention's kernel takes contiguous "
@@ -82,14 +105,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_args(q, k, v)
     B, H, S, hd = q.shape
     out = torch.empty_like(q)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    vec = not variant(q.dtype, hd, aligned).endswith("elementwise")
     lib = _build.load(SOURCE, NVCC_FLAGS, _bind)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], B, H, k.shape[1], S, hd, int(window),
-        hd ** -0.5, stream), "flash_attention")
+        hd ** -0.5, int(vec), stream), "flash_attention")
     flash_attention.launches += 1
+    flash_attention.route_launches[_ROUTES[q.dtype]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"bf16": 0, "f32": 0}

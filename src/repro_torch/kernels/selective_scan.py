@@ -27,6 +27,22 @@ STATE_SIZES = (8, 16)          # the kernel's instantiated N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def variant(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
+    """How the launcher stages dt/x for their dtype and channel count:
+    ``"<dtype>-cp.async"`` (16-byte copies) when a row of D channels is a
+    whole number of 16-byte copies and every tensor is 16-byte aligned
+    (``aligned``), else ``"<dtype>-elementwise"`` (the same kernel,
+    staging element by element).  Raises for a dtype the kernel does not
+    take."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"selective_scan takes dt/x in f32 or bf16, not "
+                         f"{dtype}")
+    name = "f32" if dtype == torch.float32 else "bf16"
+    per_copy = 16 // (4 if dtype == torch.float32 else 2)
+    vec = D % per_copy == 0 and aligned
+    return f"{name}-" + ("cp.async" if vec else "elementwise")
+
+
 def selective_scan_plain(dt, x, b, c, a
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence step by step over S in plain torch: (y in x's dtype,
@@ -47,7 +63,7 @@ def selective_scan_plain(dt, x, b, c, a
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.selective_scan_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.selective_scan_launch.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.selective_scan_launch.restype = i
 
 
@@ -86,12 +102,15 @@ def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
     N = a.shape[-1]
     y = torch.empty_like(x)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (dt, x, b, c, a, y, h_last))
+    vec = variant(x.dtype, D, aligned).endswith("cp.async")
     lib = _build.load(SOURCE, NVCC_FLAGS, _bind)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(lib.selective_scan_launch(
         dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), y.data_ptr(), h_last.data_ptr(), _DTYPES[x.dtype],
-        B, S, D, N, stream), "selective_scan")
+        B, S, D, N, int(vec), stream), "selective_scan")
     selective_scan.launches += 1
     return y, h_last
 

@@ -20,6 +20,8 @@ from repro.models.ssm import chunked_selective_scan
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as pref
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import selective_scan as sc_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.selective_scan import selective_scan
 
@@ -181,3 +183,64 @@ def test_kernel_launchers_refuse_shapes_they_do_not_take(bad):
                            torch.empty(1, 4, 16, **m),
                            torch.empty(1, 4, 16, **m),
                            torch.empty(32, 16, **m))
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    (torch.bfloat16, 64, True, "bf16-mma-64"),
+    (torch.bfloat16, 32, True, "bf16-mma-64"),
+    (torch.bfloat16, 120, True, "bf16-mma-128"),
+    (torch.bfloat16, 128, True, "bf16-mma-128"),
+    (torch.bfloat16, 100, True, "bf16-mma-128-elementwise"),
+    (torch.bfloat16, 7, True, "bf16-mma-64-elementwise"),
+    (torch.bfloat16, 64, False, "bf16-mma-64-elementwise"),
+    (torch.float32, 64, True, "f32-fma-64"),
+    (torch.float32, 120, False, "f32-fma-128"),
+])
+def test_flash_variant_names_the_route(dtype, hd, aligned, want):
+    """bf16 runs on the tensor cores, with 16-byte copies only for hd % 8
+    == 0 and aligned tensors; f32 runs the FMA kernel; hd pads to 64 or
+    128."""
+    assert fa_mod.variant(dtype, hd, aligned) == want
+
+
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    (torch.float32, 8192, True, "f32-cp.async"),
+    (torch.float32, 200, True, "f32-cp.async"),
+    (torch.float32, 198, True, "f32-elementwise"),
+    (torch.float32, 8192, False, "f32-elementwise"),
+    (torch.bfloat16, 96, True, "bf16-cp.async"),
+    (torch.bfloat16, 100, True, "bf16-elementwise"),
+])
+def test_scan_variant_names_the_staging(dtype, D, aligned, want):
+    assert sc_mod.variant(dtype, D, aligned) == want
+
+
+@pytest.mark.parametrize("bad", ["float16 attention", "head_dim 0",
+                                 "head_dim 129", "float16 scan",
+                                 "k/v shape", "dt/x shape"])
+def test_launchers_refuse_before_building(bad):
+    """What each kernel refuses, refused before any build or launch (meta
+    tensors never reach the card)."""
+    m = dict(device="meta")
+    n5, n6 = flash_attention.launches, selective_scan.launches
+    with pytest.raises(ValueError):
+        if bad == "float16 attention":
+            fa_mod.variant(torch.float16, 64)
+        elif bad == "head_dim 0":
+            fa_mod.variant(torch.bfloat16, 0)
+        elif bad == "head_dim 129":
+            flash_attention(*(torch.empty(1, 2, 8, 129, dtype=torch.bfloat16,
+                                          **m) for _ in range(3)))
+        elif bad == "float16 scan":
+            sc_mod.variant(torch.float16, 64)
+        elif bad == "k/v shape":
+            flash_attention(torch.empty(1, 4, 8, 64, **m),
+                            torch.empty(1, 2, 9, 64, **m),
+                            torch.empty(1, 2, 9, 64, **m))
+        else:
+            selective_scan(torch.empty(1, 4, 32, **m),
+                           torch.empty(1, 5, 32, **m),
+                           torch.empty(1, 4, 16, **m),
+                           torch.empty(1, 4, 16, **m),
+                           torch.empty(32, 16, **m))
+    assert (flash_attention.launches, selective_scan.launches) == (n5, n6)

@@ -1,9 +1,12 @@
-"""The port's CUDA rank kernels on the card: K1/K2 and the batched K3/K4
+"""The port's CUDA kernels on the card: K1/K2 and the batched K3/K4
 bitwise equal to their plain torch twins (on the same card, and on the
 CPU), each K3/K4 lane equal to K1/K2 on that lane, and the placement
-engines' and the ensemble's kernel paths equal to their CPU paths.
-Skips without a GPU; run on the card with ``python -m pytest -q -m cuda
-tests/test_torch_cuda.py``."""
+engines' and the ensemble's kernel paths equal to their CPU paths; K5
+(bf16 on the tensor cores, f32 on the FMA pipes) and K6 within the JAX
+suite's bars of their plain versions, edge cases included (S 1 and 2048,
+GQA groups, padded head dims, windows, large logits, long and short scan
+memory, element-wise staging).  Skips without a GPU; run on the card with
+``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import dataclasses
 
 import numpy as np
@@ -235,3 +238,91 @@ def test_selective_scan_kernel_matches_plain(dev, B, S, D, N, dtype):
     tol = 2e-6 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+
+
+# the bf16 route's edge cases: one row, a long sequence, a GQA group of 8,
+# head dims padded to 64 and 128 (32, 120), windows that end inside a kv
+# tile, and q scaled by 8 so the running max moves tile to tile and the
+# accumulator is rescaled in registers
+@pytest.mark.parametrize("B,H,K,S,hd,window", [
+    (2, 4, 4, 1, 64, 0), (1, 8, 1, 2048, 64, 0), (2, 16, 2, 200, 64, 0),
+    (1, 4, 2, 300, 32, 0), (1, 4, 2, 300, 120, 0), (1, 4, 2, 333, 64, 100),
+    (2, 4, 1, 260, 128, 70), (1, 2, 2, 2048, 120, 500)])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_flash_attention_bf16_edge_cases(dev, B, H, K, S, hd, window,
+                                         q_scale):
+    g = torch.Generator(device=dev).manual_seed(S * hd + window)
+    q = (torch.randn(B, H, S, hd, generator=g, device=dev)
+         * q_scale).to(torch.bfloat16)
+    k = torch.randn(B, K, S, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, K, S, hd, generator=g, device=dev).to(torch.bfloat16)
+    n = flash_attention.route_launches["bf16"]
+    got = flash_attention(q, k, v, window=window)
+    assert flash_attention.route_launches["bf16"] == n + 1
+    want = attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=6e-3,
+                               rtol=6e-3)
+
+
+def test_flash_attention_routes_and_staging(dev):
+    """bf16 with a head dim that is no multiple of 8, or a tensor that is
+    not 16-byte aligned, takes the element-wise staging of the tensor-core
+    kernel; f32 takes the FMA kernel.  Each counts on its own route."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for dtype, hd, offset in ((torch.bfloat16, 60, 0),
+                              (torch.bfloat16, 64, 1),
+                              (torch.float32, 64, 0)):
+        qkv = []
+        for heads in (4, 2, 2):
+            flat = torch.randn(2 * heads * 150 * hd + offset, generator=g,
+                               device=dev).to(dtype)
+            qkv.append(flat[offset:].view(2, heads, 150, hd))
+        route = "bf16" if dtype == torch.bfloat16 else "f32"
+        n = dict(flash_attention.route_launches)
+        got = flash_attention(*qkv, window=40)
+        assert flash_attention.route_launches[route] == n[route] + 1
+        want = attention_plain(*qkv, window=40)
+        tol = 6e-3 if dtype == torch.bfloat16 else 5e-6
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+# the scan over 2048 steps with long memory (dt ~ 0.005: the state keeps
+# hundreds of steps) and short memory (dt ~ 1), ragged D, N 8 and 16
+@pytest.mark.parametrize("B,S,D,N,dt_lo,dt_hi", [
+    (2, 2048, 256, 16, 0.004, 0.006), (1, 2048, 200, 8, 0.004, 0.006),
+    (2, 2048, 96, 16, 0.5, 1.5), (1, 2048, 130, 8, 0.5, 1.5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_long_sequences(dev, B, S, D, N, dt_lo, dt_hi,
+                                              dtype):
+    g = torch.Generator(device=dev).manual_seed(D + N)
+    dt = torch.rand(B, S, D, generator=g, device=dev) * (dt_hi - dt_lo) \
+        + dt_lo
+    x = torch.randn(B, S, D, generator=g, device=dev)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.randn(D, N, generator=g, device=dev) * 0.3)
+    dt, x = dt.to(dtype), x.to(dtype)
+    y, h = selective_scan(dt, x, b, c, a)
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    tol = 2e-6 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+
+
+def test_selective_scan_elementwise_staging(dev):
+    """dt/x that are not 16-byte aligned take the element-wise staging of
+    the same kernel and agree with the plain version."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, S, D, N = 2, 70, 128, 16
+    flat = torch.rand(2 * B * S * D + 1, generator=g, device=dev)
+    dt = flat[1:B * S * D + 1].view(B, S, D) * 0.1 + 0.01
+    x = torch.randn(B * S * D + 1, generator=g, device=dev)[1:].view(B, S, D)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.randn(D, N, generator=g, device=dev) * 0.3)
+    assert x.data_ptr() % 16
+    y, h = selective_scan(dt.contiguous(), x, b, c, a)
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    torch.testing.assert_close(y, y_p, atol=2e-6, rtol=2e-6)
+    torch.testing.assert_close(h, h_p, atol=2e-6, rtol=2e-6)
