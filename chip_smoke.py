@@ -11,29 +11,38 @@ outputs against the port's CPU path and the paper headline:
      counts (``cuobjdump``): K5's bf16 kernels run HMMA (tensor cores),
      its f32 kernels FFMA only; K6's instructions against its exps
   2. K1 ``maiz_lohi`` / K2 ``maiz_topk`` vs their plain twins, bitwise, at
-     N = 1,048,576 and a ragged N = 1,000,003; times (CUDA events, median
-     of 25 after warm-up, L2 flushed) beside the byte/operation bound
+     N = 1,048,576 and a ragged N = 1,000,003, k in {1, 64, 65, 128};
+     the merged top-1 and top-65 (through tile candidates) vs the CPU
+     path and the full-vector merge; times at k in {1, 64, 65} (CUDA
+     events, median of 25 after warm-up, L2 flushed) beside the
+     byte/operation bound, and ``torch.topk`` over the tiles' score rows
+     as a yardstick for the selection alone
   3. fleet ranking: ``ops.maiz_ranking_fused`` on a 1,048,576-node fleet
   4. placement: ``scheduler.place_jobs`` (256 jobs of 64 chips, shortlist
-     64) on 65,536 and 1,048,576 nodes, kernel path == CPU path
+     64, so K2 at k = 65) on 65,536 and 1,048,576 nodes, kernel path ==
+     CPU path; profiled device ms per call beside the wall time
   5. simulator: ``simulate_fleet`` on a 65,536-node lifecycle fleet, 24
      epochs, kernel / plain / full engines
   6. Scenario C of the paper experiment on the card: -85.68 % +- 0.05 pp
   7. K3 ``maiz_lohi_b`` / K4 ``maiz_topk_b`` vs their plain twins, bitwise,
-     at L = 4 lanes x N = 1,048,576 and 1,000,003, each lane also against
-     K1/K2; times beside the bound (CUDA events, L2 flushed)
+     at L = 4 lanes x N = 1,048,576 and 1,000,003 (k in {1, 64, 65, 128})
+     and at the ensemble's 8 x 65,536 (k in {64, 65}), each lane also
+     against K1/K2; times beside the bound (CUDA events, L2 flushed)
   8. batched fleet ranking: ``ops.maiz_ranking_topk_batched`` on four
      1,048,576-node fleets (K3 + K4), each lane == the sequential ranking
   9. ensemble: ``sweep_policies`` over 4 deferral thresholds x 2 seeds on
      65,536-node fleets (8 lanes, one bucket, K4 per placement round);
      every lane == its own ``simulate_fleet_scan`` and the host loop; the
-     plain-sweep grid for comparison; a 96-node stream card == CPU
+     plain-sweep grid for comparison; profiled device ms per epoch beside
+     the wall time; a 96-node stream card == CPU
  10. K5 ``flash_attention`` / K6 ``selective_scan`` vs their plain
      versions at the serving path's shapes (granite-3-2b's prefill
      attention, falcon-mamba-7b's prefill scan), at ragged shapes and at
      S 2048 (K6 with long and short memory), f32 and bf16, within the JAX
-     suite's bars; times of K5's two kernels (bf16 tensor cores, f32 FMA)
-     and of K6 beside the bound, the plain version and (K5)
+     suite's bars; times of K5's two kernels (bf16 tensor cores, f32
+     FMA) and of K6 beside the bound (for f32 3xTF32 on the tensor
+     cores, with the FMAs' own bound on the f32 pipes printed beside
+     it), the plain version and (K5)
      ``scaled_dot_product_attention`` on the first backend that takes the
      inputs (flash first; the backend is printed)
  11. serving at full width and depth: ``launch.serve.serve`` places the
@@ -76,11 +85,17 @@ SIM_N = 65_536                  # simulator fleet
 LANES = 4                       # K3/K4 checks and the batched ranking
 ENS_FACTORS = (0.95, 0.85, 0.75, 0.65)   # the ensemble's deferral grid
 ENS_SEEDS = (1, 2)
-# device-memory rate (TB/s), f32 peak outside the tensor cores and dense
-# bf16 tensor-core peak (TFLOP/s) by card name, from NVIDIA's data sheets;
-# first match wins
-CARDS = (("H100 NVL", 3.9, 60.0, 835.0), ("H100 PCIe", 2.0, 51.0, 756.0),
-         ("H100", 3.35, 67.0, 989.0), ("H200", 4.8, 67.0, 989.0))
+# the tile top-k's k: checked bitwise and timed (K2/K4); 65 is the
+# placement engines' k (shortlist 64 + 1), 128 the port's tile cap
+TOPK_CHECK = (1, 64, 65, 128)
+TOPK_TIME = (1, 64, 65)
+# device-memory rate (TB/s), f32 peak outside the tensor cores, dense bf16
+# and dense TF32 tensor-core peaks (TFLOP/s) by card name, from NVIDIA's
+# data sheets; first match wins
+CARDS = (("H100 NVL", 3.9, 60.0, 835.0, 418.0),
+         ("H100 PCIe", 2.0, 51.0, 756.0, 378.0),
+         ("H100", 3.35, 67.0, 989.0, 495.0),
+         ("H200", 4.8, 67.0, 989.0, 495.0))
 # exp2 results per clock per SM on the SFU (CUDA C Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0)
 SFU_PER_CLOCK = 16
@@ -175,12 +190,13 @@ def time_ms(fn, flush, reps=25, warm=3) -> float:
 
 
 def card_rates(name: str):
-    """(bytes/s, f32 FLOP/s, bf16 tensor FLOP/s) of the card."""
-    for key, tbps, tflops, bf16 in CARDS:
+    """(bytes/s, f32 FLOP/s, bf16 tensor FLOP/s, TF32 tensor FLOP/s) of
+    the card."""
+    for key, *rates in CARDS:
         if key in name:
-            return tbps * 1e12, tflops * 1e12, bf16 * 1e12
+            return tuple(r * 1e12 for r in rates)
     say(f"[0] no rate table entry for {name!r}: using H100 SXM's")
-    return 3.35e12, 67e12, 989e12
+    return tuple(r * 1e12 for r in CARDS[2][1:])
 
 
 def device_busy(fn, top=0):
@@ -292,7 +308,7 @@ def phase_build():
         say(f"[1] SASS {fn}: {c['all']} instructions, {c['HMMA']} HMMA, "
             f"{c['FFMA']} FFMA")
     mma = [c for fn, c in counts.items() if "flash_mma_kernel" in fn]
-    fma = [c for fn, c in counts.items() if "flash_fwd_kernel" in fn]
+    fma = [c for fn, c in counts.items() if "flash_fma_kernel" in fn]
     check(len(mma) == 2 and all(c["HMMA"] > 0 for c in mma),
           f"K5's bf16 kernels show no HMMA: {counts}")
     check(len(fma) == 2 and all(c["HMMA"] == 0 < c["FFMA"] for c in fma),
@@ -375,12 +391,13 @@ def phase_kernels(dev, rates, flush):
             note("maiz_lohi", lo, lo_p)
             note("maiz_lohi", hi, hi_p)
             lohi = torch.stack([lo.amin(0), hi.amax(0)], -1)
-            for k in (1, mr.MAX_TILE_K):
+            for k in TOPK_CHECK:
                 got = mr.maiz_topk(*sp, n, lohi, w, k=k, **kwp)
                 want = mr.maiz_topk_plain(*sp, n, lohi, w, k=k, **kwp)
                 for a, b in zip(got, want):
                     note("maiz_topk", a, b)
-            # merged shortlist: card (kernels) vs the port's CPU path
+            # merged shortlist: card (kernels) vs the port's CPU path, and
+            # top-65 through the tile candidates vs the full-vector merge
             okw = {("chips_total" if k == "ct" else k): v
                    for k, v in kw.items()}
             for k in (1, 65):
@@ -391,8 +408,18 @@ def phase_kernels(dev, rates, flush):
                 for a, b in zip(got, want):
                     check(ulp_diff(a, b) == 0,
                           f"merged top-{k} differs card vs CPU ({variant})")
+                full_s, full_i = ops.lex_head(got[0], k)
+                check(ulp_diff(got[1], full_s) == 0 and torch.equal(
+                    got[2], full_i.to(torch.int32)), f"merged top-{k} "
+                    f"differs from the full-vector merge ({variant})")
             torch.cuda.synchronize()
-            for k in (1, mr.MAX_TILE_K):
+            if n == N_BIG and variant == "4term":
+                rows = mr.maiz_topk(*sp, n, lohi, w, k=1)[0].view(-1,
+                                                                   mr.TILE)
+                times["yardstick"] = (rows.shape, time_ms(
+                    lambda: torch.topk(rows, 65, dim=1, largest=False,
+                                       sorted=True), flush))
+            for k in TOPK_TIME:
                 key = (n, variant, k)
                 times[("maiz_topk",) + key] = (
                     time_ms(lambda: mr.maiz_topk(*sp, n, lohi, w, k=k,
@@ -405,11 +432,15 @@ def phase_kernels(dev, rates, flush):
                 time_ms(lambda: mr.maiz_lohi_tiles(*sp, n, **kwp), flush),
                 time_ms(lambda: mr.maiz_lohi_plain(*sp, n, **kwp), flush),
                 _k1_bound(n_pad, r, rates))
+    shape, yard = times.pop("yardstick")
     for key, (ms, plain, (b, by)) in sorted(times.items(), key=str):
         say(f"[2] {key[0]} N={key[1]} {key[2]}"
             + (f" k={key[3]}" if key[0] == "maiz_topk" else "")
             + f": kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
               f"bound {b * 1e3:.2f} us ({by})")
+    say(f"[2] yardstick for the selection alone: torch.topk(k=65, "
+        f"sorted=True) over the {tuple(shape)} tile score rows "
+        f"{yard * 1e3:.1f} us (no tie rule; the port never calls it)")
     for name, (ae, ulp) in err.items():
         say(f"[2] {name} vs plain: max abs err {ae}, max ulp diff {ulp}")
         check(ulp == 0, f"{name} is not bitwise equal to its plain twin")
@@ -511,7 +542,7 @@ def phase_placement(dev):
         ms = (time.perf_counter() - t0) * 1e3
         for k, v in cnt.items():
             total[k] = total.get(k, 0) + v
-        _, dev_ms, prof_ms, _ = device_busy(kernel_path)
+        _, dev_ms, prof_ms, summ = device_busy(kernel_path, top=3)
         t0 = time.perf_counter()
         b = place_jobs(synthetic_fleet(n, seed=1, device="cpu"), demands,
                        engine="shortlist", shortlist=K, use_kernel=True)
@@ -522,8 +553,10 @@ def phase_placement(dev):
         check(cnt["maiz_topk"] == a.n_sweeps > 0,
               f"n={n}: K2 launches {cnt} != sweeps {a.n_sweeps}")
         check(int((a.node >= 0).sum()) == J, f"n={n}: unplaced jobs")
+        dev_call = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
         line = (f"[4] place_jobs n={n}: kernel path {a.n_sweeps} sweeps "
-                f"{ms:.1f} ms (K2 launches {cnt['maiz_topk']}; "
+                f"{ms:.1f} ms wall, profiled device time {dev_call} per "
+                f"call (K2 launches {cnt['maiz_topk']}; "
                 f"{busy_note(dev_ms, prof_ms)}), CPU path {ms_cpu:.1f} ms, "
                 "equal")
         if n == PLACE_NS[0]:
@@ -542,6 +575,7 @@ def phase_placement(dev):
                      f"{ms_c:.1f} ms, full {f.n_sweeps} sweeps {ms_f:.1f} ms,"
                      " equal")
         say(line)
+        say(f"[4] profiled call n={n}: {summ}")
     return total
 
 
@@ -677,7 +711,7 @@ def phase_batched_kernels(dev, rates, flush):
         note("maiz_lohi_b", lo, lo_p)
         note("maiz_lohi_b", hi, hi_p)
         lohi = torch.stack([lo.amin(1), hi.amax(1)], -1)
-        ks = (1, mr.MAX_TILE_K) if lanes == LANES else (mr.MAX_TILE_K,)
+        ks = TOPK_CHECK if lanes == LANES else (64, 65)
         for l in range(lanes):
             lane = [x[l] for x in sp]
             lkw = {a: b[l] for a, b in kwp.items()}
@@ -696,7 +730,13 @@ def phase_batched_kernels(dev, rates, flush):
                     lane_eq(a[l], b, f"K4 N={n} {variant} k={k}")
         torch.cuda.synchronize()
         tag = variant if lanes == LANES else f"{variant}_L{lanes}"
-        for k in ks:
+        if lanes != LANES:
+            rows = mr.maiz_topk_b(*sp, n, lohi, w, k=1, **kwp)[0].view(
+                -1, mr.TILE)
+            times["yardstick"] = (rows.shape, time_ms(
+                lambda: torch.topk(rows, 65, dim=1, largest=False,
+                                   sorted=True), flush))
+        for k in (TOPK_TIME if lanes == LANES else ks):
             times[("maiz_topk_b", n, tag, k)] = (
                 time_ms(lambda: mr.maiz_topk_b(*sp, n, lohi, w, k=k, **kwp),
                         flush),
@@ -710,11 +750,15 @@ def phase_batched_kernels(dev, rates, flush):
                     reps=11),
             _k1_bound(n_pad, r, rates, lanes))
         del sp, kwp
+    shape, yard = times.pop("yardstick")
     for key, (ms, plain, (b, by)) in sorted(times.items(), key=str):
         say(f"[7] {key[0]} N={key[1]} {key[2]}"
             + (f" k={key[3]}" if key[0] == "maiz_topk_b" else "")
             + f": kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
               f"bound {b * 1e3:.2f} us ({by})")
+    say(f"[7] yardstick for the selection alone: torch.topk(k=65, "
+        f"sorted=True) over the ensemble's {tuple(shape)} tile score rows "
+        f"{yard * 1e3:.1f} us (no tie rule; the port never calls it)")
     for name, (ae, ulp) in err.items():
         say(f"[7] {name} vs plain: max abs err {ae}, max ulp diff {ulp}; "
             "every lane == K1/K2 on that lane")
@@ -846,8 +890,11 @@ def phase_ensemble(dev):
     _, dev_ms, prof_ms, prof_top = device_busy(
         lambda: S.simulate_fleet_ensemble(short), top=6)
     jobs = sum(sp[4].n for sp in specs)
+    dev_epoch = ("not measured" if dev_ms is None
+                 else f"{dev_ms / 4:.3f} ms")
     say(f"[9] sweep_policies {len(specs)} lanes x n={n} x {cfg.epochs} "
-        f"epochs ({jobs} jobs): ensemble {ens_ms:.1f} ms/epoch (K4 "
+        f"epochs ({jobs} jobs): ensemble {ens_ms:.1f} ms/epoch wall, "
+        f"profiled device time {dev_epoch} per epoch (K4 "
         f"launches {cnt['maiz_topk_b']}, {sweeps} sweeps, {spj:.3f} "
         f"sweeps/job, {syncs:.1f} host syncs/epoch; 4 epochs "
         f"{busy_note(dev_ms, prof_ms)}); {len(specs)} sequential scans "
@@ -897,10 +944,14 @@ def _allclose_err(got, want, bar):
     return float(d.max()), ok
 
 
-def _k5_bound(B, H, K, S, hd, window, dtype, rates):
+def _k5_bound(B, H, K, S, hd, window, dtype, rates, fp32_pipes=False):
     """q and o (B, H, S, hd), k and v (B, K, S, hd), each moved once; the
-    two products over the live (row, key) pairs, on the tensor cores'
-    bf16 rate for bf16 inputs and the f32 rate for f32."""
+    two products over the live (row, key) pairs on the tensor cores: at
+    the dense bf16 rate for bf16 inputs, and for f32 three times over at
+    the dense TF32 rate (3xTF32, the least tensor work that keeps f32
+    accuracy).  ``fp32_pipes``: the f32 products once at the f32 rate
+    outside the tensor cores instead (the route's FMA kernel), printed
+    beside the bound."""
     import torch
     es = 2 if dtype == torch.bfloat16 else 4
     nbytes = es * S * hd * (2 * B * H + 2 * B * K)
@@ -909,8 +960,11 @@ def _k5_bound(B, H, K, S, hd, window, dtype, rates):
     else:
         pairs = S * (S + 1) // 2
     ops = 4 * B * H * hd * pairs
-    return bound_ms(nbytes, ops, rates,
-                    rates[2] if dtype == torch.bfloat16 else None)
+    if dtype == torch.bfloat16:
+        return bound_ms(nbytes, ops, rates, rates[2])
+    if fp32_pipes:
+        return bound_ms(nbytes, ops, rates)
+    return bound_ms(nbytes, 3 * ops, rates, rates[3])
 
 
 def _k6_bound(B, S, D, N, dtype, rates):
@@ -995,6 +1049,11 @@ def phase_model_kernels(dev, rates, sfu, flush):
             if shape == k5_path:
                 lib, backend = _sdpa_ms(q, k, v, flush)
                 say(f"[10] SDPA yardstick for {str(dt)[6:]}: {backend}")
+                if dt == torch.float32:
+                    tb, tby = _k5_bound(*shape, dt, rates, fp32_pipes=True)
+                    say(f"[10] flash_attention_f32 for the record: its FMAs "
+                        f"on the f32 pipes alone are bound by "
+                        f"{tb * 1e3:.2f} us ({tby})")
                 times[name] = (
                     time_ms(lambda: flash_attention(q, k, v), flush),
                     time_ms(lambda: attention_plain(q, k, v), flush),
@@ -1237,13 +1296,13 @@ def main() -> int:
     for k in launches:
         check(launches[k] > 0, f"{k} never launched on the main path")
     # the main path's shapes: K1 as the fused ranking runs it, K2 as the
-    # placement engine's sweep runs it (k = shortlist + 1 capped at 64),
-    # K3 as the batched ranking runs it, K4 as the ensemble's rounds run
-    # it (8 lanes of 65,536 nodes, the 5-term score with w_m = 0)
+    # placement engine's sweep runs it (k = shortlist + 1 = 65), K3 as the
+    # batched ranking runs it, K4 as the ensemble's rounds run it (8 lanes
+    # of 65,536 nodes, the 5-term score with w_m = 0, k = 65)
     main_key = {"maiz_lohi": ("maiz_lohi", N_BIG, "4term", 0),
-                "maiz_topk": ("maiz_topk", N_BIG, "4term", 64),
+                "maiz_topk": ("maiz_topk", N_BIG, "4term", 65),
                 "maiz_lohi_b": ("maiz_lohi_b", N_BIG, "4term", 0),
-                "maiz_topk_b": ("maiz_topk_b", SIM_N, "5term_wm0_L8", 64)}
+                "maiz_topk_b": ("maiz_topk_b", SIM_N, "5term_wm0_L8", 65)}
     kernels = []
     for k, key in main_key.items():
         ms, plain, (b, by) = times[key]

@@ -8,48 +8,59 @@
 // f32 running max / denominator / accumulator, q's dtype out.  Two kernels
 // serve the two dtypes; flash_attention_launch routes by dtype.
 //
-// Both kernels.  The TPU kernel carried its online-softmax state across
-// the kv grid axis, which the TPU runs in order; CUDA blocks run in no
-// order, so the kv loop runs inside the block.  It starts at the first kv
-// tile the window reaches and stops at the diagonal tile, the bounds the
-// TPU kernel's pl.when(live) skip gives.  Ragged S is masked (rows and keys
-// past S read as 0 and are never written or counted); hd <= 128 (64 and
-// 128 instantiations, the dims past hd padded with 0).  A row with no live
-// key keeps a running max of -inf ("nothing seen yet") and gets p = 0.
+// Both kernels are FlashAttention-2.  The TPU kernel carried its
+// online-softmax state across the kv grid axis, which the TPU runs in
+// order; CUDA blocks run in no order, so the kv loop runs inside the
+// block.  One block of four warps per (64-row q tile, head, batch), the
+// longest q tiles issued first; each warp owns 16 q rows.  The loop
+// starts at the first kv tile the window reaches and stops at the
+// diagonal tile, the bounds the TPU kernel's pl.when(live) skip gives; a
+// warp skips a tile in which none of its rows has a live key.  The scores
+// stay in registers, and the online softmax runs on them where they are:
+// a row lives in a few lanes, a few shuffles per row reduction.  K and V
+// tiles come through a two-stage ring of 16-byte cp.async copies: tile
+// kt + 1 loads while tile kt computes, one barrier per tile.  The tiles
+// use XOR-swizzled layouts, so the operand loads are free of bank
+// conflicts.  Ragged S is masked (rows and keys past S read as 0 and are
+// never written or counted); hd <= 128 (64 and 128 instantiations, the
+// dims past hd padded with 0).  The 16-byte copies need 16-byte aligned
+// rows (hd % 8 == 0 in bf16, hd % 4 == 0 in f32) and aligned tensors;
+// otherwise the launcher passes vec = 0 and the same kernel stages element
+// by element.  A row with no live key keeps a running max of -inf
+// ("nothing seen yet") and gets p = 0.
 //
-// bf16: flash_mma_kernel, FlashAttention-2 on the tensor cores.  One block
-// of four warps per (64-row q tile, head, batch), the longest q tiles
-// issued first; each warp owns 16 q rows.  Q.K^T and P.V run as
+// bf16: flash_mma_kernel, on the tensor cores.  Q.K^T and P.V run as
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) on operands that ldmatrix
-// brings from bf16 tiles in shared memory (.trans for V).  The tiles use
-// an XOR-swizzled layout (16-byte chunk ^ row % 8), so ldmatrix reads are
-// free of bank conflicts.  The scores stay in registers: the online softmax
-// runs on the accumulator fragments (a row lives in one quad of lanes, two
-// shuffles per row reduction), and P goes back as the bf16 A operand of
-// P.V, in three bf16 parts that sum to P exactly.  K and V
-// tiles come through a two-stage ring of 16-byte cp.async
-// copies: tile kt + 1 loads while tile kt computes, one barrier per tile.
-// A warp skips a tile in which none of its rows has a live key.  The
-// 16-byte copies need hd % 8 == 0 and 16-byte aligned rows; for any other
-// hd the launcher passes vec = 0 and the same kernel stages element by
-// element.  With P as one bf16 (2^-9 relative per probability) the
-// output of a row whose values sit in [2, 4) moved by two bf16 ulps
-// against the plain version at granite-3-2b's layers, past the 6e-3 bar;
-// with two parts (2^-17) every launch met the bar but the 40-layer
-// prefill's logits drifted to 2.02 % of max|logit| from the plain route
-// (bar 2 %).  Three parts cost 64 more mma per (warp, kv tile) at hd 64
-// than one.
+// brings from bf16 tiles (.trans for V); the softmax runs on the
+// accumulator fragments (a row in one quad of lanes).  The m16n8k16
+// accumulator of two 8-key tiles has the layout of one 16-key A operand,
+// so P goes into P.V without a shuffle, as three bf16 parts that sum to P
+// exactly.  With P as one bf16 (2^-9 relative per probability) the output
+// of a row whose values sit in [2, 4) moved by two bf16 ulps against the
+// plain version at granite-3-2b's layers, past the 6e-3 bar; with two
+// parts (2^-17) every launch met the bar but the 40-layer prefill's logits
+// drifted to 2.02 % of max|logit| from the plain route (bar 2 %).  Three
+// parts cost 64 more mma per (warp, kv tile) at hd 64 than one.
 //
-// f32: flash_fwd_kernel, on the FP32 pipes (the JAX suite's 5e-6 bar for
-// f32 rules out bf16 operands).  Per kv tile of 64 keys: K is staged to
-// shared memory, each of the 256 threads computes a 4 x 4 block of scores
-// with FMAs, the masked scores go to shared memory, four threads per row
-// fold them into the running max and denominator, V replaces K in the
-// same buffer, and each thread updates its 4 rows x hd/16 dims of the
-// accumulator in registers.
+// f32: flash_fma_kernel, register-tiled FMAs on the FP32 pipes.  The JAX
+// suite's 5e-6 bar for f32, held against the plain version, rules out
+// bf16 operands, and on an H100 it ruled out 3xTF32 on mma.sync too (each
+// operand split into two tf32 parts, three mma per product): 160 us at
+// granite-3-2b's prefill against 304 us for an FMA kernel that read both
+// operands from shared memory, but with q scaled by 8 (scores up to about
+// 30) its outputs moved by up to 3.4e-5 from the plain version's (1.8e-5
+// with each step's and each tile's products summed in registers apart).
+// There the plain f32 version is itself 1.7e-5 from a float64 reference
+// (3xTF32 with the separate sums 8.5e-6): the bar holds a kernel to the
+// plain version's own rounding, which a kernel that sums the products over
+// d in order with IEEE FMAs, as this one does, keeps (within 4.3e-6).
+// Each lane of a row group of 8 owns 4 q rows: its 4 x 8 scores (keys
+// 8 cg + j) come from float4 loads of q and K (12 loads per 128 FMAs),
+// never pass through shared memory, and its 4 x HD / 8 outputs (chunks
+// cg + 8 u) take P from the group's lanes by shuffle.
 //
 // Bound on an H100.  At granite-3-2b's prefill (B 4, H 32, K 8, S 512,
-// hd 64, bf16) the function moves 21 MB (q, k, v read once, o written
+// hd 64) the function moves 21 MB in bf16 (q, k, v read once, o written
 // once: ~6.3 us at 3.35 TB/s) and does 4 * B * H * hd * S (S + 1) / 2 =
 // 4.3 GFLOP of causal products (~4.4 us at the 989 TFLOP/s bf16 tensor
 // rate), so bytes bound it at this S.  The bf16 kernel computes whole
@@ -58,11 +69,13 @@
 // the full tensor rate, which mma.sync does not reach (wgmma is the
 // full-rate path).  Its 1.9e7 exps take ~4.5 us on the SFU (16 per clock
 // per SM at 1.98 GHz).  Within a warp the products, the softmax and the
-// exps run in sequence; other warps of the SM overlap them.
-// In f32 the same work is 42 MB and 4.3 GFLOP on the 67 TFLOP/s FP32
-// pipes: ~64 us, bound by operations; that kernel's products read both
-// operands from shared memory (8 shared loads per 16 FMAs), so shared
-// memory bandwidth limits it.
+// exps run in sequence; other warps of the SM overlap them.  In f32 the
+// function moves 42 MB (~12.5 us); as 3xTF32 its 3 x 4.3 GFLOP would take
+// ~26 us at the 495 TFLOP/s dense TF32 rate, which bounds the function.
+// This kernel does the 4.3 GFLOP once on the 67 TFLOP/s FP32 pipes (~64
+// us, its own floor); its whole tiles to the diagonal are 4.8 GFLOP (~72
+// us), with the loads, shuffles and softmax on top in the same issue
+// slots.
 //
 // C interface (loaded with ctypes): pointers and the stream as void*; the
 // launcher returns cudaGetLastError() as an int (or cudaErrorInvalidValue
@@ -78,175 +91,6 @@ namespace {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per kv tile
-constexpr int THREADS = 256;
-constexpr int TY = 16;          // thread grid of the tile products
-constexpr int TX = 16;
-constexpr int RPT = BQ / TY;    // rows per thread
-constexpr int CPT = BK / TX;    // score columns per thread
-constexpr int PLD = BK + 1;     // padded row stride of the score tile
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * BQ * (HD + 1) + BQ * PLD + 3 * BQ);
-}
-
-// Stage rows [r0, r0 + BQ) x [0, HD) of a (S, hd) head slice as f32, with
-// 0 past S and past hd.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int r0, int S, int hd) {
-  constexpr int LD = HD + 1;
-  for (int i = threadIdx.x; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i % HD;
-    float val = 0.f;
-    if (r0 + r < S && d < hd) val = to_f32(src[(long long)(r0 + r) * hd + d]);
-    dst[r * LD + d] = val;
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int H,
-                     int G, int S, int hd, int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int DPT = HD / TX;  // accumulator dims per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;            // BQ x LD
-  float* kv_s = q_s + BQ * LD;  // BK x LD: K, then V of the same tile
-  float* p_s = kv_s + BK * LD;  // BQ x PLD scores, then probabilities
-  float* m_s = p_s + BQ * PLD;  // running max per row
-  float* l_s = m_s + BQ;        // running denominator per row
-  float* a_s = l_s + BQ;        // this tile's rescale factor per row
-
-  const int tid = threadIdx.x;
-  const int ty = tid / TX, tx = tid % TX;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int K = H / G;
-  const T* qh = q + ((long long)b * H + h) * S * hd;
-  const T* kh = k + ((long long)b * K + h / G) * S * hd;
-  const T* vh = v + ((long long)b * K + h / G) * S * hd;
-  T* oh = o + ((long long)b * H + h) * S * hd;
-
-  stage<T, HD>(q_s, qh, q0, S, hd);
-  for (int r = tid; r < BQ; r += THREADS) {
-    m_s[r] = -CUDART_INF_F;
-    l_s[r] = 0.f;
-  }
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  const int last_row = min(q0 + BQ, S) - 1;
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  const int kt_hi = last_row / BK;
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int c0 = kt * BK;
-    __syncthreads();  // the previous tile's products are done with kv_s
-    stage<T, HD>(kv_s, kh, c0, S, hd);
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < HD; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = q_s[(ty + TY * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = kv_s[(tx + TX * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] += qv[i] * kv[j];
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = q0 + ty + TY * i;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + tx + TX * j;
-        const bool live = col <= row && col < S &&
-                          (window <= 0 || col > row - window);
-        p_s[(ty + TY * i) * PLD + tx + TX * j] =
-            live ? s[i][j] * scale : -CUDART_INF_F;
-      }
-    }
-    __syncthreads();  // scores written; K no longer read
-
-    stage<T, HD>(kv_s, vh, c0, S, hd);
-    {
-      // online softmax: four neighbouring lanes per row
-      const int r = tid / 4, part = tid % 4;
-      float* pr = p_s + r * PLD;
-      float mx = -CUDART_INF_F;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float alpha = 1.f, sum = 0.f;
-      if (m_new == -CUDART_INF_F) {
-        for (int c = part; c < BK; c += 4) pr[c] = 0.f;
-      } else {
-        alpha = expf(m_prev - m_new);
-        for (int c = part; c < BK; c += 4) {
-          const float p = expf(pr[c] - m_new);
-          pr[c] = p;
-          sum += p;
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        m_s[r] = m_new;
-        l_s[r] = alpha * l_s[r] + sum;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();  // V staged, probabilities and rescale factors ready
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float al = a_s[ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = p_s[(ty + TY * i) * PLD + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float vv = kv_s[c * LD + tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] += pv[i] * vv;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty + TY * i;
-    if (q0 + r >= S) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = tx + TX * j;
-      if (d < hd) store(&oh[(long long)(q0 + r) * hd + d], acc[i][j] / l);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 route: FlashAttention-2 on the tensor cores (mma.sync)
@@ -562,6 +406,248 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 route: register-tiled FMA products on the FP32 pipes
+// ---------------------------------------------------------------------------
+
+constexpr int FMA_RT = 4;  // q rows per thread; a row group is 8 lanes
+
+template <int HD>
+constexpr size_t fma_smem_bytes() {
+  // the q tile, then two stages of K and of V
+  return sizeof(float) * HD * (BQ + 4 * BK);
+}
+
+// Float offset of (row, 4-float chunk) in a tile of HD f32 columns: the
+// chunk index is XOR-ed with (row ^ row / 8) % 8, so the eight key rows
+// 8 c + j (c = 0..7) of a K load, the four q rows of a Q load (one per row
+// group of the warp) and the eight chunks of a V load each sit in
+// different groups of four banks: every 16-byte load is one wavefront.
+template <int HD>
+__device__ __forceinline__ int swzf(int row, int chunk) {
+  return row * HD + ((chunk ^ ((row ^ (row >> 3)) & 7)) << 2);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows [r0, r0 + 64) x [0, HD) of an (S, hd) f32 head slice into a
+// swizzled tile, 0 past S and past hd.  vec: 16-byte cp.async copies
+// (hd % 4 == 0, 16-byte aligned rows); otherwise element by element,
+// synchronously.
+template <int HD>
+__device__ __forceinline__ void load_tile_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              int r0, int S, int hd,
+                                              bool vec) {
+  constexpr int CH = HD / 4;
+  if (vec) {
+    const int nch = hd >> 2;
+#pragma unroll
+    for (int it = 0; it < 64 * CH / MMA_THREADS; ++it) {
+      const int i = threadIdx.x + it * MMA_THREADS;
+      const int r = i / CH, c = i % CH;
+      const bool ok = r0 + r < S && c < nch;
+      const float* g = ok ? src + (long long)(r0 + r) * hd + c * 4 : src;
+      cp_async16(smem_u32(dst + swzf<HD>(r, c)), g, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 64 * HD; i += MMA_THREADS) {
+      const int r = i / HD, d = i % HD;
+      float val = 0.f;
+      if (r0 + r < S && d < hd) val = src[(long long)(r0 + r) * hd + d];
+      dst[swzf<HD>(r, d >> 2) + (d & 3)] = val;
+    }
+  }
+}
+
+// Thread layout: lane cg = tid % 8 of row group rg = tid / 8 owns q rows
+// 4 rg + i (i < 4); warp w's four row groups are rows 16 w .. 16 w + 15.
+// Q.K^T: the thread's 4 x 8 scores are keys 8 cg + j of its rows, summed
+// over d in order with FMAs (4 + 8 float4 loads per 128 FMAs).  A row's 64
+// scores are in its group's 8 lanes: the row max and sum take three
+// shuffles.  P.V: the thread's outputs are its rows x the 4-float chunks
+// cg + 8 u; the probabilities of key 8 c + j come from lane c of the group
+// by shuffle (4 shuffles per 4 x 4 HD / 32 FMAs), summed over the keys in
+// order.
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+    flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int H, int G, int S, int hd, int window, float scale,
+                     int vec) {
+  constexpr int KC = HD / 4;   // 4-float chunks of a row
+  constexpr int DC = HD / 32;  // output chunks per thread
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);  // BQ x HD
+  float* k_s = q_s + BQ * HD;                       // 2 stages of BK x HD
+  float* v_s = k_s + 2 * BK * HD;                   // 2 stages of BK x HD
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rg = tid >> 3, cg = tid & 7;
+  // the longest q tiles (most kv tiles to walk) are issued first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int K = H / G;
+  const float* qh = q + ((long long)b * H + h) * S * hd;
+  const float* kh = k + ((long long)b * K + h / G) * S * hd;
+  const float* vh = v + ((long long)b * K + h / G) * S * hd;
+  float* oh = o + ((long long)b * H + h) * S * hd;
+
+  const int last_row = min(q0 + BQ, S) - 1;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_hi = last_row / BK;
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  const int r0 = FMA_RT * rg;     // this thread's first row in the tile
+
+  load_tile_f32<HD>(q_s, qh, q0, S, hd, vec);
+  load_tile_f32<HD>(k_s, kh, kt_lo * BK, S, hd, vec);
+  load_tile_f32<HD>(v_s, vh, kt_lo * BK, S, hd, vec);
+  cp_async_commit();
+
+  float acc[FMA_RT][4 * DC];
+  float m[FMA_RT], l[FMA_RT];  // running max; this lane's share of the sum
+#pragma unroll
+  for (int i = 0; i < FMA_RT; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < 4 * DC; ++d) acc[i][d] = 0.f;
+  }
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int st = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; tile kt - 1's stage is free
+    if (kt < kt_hi) {
+      load_tile_f32<HD>(k_s + (st ^ 1) * BK * HD, kh, (kt + 1) * BK, S, hd,
+                        vec);
+      load_tile_f32<HD>(v_s + (st ^ 1) * BK * HD, vh, (kt + 1) * BK, S, hd,
+                        vec);
+    }
+    cp_async_commit();
+    const int c0 = kt * BK;
+    // a tile with no live key for any of this warp's rows: nothing to do
+    if (w0 >= S || c0 > w0 + 15 ||
+        (window > 0 && c0 + BK - 1 <= w0 - window))
+      continue;
+    const float* kst = k_s + st * BK * HD;
+    const float* vst = v_s + st * BK * HD;
+
+    float s[FMA_RT][8];
+#pragma unroll
+    for (int i = 0; i < FMA_RT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < KC; ++c) {
+      float4 kv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) kv[j] = lds4(kst + swzf<HD>(8 * cg + j, c));
+#pragma unroll
+      for (int i = 0; i < FMA_RT; ++i) {
+        const float4 qv = lds4(q_s + swzf<HD>(r0 + i, c));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float x = fmaf(qv.x, kv[j].x, s[i][j]);
+          x = fmaf(qv.y, kv[j].y, x);
+          x = fmaf(qv.z, kv[j].z, x);
+          s[i][j] = fmaf(qv.w, kv[j].w, x);
+        }
+      }
+    }
+
+    // scale and mask (causal, band, keys past S), in natural units as the
+    // plain version's softmax; then the online softmax per row
+    const bool masked = c0 + BK - 1 > w0 || c0 + BK > S ||
+                        (window > 0 && c0 <= w0 + 15 - window);
+#pragma unroll
+    for (int i = 0; i < FMA_RT; ++i) {
+      const int row = q0 + r0 + i;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float val = s[i][j] * scale;
+        if (masked) {
+          const int col = c0 + 8 * cg + j;
+          const bool live = col <= row && col < S &&
+                            (window <= 0 || col > row - window);
+          if (!live) val = -CUDART_INF_F;
+        }
+        s[i][j] = val;
+        mx = fmaxf(mx, val);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[i], mx);
+      // a running max of -inf means "no live key yet": p = 0, alpha = 0
+      const float base = mn == -CUDART_INF_F ? 0.f : mn;
+      const float al = expf(m[i] - base);
+      m[i] = mn;
+      l[i] *= al;
+#pragma unroll
+      for (int d = 0; d < 4 * DC; ++d) acc[i][d] *= al;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(s[i][j] - base);
+        l[i] += s[i][j];
+      }
+    }
+
+    // O += P V over the keys in order; key groups past the warp's last
+    // row hold p = 0 for all its rows and are skipped
+    const int c_last = min(7, (w0 + 15 - c0) >> 3);
+    for (int c = 0; c <= c_last; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[FMA_RT];
+#pragma unroll
+        for (int i = 0; i < FMA_RT; ++i)
+          p[i] = __shfl_sync(0xffffffffu, s[i][j], c, 8);
+#pragma unroll
+        for (int u = 0; u < DC; ++u) {
+          const float4 vv = lds4(vst + swzf<HD>(8 * c + j, cg + 8 * u));
+#pragma unroll
+          for (int i = 0; i < FMA_RT; ++i) {
+            acc[i][4 * u] = fmaf(p[i], vv.x, acc[i][4 * u]);
+            acc[i][4 * u + 1] = fmaf(p[i], vv.y, acc[i][4 * u + 1]);
+            acc[i][4 * u + 2] = fmaf(p[i], vv.z, acc[i][4 * u + 2]);
+            acc[i][4 * u + 3] = fmaf(p[i], vv.w, acc[i][4 * u + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  // epilogue: each row's denominator is the sum over its group's lanes
+#pragma unroll
+  for (int i = 0; i < FMA_RT; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int row = q0 + r0 + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int u = 0; u < DC; ++u) {
+      const int d0 = 4 * (cg + 8 * u);
+      if (d0 >= hd) continue;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = li > 0.f ? acc[i][4 * u + e] / li : 0.f;
+      float* dst = oh + (long long)row * hd + d0;
+      if (vec) {  // hd % 4 == 0: the whole chunk is inside the row
+        *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+        for (int e = 0; e < 4 && d0 + e < hd; ++e) dst[e] = x[e];
+      }
+    }
+  }
+}
+
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int H, int K, int S, int hd, int window, float scale, int vec,
@@ -581,27 +667,27 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 
 template <int HD>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int hd, int window, float scale,
+               int H, int K, int S, int hd, int window, float scale, int vec,
                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = fma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(H, B, (S + BQ - 1) / BQ);
+  flash_fma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, H / K, S, hd,
-      window, scale);
+      window, scale, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (flash_fwd_kernel), 1 = bfloat16 (flash_mma_kernel);
-// q, k, v and o share it.  vec (bf16 only): 1 = 16-byte cp.async copies,
-// which need hd % 8 == 0 and 16-byte aligned q/k/v/o; 0 = element-wise
-// staging in the same kernel.
+// dtype: 0 = float32 (flash_fma_kernel), 1 = bfloat16 (flash_mma_kernel);
+// q, k, v and o share it.  vec: 1 = 16-byte cp.async copies, which need
+// 16-byte aligned q/k/v/o and hd % 8 == 0 (bf16) or hd % 4 == 0 (f32);
+// 0 = element-wise staging in the same kernel.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int H, int K, int S, int hd,
@@ -609,14 +695,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (B < 1 || K < 1 || H % K || S < 1 || hd < 1 || hd > 128 ||
       H > 65535 || B > 65535 || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && vec && hd % 8))
+      (vec && hd % (dtype == 1 ? 8 : 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return hd <= 64 ? launch_fma<64>(q, k, v, o, B, H, K, S, hd, window,
-                                     scale, st)
+                                     scale, vec, st)
                     : launch_fma<128>(q, k, v, o, B, H, K, S, hd, window,
-                                      scale, st);
+                                      scale, vec, st);
   return hd <= 64 ? launch_mma<64>(q, k, v, o, B, H, K, S, hd, window, scale,
                                    vec, st)
                   : launch_mma<128>(q, k, v, o, B, H, K, S, hd, window,

@@ -5,9 +5,10 @@
 //                                       Eq. 1 terms, folded to the (R, 2)
 //                                       normalizers by the wrapper)
 //   K2 maiz_topk    <- _topk_kernel    (sweep 2: normalized weighted score
-//                                       per node + tile-local top-k by k
-//                                       rounds of lexicographic (score,
-//                                       index) argmin)
+//                                       per node + tile-local top-k in
+//                                       (score, index) order: the k rounds
+//                                       of lexicographic argmin, computed
+//                                       by a sort and merge)
 //   K3 maiz_lohi_b  <- _lohi_kernel_b  (K1 over a leading lane axis, a
 //                                       per-lane en block)
 //   K4 maiz_topk_b  <- _topk_kernel_b  (K2 over a leading lane axis, a
@@ -26,9 +27,20 @@
 // B/node (36 with the marginal streams pk/cap/ct) and writes only nt x R x 2
 // floats; K2 reads the same and writes 4 B/node of scores plus nt x k
 // candidates.  At N = 1,048,576 that is 25-38 MB, ~7.5-12.5 us at 3.35 TB/s:
-// device-memory bytes bound the streaming part.  K2's k-round extraction is
-// a chain of k block-wide reductions (2 barriers each) and is latency bound;
-// this simple kernel does nothing about that yet.
+// device-memory bytes bound the streaming part.
+//
+// K2's selection.  The reference extracts the tile's top-k in k rounds of
+// a block-wide (score, index) argmin; as a chain of k block reductions (two
+// barriers each, ~1 us a round) that was latency bound, 85 us at k = 64
+// against the 8.9 us byte bound.  Here each node becomes one 64-bit key
+// (the score's bits mapped to an unsigned order, -0.0 as +0.0, the
+// tile-local index below), each warp sorts its 128 keys in registers with
+// a bitonic network (shuffles, no barrier), and three merge levels through
+// shared memory, one barrier each, keep the first k of the eight warp
+// lists.  The cost barely depends on k, so k reaches 128 (one warp list;
+// the reference caps k at 64).  The k-round rule for a tile with fewer
+// than k finite scores is kept: every rank whose score is +inf gets
+// tile-local index 0.  k = 1 (the fused ranking) stays one argmin round.
 //
 // Exactness: built with -fmad=false and IEEE division, every value is
 // rounded after each operation in the order the reference writes them, so
@@ -165,9 +177,73 @@ __device__ __forceinline__ void lex_min(float& s, int& p, float s2, int p2) {
   }
 }
 
+using u64 = unsigned long long;
+constexpr int WARP_LIST = 32 * NPT;  // keys a warp sorts: the tile-k cap
+
+// A node's selection key: an order-preserving map of its score's f32 bits
+// in the high word (-0.0 first becomes +0.0, which lex_min treats as
+// equal), its tile-local index in the low word.  Keys are distinct, and
+// their unsigned order is lex_min's (score, index) order.
+__device__ __forceinline__ u64 sort_key(float sc, int idx) {
+  uint32_t u = __float_as_uint(sc == 0.0f ? 0.0f : sc);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((u64)u << 32) | (uint32_t)idx;
+}
+
+// Sort a warp's 128 keys ascending in registers: a bitonic network over
+// the element e = lane * NPT + j, one step per (SIZE, STRIDE), unrolled by
+// template recursion so that key[] stays in registers.  Strides 1 and 2
+// pair a thread's own registers; strides 4-64 pair lanes through
+// shuffles.  No barrier.
+template <int SIZE, int STRIDE>
+__device__ __forceinline__ void bitonic_step(u64 (&key)[NPT], int lane) {
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    const bool up = ((lane * NPT + j) & SIZE) == 0;  // an ascending run
+    if constexpr (STRIDE >= NPT) {
+      constexpr int mask = STRIDE / NPT;
+      const u64 o = __shfl_xor_sync(0xffffffffu, key[j], mask);
+      // the lower element of a pair keeps the min of an ascending run
+      const bool keep_min = ((lane & mask) == 0) == up;
+      key[j] = (o < key[j]) == keep_min ? o : key[j];
+    } else if (!(j & STRIDE)) {
+      u64& a = key[j];
+      u64& b = key[j | STRIDE];
+      if ((b < a) == up) {
+        const u64 x = a;
+        a = b;
+        b = x;
+      }
+    }
+  }
+  if constexpr (STRIDE > 1)
+    bitonic_step<SIZE, STRIDE / 2>(key, lane);
+  else if constexpr (SIZE < WARP_LIST)
+    bitonic_step<2 * SIZE, SIZE>(key, lane);
+}
+
+// One merge level: src holds `lists` sorted lists of k keys; pairs of them
+// merge into lists / 2 lists of their first k keys in dst.  A key's place
+// in the merged list is its place in its own list plus the number of keys
+// of the other list below it (binary search, 8 steps for k <= 128).
+__device__ __forceinline__ void merge_level(const u64* src, u64* dst,
+                                            int lists, int k) {
+  for (int i = threadIdx.x; i < lists * k; i += TPB) {
+    const int list = i / k, pos = i - list * k;
+    const u64 x = src[i];
+    const u64* other = src + (list ^ 1) * k;
+    int below = 0;
+#pragma unroll
+    for (int step = WARP_LIST; step > 0; step >>= 1)
+      if (below + step <= k && other[below + step - 1] < x) below += step;
+    if (pos + below < k) dst[(list >> 1) * k + pos + below] = x;
+  }
+}
+
 // BATCHED = false is K2 (grid (nt, 1)); true is K4 (grid (nt, L), lane on
 // blockIdx.y, en (L, 4), lohi (L, r, 2), scores (L, n), tmin/targ
 // (L, nt, k); the weights are shared).  targ holds lane-local node ids.
+// k <= WARP_LIST.
 template <bool BATCHED>
 __global__ void topk_kernel(Streams s, int r, const float* __restrict__ en,
                             const float* __restrict__ lohi,
@@ -215,11 +291,11 @@ __global__ void topk_kernel(Streams s, int r, const float* __restrict__ en,
     scores[(int64_t)tile * TILE + j * TPB + tid] = sc;
     cur[j] = sc;
   }
-  __shared__ float ws[WARPS];
-  __shared__ int wp[WARPS];
-  __shared__ int best_p;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int kk = 0; kk < k; ++kk) {
+  if (k == 1) {
+    // one round of the block-wide lexicographic min
+    __shared__ float ws[WARPS];
+    __shared__ int wp[WARPS];
     float m = cur[0];
     int p = tid;
 #pragma unroll
@@ -239,19 +315,44 @@ __global__ void topk_kernel(Streams s, int r, const float* __restrict__ en,
       float bm = ws[0];
       int bp = wp[0];
       for (int q = 1; q < WARPS; ++q) lex_min(bm, bp, ws[q], wp[q]);
-      best_p = bp;
-      tmin[(int64_t)tile * k + kk] = bm;
-      targ[(int64_t)tile * k + kk] = bp + tile * TILE;
+      tmin[tile] = bm;
+      targ[tile] = bp + tile * TILE;
     }
-    __syncthreads();
-    const int pos = best_p;
-    // the winner leaves the candidate set (set to +inf, as the reference's
-    // where(fids == pos, inf, cur)); a tile with fewer than k finite scores
-    // then keeps re-selecting the lowest id holding +inf, exactly as
-    // _tile_topk does
+    return;
+  }
+  // k > 1: each warp sorts its 128 keys, then three merge levels keep the
+  // first k of the eight warp lists
+  __shared__ float tile_sc[TILE];
+  __shared__ u64 lists_a[WARPS * WARP_LIST];
+  __shared__ u64 lists_b[WARPS / 2 * WARP_LIST];
+  u64 key[NPT];
 #pragma unroll
-    for (int j = 0; j < NPT; ++j)
-      if (j * TPB + tid == pos) cur[j] = CUDART_INF_F;
+  for (int j = 0; j < NPT; ++j) {
+    key[j] = sort_key(cur[j], j * TPB + tid);
+    tile_sc[j * TPB + tid] = cur[j];
+  }
+  bitonic_step<2, 1>(key, lane);
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    const int e = lane * NPT + j;
+    if (e < k) lists_a[warp * k + e] = key[j];
+  }
+  __syncthreads();
+  merge_level(lists_a, lists_b, WARPS, k);
+  __syncthreads();
+  merge_level(lists_b, lists_a, WARPS / 2, k);
+  __syncthreads();
+  merge_level(lists_a, lists_b, WARPS / 4, k);
+  __syncthreads();
+  for (int i = tid; i < k; i += TPB) {
+    // the winner's own score bits; a rank whose score is +inf gets
+    // tile-local index 0: the k-round rule, once only +inf is left, picks
+    // the lowest id of a tile that then holds +inf everywhere
+    const int idx = (int)(lists_b[i] & 0xffffffffu);
+    const float sc = tile_sc[idx];
+    tmin[(int64_t)tile * k + i] = sc;
+    targ[(int64_t)tile * k + i] = (sc == CUDART_INF_F ? 0 : idx) +
+                                  tile * TILE;
   }
 }
 
@@ -279,6 +380,7 @@ int launch_topk(const Streams& s, const void* en, int r, const void* lohi,
                 const void* w, int k, long long lanes, long long n,
                 long long n_valid, void* scores, void* tmin, void* targ,
                 void* stream) {
+  if (k < 1 || k > WARP_LIST) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(n / TILE), (unsigned)lanes);
   topk_kernel<BATCHED><<<grid, TPB, 0, (cudaStream_t)stream>>>(
       s, r, (const float*)en, (const float*)lohi, (const float*)w,

@@ -7,9 +7,9 @@ masks causally and, with ``window > 0``, to the band row - window < col <=
 row, accumulates in f32 and returns q's dtype.  On CUDA tensors it launches
 a CUDA kernel of ``csrc/flash_attention.cu`` (replaces ``_flash_kernel``;
 bound and design are noted there), built with ``nvcc`` at first use: bf16
-runs on the tensor cores (``mma.sync``), f32 on the FP32 pipes;
-``variant`` names the kernel a call takes.  On CPU tensors it runs the
-plain torch version ``attention_plain``, the math of
+runs on the tensor cores (``mma.sync``), f32 as register-tiled FMAs on the
+FP32 pipes; ``variant`` names the kernel a call takes.  On CPU tensors it
+runs the plain torch version ``attention_plain``, the math of
 ``repro.kernels.ref.attention_ref``.  Any other device raises.
 ``flash_attention.launches`` counts kernel launches, and
 ``flash_attention.route_launches`` splits them by route (``"bf16"``,
@@ -32,10 +32,11 @@ _ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def variant(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     """The kernel the launcher runs for q's dtype and head dim, as
-    ``route-kernel-HD[-staging]``: bf16 on the tensor cores (``mma``) with
-    16-byte ``cp.async`` copies when ``hd % 8 == 0`` and every tensor is
-    16-byte aligned (``aligned``), else the same kernel staging element by
-    element (``-elementwise``); f32 on the FP32 pipes (``fma``).  HD is the
+    ``route-kernel-HD[-staging]``: bf16 on the tensor cores (``mma``), f32
+    on the FP32 pipes (``fma``), each with 16-byte ``cp.async`` copies when
+    its rows are 16-byte multiples (``hd % 8 == 0`` in bf16, ``hd % 4 ==
+    0`` in f32) and every tensor is 16-byte aligned (``aligned``), else the
+    same kernel staging element by element (``-elementwise``).  HD is the
     instantiated head dim (64 or 128) that hd is padded to.  Raises for a
     dtype or head dim no kernel takes."""
     if dtype not in _DTYPES:
@@ -43,10 +44,10 @@ def variant(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} is not in [1, {MAX_HEAD_DIM}]")
     HD = 64 if hd <= 64 else 128
-    if dtype == torch.float32:
-        return f"f32-fma-{HD}"
-    vec = hd % 8 == 0 and aligned
-    return f"bf16-mma-{HD}" + ("" if vec else "-elementwise")
+    f32 = dtype == torch.float32
+    vec = hd % (4 if f32 else 8) == 0 and aligned
+    return (f"f32-fma-{HD}" if f32 else f"bf16-mma-{HD}") + (
+        "" if vec else "-elementwise")
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

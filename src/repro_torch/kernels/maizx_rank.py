@@ -8,8 +8,10 @@ K1 ``maiz_lohi`` (replaces ``_lohi_kernel``) — per 1024-node tile, compute
     the per-tile partials into the global (R, 2) min-max normalizers.
 
 K2 ``maiz_topk`` (replaces ``_topk_kernel``) — per node the normalized
-    weighted score; per tile the local top-k by k rounds of lexicographic
-    (score, index) min extraction, lowest index first on ties.
+    weighted score; per tile the local top-k in (score, index) order,
+    lowest index first on ties: what k rounds of lexicographic min
+    extraction give (the plain twin runs those rounds; the kernel sorts
+    and merges).
 
 K3 ``maiz_lohi_b`` / K4 ``maiz_topk_b`` (replace ``_lohi_kernel_b`` /
     ``_topk_kernel_b``) — K1/K2 over a leading lane axis in one launch:
@@ -38,10 +40,11 @@ import torch
 from repro_torch.kernels import _build
 
 TILE = 1024        # nodes per tile: the TPU kernel's (8, 128) block
-# the per-tile top-k is k rounds of a block-wide min extraction, so
-# tile-local k is capped; larger shortlists are merged from the full score
-# vector (see ops.maiz_ranking_topk)
-MAX_TILE_K = 64
+# tile-local k is capped at one warp's sorted list in the kernel (128
+# keys); the reference's unrolled extraction caps it at 64.  Larger
+# shortlists are merged from the full score vector (see
+# ops.maiz_ranking_topk)
+MAX_TILE_K = 128
 _BIG = 3e38        # finite sentinel for masked min/max (below f32 max)
 
 SOURCE = _build.CSRC / "maizx_rank.cu"
@@ -53,7 +56,7 @@ def _check_tile_k(k: int) -> None:
     if not 1 <= k <= MAX_TILE_K:
         raise ValueError(
             f"tile-local top-k k={k} is outside [1, MAX_TILE_K={MAX_TILE_K}]"
-            " — the in-kernel min extraction runs k rounds, so the"
+            " — the kernel keeps one warp's sorted list per tile, so the"
             " per-tile candidate list is capped.  Either shrink the"
             f" shortlist (placement needs k = shortlist + 1 <= {MAX_TILE_K})"
             " or call repro_torch.kernels.ops.maiz_ranking_topk, which"

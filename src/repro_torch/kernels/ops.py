@@ -90,7 +90,12 @@ def maiz_ranking_topk(ec, pue, ci_now, ci_fc, eff, sched, weights, *,
         top_s, pos = lex_head(scores, k_out)
         return scores, top_s, pos.to(torch.int32)
     # tile candidates arrive in (tile, rank) order, so the stable merge
-    # keeps the global (score, node) order
+    # keeps the global (score, node) order.  The port's tile cap (128) is
+    # above the reference's (64), so a shortlist of 64 (k = 65) merges here
+    # where the reference sorts the full vector: each of the global top
+    # k_out is in its tile's top k_tile >= k_out, and with k_out <= n there
+    # are k_out finite candidates ahead of any +inf one, so the result is
+    # the same
     top_s, pos = lex_head(tmin.reshape(-1), k_out)
     return scores, top_s, targ.reshape(-1)[pos]
 

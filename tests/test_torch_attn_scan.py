@@ -194,13 +194,51 @@ def test_kernel_launchers_refuse_shapes_they_do_not_take(bad):
     (torch.bfloat16, 7, True, "bf16-mma-64-elementwise"),
     (torch.bfloat16, 64, False, "bf16-mma-64-elementwise"),
     (torch.float32, 64, True, "f32-fma-64"),
-    (torch.float32, 120, False, "f32-fma-128"),
+    (torch.float32, 120, False, "f32-fma-128-elementwise"),
+    (torch.float32, 120, True, "f32-fma-128"),
+    (torch.float32, 60, True, "f32-fma-64"),
+    (torch.float32, 30, True, "f32-fma-64-elementwise"),
 ])
 def test_flash_variant_names_the_route(dtype, hd, aligned, want):
-    """bf16 runs on the tensor cores, with 16-byte copies only for hd % 8
-    == 0 and aligned tensors; f32 runs the FMA kernel; hd pads to 64 or
+    """bf16 runs on the tensor cores and f32 on the FMA pipes, each with
+    16-byte copies only for aligned tensors whose rows are 16-byte
+    multiples (hd % 8 == 0 in bf16, hd % 4 == 0 in f32); hd pads to 64 or
     128."""
     assert fa_mod.variant(dtype, hd, aligned) == want
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype,fp32_pipes,want_us,want_by", [
+    (torch.bfloat16, False, 6.26, "bytes"),
+    (torch.float32, False, 26.08, "operations"),
+    (torch.float32, True, 64.23, "operations"),
+])
+def test_k5_bound_at_granites_prefill(dtype, fp32_pipes, want_us, want_by):
+    """chip_smoke's K5 bound at granite-3-2b's prefill (B 4, H 32, K 8, S
+    512, hd 64) on an H100 SXM: bf16 by its bytes; f32 by three times
+    its causal products at the dense TF32 rate (3xTF32), with the FMAs'
+    bound on the f32 pipes beside it."""
+    cs = _chip_smoke()
+    rates = tuple(r * 1e12 for r in cs.CARDS[2][1:])
+    ms, by = cs._k5_bound(4, 32, 8, 512, 64, 0, dtype, rates,
+                          fp32_pipes=fp32_pipes)
+    es = 2 if dtype == torch.bfloat16 else 4
+    nbytes = es * 512 * 64 * (2 * 4 * 32 + 2 * 4 * 8)
+    ops_ = 4 * 4 * 32 * 64 * (512 * 513 // 2)
+    rate = (989e12 if dtype == torch.bfloat16
+            else 67e12 if fp32_pipes else 495e12 / 3)
+    assert ms == pytest.approx(max(nbytes / 3.35e12, ops_ / rate) * 1e3,
+                               rel=1e-12)
+    assert (by, round(ms * 1e3, 2)) == (want_by, want_us)
 
 
 @pytest.mark.parametrize("dtype,D,aligned,want", [

@@ -1,12 +1,15 @@
 """The port's CUDA kernels on the card: K1/K2 and the batched K3/K4
 bitwise equal to their plain torch twins (on the same card, and on the
 CPU), each K3/K4 lane equal to K1/K2 on that lane, and the placement
-engines' and the ensemble's kernel paths equal to their CPU paths; K5
+engines' and the ensemble's kernel paths equal to their CPU paths; the
+sorted tile top-k at every k up to the cap (128), with exact ties, zero
+scores and tiles with fewer than k finite scores, and the merged
+shortlist through tile candidates equal to the full-vector merge; K5
 (bf16 on the tensor cores, f32 on the FMA pipes) and K6 within the JAX
 suite's bars of their plain versions, edge cases included (S 1 and 2048,
 GQA groups, padded head dims, windows, large logits, long and short scan
-memory, element-wise staging).  Skips without a GPU; run on the card with
-``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+memory, element-wise staging).  Skips without a GPU; run on
+the card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 import dataclasses
 
 import numpy as np
@@ -60,7 +63,7 @@ def _eq(a, b):
 @pytest.mark.parametrize("n,n_valid", [(1024, 1024), (3072, 3000),
                                        (66560, 65541)])
 @pytest.mark.parametrize("w_m", [None, 0.0, 0.3])
-@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("k", [1, 2, 8, 64, 65, 128])
 def test_kernels_bitwise_equal_plain(dev, n, n_valid, w_m, k):
     s, kw = _streams(n, n + k, dev, w_m is not None)
     if w_m is not None:
@@ -92,6 +95,87 @@ def test_kernel_ties_and_short_tiles(dev):
         want = mr.maiz_topk_plain(*s, n_valid, lohi, w, k=16)
         for x, y in zip(got, want):
             _eq(x, y)
+
+
+def _level_streams(n, seed, dev, zero_frac):
+    """Streams on a few levels, so that many nodes share their terms
+    (exact score ties within and across tiles); ``zero_frac`` of the nodes
+    sit at the minimum of terms 0, 1 and 3 and the maximum of term 2, the
+    nodes whose every normalized term is 0."""
+    g = np.random.default_rng(seed)
+    zero = g.random(n) < zero_frac
+    lv = lambda: g.integers(1, 4, n).astype(np.float32)  # noqa: E731
+    ec, ci, fc = lv(), lv(), lv()
+    eff, sw = g.integers(0, 3, n).astype(np.float32), lv()
+    ec[zero], ci[zero], fc[zero], eff[zero], sw[zero] = 1, 1, 1, 2, 1
+    s = [ec, np.ones(n, np.float32), ci, fc, eff, sw]
+    return [torch.from_numpy(x).to(dev) for x in s]
+
+
+# weights: the usual ones (ties at every level, +0.0 at the minimum), all
+# negative (-0.0 where every normalized term is 0, the largest score), and
+# -0.0 / +0.0 everywhere (every score a zero: the tile's first k ids)
+_TIE_WEIGHTS = {"w4": W4, "neg": [-x for x in W4], "negzero": [-0.0] * 4,
+                "zero": [0.0] * 4}
+
+
+@pytest.mark.parametrize("weights", list(_TIE_WEIGHTS))
+@pytest.mark.parametrize("k", [2, 16, 65, 128])
+def test_topk_ties_zeros_and_short_tiles(dev, weights, k):
+    """Exact ties within and across tiles, ±0.0 scores, and a last tile
+    with fewer than k valid nodes (its ranks past the finite scores are
+    +inf at tile-local index 0): K2 bitwise equal to its plain twin on the
+    card and on the CPU; K4 over two lanes equal to its twin and, lane by
+    lane, to K2."""
+    n = 4096
+    w = torch.tensor(_TIE_WEIGHTS[weights], device=dev)
+    for zero_frac, n_valid in ((0.02, n), (0.9, n), (0.3, 3072 + 5)):
+        s = _level_streams(n, k + int(100 * zero_frac), dev, zero_frac)
+        lohi = mr.maiz_lohi(*s, n_valid)
+        got = mr.maiz_topk(*s, n_valid, lohi, w, k=k)
+        want = mr.maiz_topk_plain(*s, n_valid, lohi, w, k=k)
+        cpu = mr.maiz_topk_plain(*[x.cpu() for x in s], n_valid,
+                                 lohi.cpu(), w.cpu(), k=k)
+        for x, y, z in zip(got, want, cpu):
+            _eq(x, y)
+            _eq(x, z)
+        if n_valid < n:
+            assert bool(torch.isinf(got[1][-1, 5:]).all())
+            assert bool((got[2][-1, 5:] == 3 * 1024).all())
+        lanes = [s, [x.flip(0).contiguous() for x in s]]
+        sb = [torch.stack([a[i] for a in lanes]) for i in range(6)]
+        lohi_b = mr.maiz_lohi_b(*sb, n_valid)
+        got_b = mr.maiz_topk_b(*sb, n_valid, lohi_b, w, k=k)
+        for x, y in zip(got_b, mr.maiz_topk_plain_b(*sb, n_valid, lohi_b, w,
+                                                    k=k)):
+            _eq(x, y)
+        for l in range(2):
+            for x, y in zip(got_b, mr.maiz_topk(*lanes[l], n_valid,
+                                                lohi_b[l], w, k=k)):
+                _eq(x[l], y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [5000, 70000, 1_000_003])
+@pytest.mark.parametrize("k", [65, 100, 128])
+def test_merged_topk_tile_route_equals_full_vector(dev, n, k):
+    """A shortlist above the reference's tile cap merges the kernel's tile
+    candidates; it equals the full-vector merge (``lex_head`` of the
+    scores) bit for bit, and the CPU path."""
+    s, kw = _streams(n, n + k, dev, True)
+    kw = {("chips_total" if a == "ct" else a): b for a, b in kw.items()}
+    kw["en"] = torch.tensor([0.35, 0.65, 120.0, 0.3], device=dev)
+    w = torch.tensor(W4, device=dev)
+    mr.reset_launch_counts()
+    scores, top_s, top_i = ops.maiz_ranking_topk(*s, w, k=k, **kw)
+    assert mr.maiz_topk.launches == 1
+    full_s, full_i = ops.lex_head(scores, k)
+    _eq(top_s, full_s)
+    _eq(top_i, full_i.to(torch.int32))
+    cpu = ops.maiz_ranking_topk(*[x.cpu() for x in s], w.cpu(), k=k,
+                                **{a: b.cpu() for a, b in kw.items()})
+    for x, y in zip((scores, top_s, top_i), cpu):
+        _eq(x, y)
 
 
 def test_launch_counters_and_fused_ranking(dev):
@@ -127,7 +211,7 @@ def _lane_streams(L, n, seed, dev, marginal):
 
 @pytest.mark.parametrize("n,n_valid", [(3072, 3000), (66560, 65541)])
 @pytest.mark.parametrize("w_m", [None, 0.0, 0.3])
-@pytest.mark.parametrize("k", [1, 64])
+@pytest.mark.parametrize("k", [1, 2, 64, 65, 128])
 def test_batched_kernels_bitwise_equal_plain_and_sequential(dev, n, n_valid,
                                                             w_m, k):
     L = 3
@@ -265,13 +349,17 @@ def test_flash_attention_bf16_edge_cases(dev, B, H, K, S, hd, window,
 
 
 def test_flash_attention_routes_and_staging(dev):
-    """bf16 with a head dim that is no multiple of 8, or a tensor that is
-    not 16-byte aligned, takes the element-wise staging of the tensor-core
-    kernel; f32 takes the FMA kernel.  Each counts on its own route."""
+    """A head dim whose rows are no 16-byte multiple (hd % 8 in bf16,
+    hd % 4 in f32), or a tensor that is not 16-byte aligned, takes the
+    element-wise staging of its kernel; f32 takes the FMA kernel.  Each
+    counts on its own route."""
     g = torch.Generator(device=dev).manual_seed(5)
     for dtype, hd, offset in ((torch.bfloat16, 60, 0),
                               (torch.bfloat16, 64, 1),
-                              (torch.float32, 64, 0)):
+                              (torch.float32, 64, 0),
+                              (torch.float32, 60, 0),
+                              (torch.float32, 30, 0),
+                              (torch.float32, 64, 1)):
         qkv = []
         for heads in (4, 2, 2):
             flat = torch.randn(2 * heads * 150 * hd + offset, generator=g,
@@ -285,6 +373,27 @@ def test_flash_attention_routes_and_staging(dev):
         tol = 6e-3 if dtype == torch.bfloat16 else 5e-6
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+# the f32 route at the bf16 route's edge cases: q scaled by 8 makes the
+# scores large (up to about 30), where an error in a score moves the
+# softmax most
+@pytest.mark.parametrize("B,H,K,S,hd,window", [
+    (2, 4, 4, 1, 64, 0), (1, 8, 1, 2048, 64, 0), (2, 16, 2, 200, 64, 0),
+    (1, 4, 2, 300, 32, 0), (1, 4, 2, 300, 120, 0), (1, 4, 2, 333, 64, 100),
+    (2, 4, 1, 260, 128, 70), (1, 2, 2, 2048, 120, 500)])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_flash_attention_f32_edge_cases(dev, B, H, K, S, hd, window,
+                                        q_scale):
+    g = torch.Generator(device=dev).manual_seed(S * hd + window + 1)
+    q = torch.randn(B, H, S, hd, generator=g, device=dev) * q_scale
+    k = torch.randn(B, K, S, hd, generator=g, device=dev)
+    v = torch.randn(B, K, S, hd, generator=g, device=dev)
+    n = flash_attention.route_launches["f32"]
+    got = flash_attention(q, k, v, window=window)
+    assert flash_attention.route_launches["f32"] == n + 1
+    want = attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(got, want, atol=5e-6, rtol=5e-6)
 
 
 # the scan over 2048 steps with long memory (dt ~ 0.005: the state keeps

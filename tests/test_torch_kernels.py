@@ -93,7 +93,10 @@ def test_k1_plain_matches_pallas_and_oracle_exactly(n, dtype, marginal):
 @pytest.mark.parametrize("marginal", [False, True], ids=["4term", "5term"])
 def test_k2_plain_matches_pallas(n, k, marginal):
     """Scores within the JAX suite's own bar, tile candidates and the merged
-    top-k node ids exact (k=65 takes the full-vector fallback)."""
+    top-k node ids exact.  k=65 is above the reference's tile cap (64), so
+    the reference merges it from the full score vector while the port
+    (cap 128) merges tile candidates; the Pallas kernel runs at its own cap
+    and the port's first 64 candidates of each tile are held against it."""
     ref = load_reference()
     rng = np.random.default_rng(7 * n + k)
     s, extra = _streams(rng, n, marginal)
@@ -102,15 +105,18 @@ def test_k2_plain_matches_pallas(n, k, marginal):
                                                   torch.float32)
     lohi = mr.maiz_lohi(*args_p, n, **kw_p)
     k_tile = min(k, n, mr.MAX_TILE_K)
+    k_ref = min(k, n, ref.maizx_rank.MAX_TILE_K)
     sc, tmin, targ = mr.maiz_topk(*args_p, n, lohi, torch.from_numpy(W4),
                                   k=k_tile, **kw_p)
     sc_j, tmin_j, targ_j = ref.maizx_rank.maiz_topk_pallas(
         *args_j, jnp().full((1, 1), n, jnp().int32), jnp().asarray(
-            lohi.numpy()), jnp().asarray(W4), k=k_tile, interpret=True,
+            lohi.numpy()), jnp().asarray(W4), k=k_ref, interpret=True,
         **kw_j)
     np.testing.assert_allclose(sc.numpy(), np.asarray(sc_j), atol=1e-5)
-    np.testing.assert_array_equal(targ.numpy(), np.asarray(targ_j))
-    np.testing.assert_allclose(tmin.numpy(), np.asarray(tmin_j), atol=1e-5)
+    np.testing.assert_array_equal(targ[:, :k_ref].numpy(),
+                                  np.asarray(targ_j))
+    np.testing.assert_allclose(tmin[:, :k_ref].numpy(), np.asarray(tmin_j),
+                               atol=1e-5)
     okw_p = okw_j = {}
     if marginal:
         okw_p = dict(pk=torch.from_numpy(extra[0]),
@@ -195,6 +201,67 @@ def test_k2_marginal_weight_zero_is_bitwise_four_term():
     np.testing.assert_array_equal(bits(s4), bits(s5))
     np.testing.assert_array_equal(bits(t4), bits(t5))
     np.testing.assert_array_equal(i4.numpy(), i5.numpy())
+
+
+@pytest.mark.parametrize("k", [65, 100, 128])
+@pytest.mark.parametrize("n", [100, 1100, 3000])
+@pytest.mark.parametrize("marginal", [False, True], ids=["4term", "5term"])
+def test_merged_topk_above_the_reference_tile_cap(n, k, marginal):
+    """Shortlists of 65-128 merge the port's tile candidates (cap 128); the
+    reference merges them from the full score vector (its cap is 64).  Node
+    ids equal the reference's, scores within the suite's 1e-5, and both
+    equal the port's own full-vector route bit for bit, short tiles
+    included (n = 1100 leaves 76 valid nodes in tile 1)."""
+    ref = load_reference()
+    rng = np.random.default_rng(n + k + marginal)
+    s, extra = _streams(rng, n, marginal)
+    tt = [torch.from_numpy(x) for x in s]
+    jj = [jnp().asarray(x) for x in s]
+    okw_p = okw_j = {}
+    if marginal:
+        okw_p = dict(pk=torch.from_numpy(extra[0]),
+                     cap=torch.from_numpy(extra[1]),
+                     chips_total=torch.from_numpy(extra[2]),
+                     en=torch.from_numpy(EN))
+        okw_j = {a: jnp().asarray(b.numpy()) for a, b in okw_p.items()}
+    w = torch.from_numpy(W4)
+    scores, top_s, top_i = ops.maiz_ranking_topk(*tt, w, k=k, **okw_p)
+    k_out = min(k, n)
+    assert top_i.shape == (k_out,) and top_i.dtype == torch.int32
+    full_s, full_i = ops.lex_head(scores, k_out)
+    np.testing.assert_array_equal(bits(top_s), bits(full_s))
+    np.testing.assert_array_equal(top_i.numpy(), full_i.numpy())
+    _, top_s_j, top_i_j = ref.ops.maiz_ranking_topk(
+        *jj, jnp().asarray(W4), k=k, interpret=True, **okw_j)
+    np.testing.assert_array_equal(top_i.numpy(), np.asarray(top_i_j))
+    np.testing.assert_allclose(top_s.numpy(), np.asarray(top_s_j),
+                               atol=1e-5)
+    # the batched route merges its lanes' candidates the same way
+    args_b = [torch.stack([x, x.flip(0)]) for x in tt]
+    kw_b = {a: (torch.stack([b, b]) if a == "en" else
+                torch.stack([b, b.flip(0)])) for a, b in okw_p.items()}
+    sb, tsb, tib = ops.maiz_ranking_topk_batched(*args_b, w, k=k, **kw_b)
+    fs, fi = ops.lex_head(sb, k_out)
+    np.testing.assert_array_equal(bits(tsb), bits(fs))
+    np.testing.assert_array_equal(tib.numpy(), fi.numpy())
+    np.testing.assert_array_equal(tib[0].numpy(), top_i.numpy())
+
+
+def test_tile_topk_prefix_is_the_smaller_k():
+    """The k-round extraction is prefix-consistent: a tile's top-k_small is
+    the first k_small of its top-k, up to the port's cap of 128 (what lets
+    the Pallas comparison at the reference's cap hold the port's first 64
+    candidates)."""
+    rng = np.random.default_rng(5)
+    s, _ = _streams(rng, 3000, False)
+    args = [_pad(torch.from_numpy(x), 72) for x in s]
+    lohi = mr.maiz_lohi(*args, 3000)
+    w = torch.from_numpy(W4)
+    _, tmin, targ = mr.maiz_topk(*args, 3000, lohi, w, k=mr.MAX_TILE_K)
+    for k in (1, 2, 64, 65):
+        _, tm, ta = mr.maiz_topk(*args, 3000, lohi, w, k=k)
+        np.testing.assert_array_equal(bits(tm), bits(tmin[:, :k]))
+        np.testing.assert_array_equal(ta.numpy(), targ[:, :k].numpy())
 
 
 def test_fused_ranking_head_and_tile_k_limit():
@@ -321,7 +388,7 @@ def test_k3_k4_plain_per_lane_and_against_pallas(n, variant):
             *lane_j, oracle_lohi, jnp().asarray(W4), **okw_j)
         np.testing.assert_array_equal(bits(got[0][l, :n]), bits(want))
         # the merged shortlist: one batched call == the sequential wrapper
-        for kk in (16, 65):
+        for kk in (16, 65, mr.MAX_TILE_K):
             a = ops.maiz_ranking_topk_batched(
                 *[torch.from_numpy(x) for x in s], w, k=kk,
                 **({} if not marginal else dict(
@@ -348,4 +415,5 @@ def test_batched_wrappers_check_shapes_and_never_count_on_cpu():
     with pytest.raises(ValueError, match=r"\(L, N\)"):
         mr.maiz_lohi_b(*[x[0]] * 6, 1024)
     with pytest.raises(ValueError, match="MAX_TILE_K"):
-        mr.maiz_topk_b(*[x] * 6, 1024, lohi, torch.from_numpy(W4), k=65)
+        mr.maiz_topk_b(*[x] * 6, 1024, lohi, torch.from_numpy(W4),
+                       k=mr.MAX_TILE_K + 1)
