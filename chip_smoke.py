@@ -10,31 +10,40 @@ outputs against the port's CPU path and the paper headline:
      once, with nvcc's register / shared-memory / spill report; SASS
      counts (``cuobjdump``): K5's bf16 kernels run HMMA (tensor cores),
      its f32 kernels FFMA only; K6's instructions against its exps
-  2. K1 ``maiz_lohi`` / K2 ``maiz_topk`` vs their plain twins, bitwise, at
-     N = 1,048,576 and a ragged N = 1,000,003, k in {1, 64, 65, 128};
-     the merged top-1 and top-65 (through tile candidates) vs the CPU
-     path and the full-vector merge; times at k in {1, 64, 65} (CUDA
-     events, median of 25 after warm-up, L2 flushed) beside the
-     byte/operation bound, and ``torch.topk`` over the tiles' score rows
-     as a yardstick for the selection alone
-  3. fleet ranking: ``ops.maiz_ranking_fused`` on a 1,048,576-node fleet
+  2. K1 ``maiz_lohi`` (one fused launch: the sweep and the fold) and its
+     per-tile instantiation / K2 ``maiz_topk`` vs their plain twins,
+     bitwise, at N = 1,048,576 and a ragged N = 1,000,003, k in {1, 64,
+     65, 128}; +0.0 and -0.0 in different tiles (K1, K3); the merged top-1
+     and top-65 (through tile candidates) vs the CPU path and the
+     full-vector merge; times at k in {1, 64, 65} (CUDA events, median of
+     25 after warm-up, L2 flushed) beside the byte/operation bound,
+     ``torch.topk`` over the tiles' score rows and ``torch.aminmax`` over
+     the term rows as yardsticks for the selection and the reduction
+     alone, K1 with L2 flushed clean, and the timing floor
+  3. fleet ranking: ``ops.maiz_ranking_fused`` on a 1,048,576-node fleet;
+     one device kernel per ``maiz_lohi`` / ``maiz_lohi_b`` call
+     (``torch.profiler``)
   4. placement: ``scheduler.place_jobs`` (256 jobs of 64 chips, shortlist
      64, so K2 at k = 65) on 65,536 and 1,048,576 nodes, kernel path ==
      CPU path; profiled device ms per call beside the wall time
   5. simulator: ``simulate_fleet`` on a 65,536-node lifecycle fleet, 24
-     epochs, kernel / plain / full engines
+     epochs, kernel / plain / full engines, kernel == plain; the
+     forecast's fits card vs CPU (within 1e-5 of each region's scale) on
+     its windows; a 192-node stream card == CPU with the forecast term off
+     and at the default w2 = 0.25
   6. Scenario C of the paper experiment on the card: -85.68 % +- 0.05 pp
-  7. K3 ``maiz_lohi_b`` / K4 ``maiz_topk_b`` vs their plain twins, bitwise,
-     at L = 4 lanes x N = 1,048,576 and 1,000,003 (k in {1, 64, 65, 128})
-     and at the ensemble's 8 x 65,536 (k in {64, 65}), each lane also
-     against K1/K2; times beside the bound (CUDA events, L2 flushed)
+  7. K3 ``maiz_lohi_b`` (fused) / K4 ``maiz_topk_b`` vs their plain twins,
+     bitwise, at L = 4 lanes x N = 1,048,576 and 1,000,003 (k in {1, 64,
+     65, 128}) and at the ensemble's 8 x 65,536 (k in {64, 65}), each lane
+     also against K1/K2; times beside the bound (CUDA events, L2 flushed)
   8. batched fleet ranking: ``ops.maiz_ranking_topk_batched`` on four
      1,048,576-node fleets (K3 + K4), each lane == the sequential ranking
   9. ensemble: ``sweep_policies`` over 4 deferral thresholds x 2 seeds on
      65,536-node fleets (8 lanes, one bucket, K4 per placement round);
-     every lane == its own ``simulate_fleet_scan`` and the host loop; the
-     plain-sweep grid for comparison; profiled device ms per epoch beside
-     the wall time; a 96-node stream card == CPU
+     every lane == its own ``simulate_fleet_scan`` and the host loop, and
+     == the plain-sweep ensemble; profiled device ms per epoch beside the
+     wall time; the forecast's fits card vs CPU; a 96-node three-lane
+     stream card == CPU with the forecast term off and at w2 = 0.25
  10. K5 ``flash_attention`` / K6 ``selective_scan`` vs their plain
      versions at the serving path's shapes (granite-3-2b's prefill
      attention, falcon-mamba-7b's prefill scan), at ragged shapes and at
@@ -96,6 +105,10 @@ CARDS = (("H100 NVL", 3.9, 60.0, 835.0, 418.0),
          ("H100 PCIe", 2.0, 51.0, 756.0, 378.0),
          ("H100", 3.35, 67.0, 989.0, 495.0),
          ("H200", 4.8, 67.0, 989.0, 495.0))
+# clocks the timing loop spins the card for after each L2 flush (about
+# 0.5 ms at the H100's 1.98 GHz): room for the host to enqueue the timed
+# launches
+SPIN_CYCLES = 1_000_000
 # exp2 results per clock per SM on the SFU (CUDA C Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0)
 SFU_PER_CLOCK = 16
@@ -170,15 +183,23 @@ def abs_err(a, b) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def time_ms(fn, flush, reps=25, warm=3) -> float:
+def time_ms(fn, flush, reps=25, warm=3, clean=False) -> float:
     """Median device time of ``fn`` in ms over ``reps`` runs, each after
-    an L2 flush that also keeps the stream busy while the host enqueues."""
+    an L2 flush and a spin kernel (no memory traffic) that keep the
+    stream busy while the host enqueues ``fn``, so a slow host adds no
+    idle time between the events.  The flush writes 256 MB, so ``fn``
+    finds L2 full of dirty lines; ``clean`` flushes by reading them
+    instead (L2 left clean)."""
     import torch
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
-        flush.fill_(1.0)
+        if clean:
+            flush.amax()
+        else:
+            flush.fill_(1.0)
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -239,6 +260,28 @@ def device_busy(fn, top=0):
             + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} "
                         f"ms x{e.count}" for e in host[:top]))
     return out, (us / 1e3 if us > 0 else None), wall, summary
+
+
+def device_kernels(fn):
+    """{device op: count} of one ``fn()`` under ``torch.profiler`` (after
+    a warm-up call), or None when the profiler sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:          # no CUPTI in this sandbox
+        say(f"profiler unavailable: {e}")
+        return None
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    return ops or None
 
 
 def busy_note(dev_ms, wall_ms):
@@ -370,7 +413,7 @@ def phase_kernels(dev, rates, flush):
 
     w = torch.tensor([0.35, 0.25, 0.25, 0.15], device=dev)
     err = {"maiz_lohi": [0.0, 0], "maiz_topk": [0.0, 0]}
-    times = {}
+    times, tiles = {}, {}
 
     def note(name, a, b):
         err[name][0] = max(err[name][0], abs_err(a, b))
@@ -386,11 +429,13 @@ def phase_kernels(dev, rates, flush):
             kwp = {k: (v if k == "en" else _pad(v, n_pad))
                    for k, v in kw.items()}
             r = 5 if marginal else 4
+            # the fused sweep (one launch) and its per-tile instantiation
+            lohi = mr.maiz_lohi(*sp, n, **kwp)
             lo, hi = mr.maiz_lohi_tiles(*sp, n, **kwp)
             lo_p, hi_p = mr.maiz_lohi_plain(*sp, n, **kwp)
+            note("maiz_lohi", lohi, mr.fold_lohi(lo_p, hi_p))
             note("maiz_lohi", lo, lo_p)
             note("maiz_lohi", hi, hi_p)
-            lohi = torch.stack([lo.amin(0), hi.amax(0)], -1)
             for k in TOPK_CHECK:
                 got = mr.maiz_topk(*sp, n, lohi, w, k=k, **kwp)
                 want = mr.maiz_topk_plain(*sp, n, lohi, w, k=k, **kwp)
@@ -419,6 +464,11 @@ def phase_kernels(dev, rates, flush):
                 times["yardstick"] = (rows.shape, time_ms(
                     lambda: torch.topk(rows, 65, dim=1, largest=False,
                                        sorted=True), flush))
+                # K1's reduction alone: aminmax over the term rows
+                terms = torch.stack(mr._terms(*sp, None, None, None, None))
+                times["yardstick_k1"] = (terms.shape, time_ms(
+                    lambda: torch.aminmax(terms, dim=1), flush))
+                del terms
             for k in TOPK_TIME:
                 key = (n, variant, k)
                 times[("maiz_topk",) + key] = (
@@ -429,29 +479,94 @@ def phase_kernels(dev, rates, flush):
                             reps=21),
                     _k2_bound(n_pad, r, k, rates))
             times[("maiz_lohi", n, variant, 0)] = (
+                time_ms(lambda: mr.maiz_lohi(*sp, n, **kwp), flush),
+                time_ms(lambda: mr.fold_lohi(*mr.maiz_lohi_plain(
+                    *sp, n, **kwp)), flush),
+                _k1_bound(n_pad, n, r, rates, dev))
+            tiles[(n, variant)] = (
                 time_ms(lambda: mr.maiz_lohi_tiles(*sp, n, **kwp), flush),
-                time_ms(lambda: mr.maiz_lohi_plain(*sp, n, **kwp), flush),
-                _k1_bound(n_pad, r, rates))
+                time_ms(lambda: _torch_fold(mr.maiz_lohi_tiles(
+                    *sp, n, **kwp)), flush),
+                time_ms(lambda: mr.maiz_lohi(*sp, n, **kwp), flush,
+                        clean=True),
+                time_ms(lambda: mr.maiz_lohi_tiles(*sp, n, **kwp), flush,
+                        clean=True))
+    check_zero_order(dev)
     shape, yard = times.pop("yardstick")
+    tshape, tyard = times.pop("yardstick_k1")
     for key, (ms, plain, (b, by)) in sorted(times.items(), key=str):
         say(f"[2] {key[0]} N={key[1]} {key[2]}"
             + (f" k={key[3]}" if key[0] == "maiz_topk" else "")
             + f": kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
               f"bound {b * 1e3:.2f} us ({by})")
+    for (n, variant), (ms, ms_fold, fused_clean, ms_clean) in sorted(
+            tiles.items(), key=str):
+        say(f"[2] maiz_lohi_tiles (the fold off, one partial per tile) "
+            f"N={n} {variant}: {ms * 1e3:.1f} us, {ms_fold * 1e3:.1f} us "
+            f"with the three torch fold ops after it (the route before the "
+            f"fused kernel); with L2 flushed clean: fused "
+            f"{fused_clean * 1e3:.1f} us, tiles {ms_clean * 1e3:.1f} us")
+    tiny = torch.zeros(1, device=dev)
+    floor = time_ms(lambda: tiny.add_(1), flush)
+    say(f"[2] timing floor: a one-element add_ {floor * 1e3:.1f} us (the "
+        "launch and the events; every time above includes it)")
     say(f"[2] yardstick for the selection alone: torch.topk(k=65, "
         f"sorted=True) over the {tuple(shape)} tile score rows "
         f"{yard * 1e3:.1f} us (no tie rule; the port never calls it)")
+    say(f"[2] yardstick for K1's reduction alone: torch.aminmax over the "
+        f"precomputed {tuple(tshape)} term rows {tyard * 1e3:.1f} us (no "
+        f"mask, no zero order; the port never calls it)")
     for name, (ae, ulp) in err.items():
         say(f"[2] {name} vs plain: max abs err {ae}, max ulp diff {ulp}")
         check(ulp == 0, f"{name} is not bitwise equal to its plain twin")
     return err, times
 
 
-def _k1_bound(n_pad, r, rates, lanes=1):
-    """K1 (K3 with ``lanes``): every stream read once, the tile partials
-    written once."""
+def check_zero_order(dev):
+    """K1 and K3 on streams with +0.0 in one tile and -0.0 in another for
+    the same term (the min of eff and sched, the max of the two CFP
+    terms): bitwise the twin's fold, which orders -0.0 below +0.0."""
+    import torch
+    from repro_torch.kernels import maizx_rank as mr
+    n = 4096
+    g = np.random.default_rng(5)
+    s = [g.random(n).astype(np.float32) + 1 for _ in range(6)]
+    s[0] = -s[0]                  # ec < 0: the CFP terms' max is a zero
+    s[0][5], s[0][1024 + 9] = 0.0, -0.0
+    s[4][100], s[4][2048 + 7] = 0.0, -0.0
+    s[5][10], s[5][3000] = 0.0, -0.0
+    st = [torch.from_numpy(x).to(dev) for x in s]
+    lanes = [torch.stack([x, x.flip(0)]) for x in st]
+    for nv in (n, 3000):
+        got = mr.maiz_lohi(*st, nv)
+        want = mr.fold_lohi(*mr.maiz_lohi_plain(*st, nv))
+        check(ulp_diff(got, want) == 0 and torch.equal(
+            torch.signbit(got), torch.signbit(want)),
+            f"K1's zero order differs from the twin's fold (n_valid {nv})")
+        got_b = mr.maiz_lohi_b(*lanes, nv)
+        want_b = mr.fold_lohi(*mr.maiz_lohi_plain_b(*lanes, nv))
+        check(torch.equal(got_b.cpu().view(torch.int32),
+                          want_b.cpu().view(torch.int32)),
+              f"K3's zero order differs from the twin's fold (n_valid {nv})")
+    say(f"[2] +0.0 / -0.0 in different tiles: K1 and K3 == the twins' fold "
+        f"bit for bit (signs of lo/hi {torch.signbit(got).int().tolist()})")
+
+
+def _torch_fold(lohi_tiles):
+    """The per-tile partials folded as the wrapper did before the fused
+    kernel: amin, amax and stack, three launches."""
+    import torch
+    lo, hi = lohi_tiles
+    return torch.stack([lo.amin(-2), hi.amax(-2)], -1)
+
+
+def _k1_bound(n_pad, n_valid, r, rates, dev, lanes=1):
+    """The fused K1 (K3 with ``lanes``): every stream read once, each
+    block's (R, 2) partial and the (R, 2) result written once."""
+    from repro_torch.kernels import maizx_rank as mr
     streams = 6 if r == 4 else 9
-    nbytes = lanes * (n_pad * 4 * streams + 2 * (n_pad // 1024) * r * 4
+    blocks = mr.lohi_blocks(dev, r, lanes, n_valid)
+    nbytes = lanes * (n_pad * 4 * streams + (blocks + 1) * r * 2 * 4
                       + (16 if r == 5 else 0))
     ops = lanes * n_pad * ((3 if r == 4 else 12) + 2 * r)  # terms + min/max
     return bound_ms(nbytes, ops, rates)
@@ -518,6 +633,21 @@ def phase_ranking(dev):
     say(f"[3] fused ranking N={N_BIG}: best node {int(best_n)} score "
         f"{float(best_s):.6f}, ulp vs Eq. 1 {ulp_diff(scores, want)}, "
         f"launches {n}")
+    # one maiz_lohi[_b] call is one device kernel: the fold runs inside it
+    from repro_torch.kernels import maizx_rank as mr
+    cols = [a.to(torch.float32).contiguous() for a in args[:6]]
+    wide = [torch.stack([c] * LANES) for c in cols]
+    for name, fn in (("maiz_lohi", lambda: mr.maiz_lohi(*cols, N_BIG)),
+                     ("maiz_lohi_b", lambda: mr.maiz_lohi_b(*wide, N_BIG))):
+        ops = device_kernels(fn)
+        if ops is None:
+            say(f"[3] device kernels per {name} call: not measured (the "
+                "profiler saw no device activity)")
+            continue
+        say(f"[3] device kernels per {name} call: {sum(ops.values())} "
+            f"({ops})")
+        check(sum(ops.values()) == 1 and "lohi_kernel" in next(iter(ops)),
+              f"{name} is not one launch of the fused kernel: {ops}")
     return n
 
 
@@ -622,24 +752,72 @@ def phase_simulator(dev):
         f"ms/epoch ({rf.rank_sweeps} sweeps); shortlist == full; kernel vs "
         f"plain: {moved} jobs placed differently, emissions "
         f"{rk.emissions_g:.6e} vs {rp.emissions_g:.6e} g")
-    # a small stream, w2 = 0: the card's trajectory == the CPU path's
+    # the kernel and plain sweeps share the card's forecast, and K2 is
+    # bitwise its twin: the same placements
+    check(moved == 0 and _same_run(rk, rp),
+          f"simulator: the kernel sweep places {moved} jobs differently "
+          "from the plain sweep on the card")
+    forecast_gap(traces, cfg, dev, "[5] the simulator's")
+    # a small stream, with the forecast term off (w2 = 0) and at the
+    # paper's default weights (w2 = 0.25): the card's trajectory == the
+    # CPU path's
     small = S.SimConfig(epochs=24, seed=11, arrival_rate=8.0,
                         mean_duration_h=8.0, shortlist=32, history_h=48,
                         horizon_h=12, migration_budget=2,
                         deferrable_frac=0.2, outage=(0, 12, 6),
-                        weights=RankWeights(0.35, 0.0, 0.5, 0.15),
                         use_kernel=True)
-    out = []
-    for d in (dev, "cpu"):
-        f, t, ri = S.synthetic_lifecycle_fleet(192, small,
-                                               chips_per_node=128, device=d)
-        out.append(S.simulate_fleet(f, t, ri, small))
-    check(np.array_equal(out[0].node_log, out[1].node_log)
-          and out[0].emissions_g == out[1].emissions_g,
-          "simulator: card and CPU paths disagree on the small stream")
-    say(f"[5] n=192 stream: card == CPU path ({out[0].rank_sweeps} sweeps, "
-        f"{out[0].migrations} migrations, {out[0].evictions} evictions)")
+    for weights in (RankWeights(0.35, 0.0, 0.5, 0.15), RankWeights()):
+        c = dataclasses.replace(small, weights=weights)
+        out = []
+        for d in (dev, "cpu"):
+            f, t, ri = S.synthetic_lifecycle_fleet(192, c, chips_per_node=128,
+                                                   device=d)
+            out.append(S.simulate_fleet(f, t, ri, c))
+        if weights.w2:
+            forecast_gap(t, c, dev, "[5] the n=192 stream's")
+        check(_same_run(out[0], out[1], emissions_rel=0.0),
+              f"simulator: card and CPU paths disagree on the n=192 stream "
+              f"(w2 = {weights.w2})")
+        say(f"[5] n=192 stream, w2 = {weights.w2}: card == CPU path "
+            f"({out[0].rank_sweeps} sweeps, {out[0].migrations} migrations, "
+            f"{out[0].evictions} evictions, {out[0].jobs_deferred} deferred; "
+            f"emissions {out[0].emissions_g!r} vs {out[1].emissions_g!r} g)")
     return ck
+
+
+def forecast_gap(traces, cfg, dev, what):
+    """``forecast_regions`` on the card (cuSOLVER's QR) and on the CPU
+    (LAPACK's SVD driver) over every epoch window the simulator fits
+    (``_forecast_step``: the ``history_h`` hours before each epoch):
+    checked within 1e-5 of each region's forecast scale, the bar the CPU
+    tests hold the port's forecast to against the reference."""
+    import torch
+    from repro_torch.core import forecast
+    tr = torch.from_numpy(np.asarray(traces, np.float32))
+    h = cfg.history_h
+    ab = rel = 0.0
+    fit_ms = []
+    for t in range(cfg.epochs):
+        win = tr[:, t:t + h]
+        win_d = win.to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card, _ = forecast.forecast_regions(win_d, cfg.horizon_h, 0)
+        torch.cuda.synchronize()
+        fit_ms.append((time.perf_counter() - t0) * 1e3)
+        cpu, _ = forecast.forecast_regions(win, cfg.horizon_h, 0)
+        d = (card.cpu() - cpu).abs()
+        check(bool(torch.isfinite(card).all()), "card forecast not finite")
+        ab = max(ab, float(d.max()))
+        rel = max(rel, float((d.amax(1) / cpu.abs().amax(1)
+                              .clamp_min(1e-30)).max()))
+    say(f"{what} forecast windows ({cfg.epochs} epochs x {tr.shape[0]} "
+        f"regions, history {h} h, horizon {cfg.horizon_h} h): card vs CPU "
+        f"max abs err {ab:.4g}, {rel:.4g} of each region's scale (bar "
+        f"1e-5); one fit on the card {statistics.median(fit_ms):.3f} ms "
+        f"(median wall, synchronized)")
+    check(rel <= 1e-5, f"{what} forecast: card vs CPU {rel:.3g} of the "
+          "region's scale, over the 1e-5 bar")
 
 
 def phase_scenario_c(dev):
@@ -685,7 +863,7 @@ def phase_batched_kernels(dev, rates, flush):
 
     w = torch.tensor([0.35, 0.25, 0.25, 0.15], device=dev)
     err = {"maiz_lohi_b": [0.0, 0], "maiz_topk_b": [0.0, 0]}
-    times = {}
+    times, tiles = {}, {}
 
     def note(name, a, b):
         err[name][0] = max(err[name][0], abs_err(a, b))
@@ -706,15 +884,18 @@ def phase_batched_kernels(dev, rates, flush):
         sp, kwp = _lane_stack(n, n_pad, lanes, n + len(variant), dev,
                               marginal, w_m)
         r = 5 if marginal else 4
+        lohi = mr.maiz_lohi_b(*sp, n, **kwp)
         lo, hi = mr.maiz_lohi_tiles_b(*sp, n, **kwp)
         lo_p, hi_p = mr.maiz_lohi_plain_b(*sp, n, **kwp)
+        note("maiz_lohi_b", lohi, mr.fold_lohi(lo_p, hi_p))
         note("maiz_lohi_b", lo, lo_p)
         note("maiz_lohi_b", hi, hi_p)
-        lohi = torch.stack([lo.amin(1), hi.amax(1)], -1)
         ks = TOPK_CHECK if lanes == LANES else (64, 65)
         for l in range(lanes):
             lane = [x[l] for x in sp]
             lkw = {a: b[l] for a, b in kwp.items()}
+            lane_eq(lohi[l], mr.maiz_lohi(*lane, n, **lkw),
+                    f"K3 N={n} {variant}")
             lo1, hi1 = mr.maiz_lohi_tiles(*lane, n, **lkw)
             lane_eq(lo[l], lo1, f"K3 lo N={n} {variant}")
             lane_eq(hi[l], hi1, f"K3 hi N={n} {variant}")
@@ -745,11 +926,25 @@ def phase_batched_kernels(dev, rates, flush):
                         reps=11),
                 _k2_bound(n_pad, r, k, rates, lanes))
         times[("maiz_lohi_b", n, tag, 0)] = (
+            time_ms(lambda: mr.maiz_lohi_b(*sp, n, **kwp), flush),
+            time_ms(lambda: mr.fold_lohi(*mr.maiz_lohi_plain_b(
+                *sp, n, **kwp)), flush, reps=11),
+            _k1_bound(n_pad, n, r, rates, dev, lanes))
+        tiles[(n, tag)] = (
             time_ms(lambda: mr.maiz_lohi_tiles_b(*sp, n, **kwp), flush),
-            time_ms(lambda: mr.maiz_lohi_plain_b(*sp, n, **kwp), flush,
-                    reps=11),
-            _k1_bound(n_pad, r, rates, lanes))
+            time_ms(lambda: _torch_fold(mr.maiz_lohi_tiles_b(
+                *sp, n, **kwp)), flush),
+            time_ms(lambda: mr.maiz_lohi_b(*sp, n, **kwp), flush,
+                    clean=True),
+            time_ms(lambda: mr.maiz_lohi_tiles_b(*sp, n, **kwp), flush,
+                    clean=True))
         del sp, kwp
+    for (n, tag), (ms, ms_fold, fused_clean, ms_clean) in sorted(
+            tiles.items(), key=str):
+        say(f"[7] maiz_lohi_tiles_b (the fold off) N={n} {tag}: "
+            f"{ms * 1e3:.1f} us, {ms_fold * 1e3:.1f} us with the three torch "
+            f"fold ops; with L2 flushed clean: fused "
+            f"{fused_clean * 1e3:.1f} us, tiles {ms_clean * 1e3:.1f} us")
     shape, yard = times.pop("yardstick")
     for key, (ms, plain, (b, by)) in sorted(times.items(), key=str):
         say(f"[7] {key[0]} N={key[1]} {key[2]}"
@@ -865,9 +1060,9 @@ def phase_ensemble(dev):
     t0 = time.perf_counter()
     host = [S.simulate_fleet(*sp[:4], jobs=sp[4]) for sp in specs]
     host_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
-    same_host = [_same_run(a, h) for a, h in zip(ens, host)]
-    check(same_host[0], f"ensemble lane ({grid_runs[0][0]}, seed "
-          f"{grid_runs[0][1]}) != the host loop simulate_fleet")
+    for (name, seed, _), a, h in zip(grid_runs, ens, host):
+        check(_same_run(a, h), f"ensemble lane ({name}, seed {seed}) != "
+              "the host loop simulate_fleet")
     plain_specs = [sp[:3] + (dataclasses.replace(sp[3], use_kernel=False),
                              sp[4]) for sp in specs]
     t0 = time.perf_counter()
@@ -875,6 +1070,11 @@ def phase_ensemble(dev):
     plain_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
     moved = sum(int((a.node_log != b.node_log).sum())
                 for a, b in zip(ens, plain))
+    # the kernel and plain sweeps share each lane's forecast, and K4 is
+    # bitwise its twin: the same placements
+    check(moved == 0 and all(_same_run(a, b) for a, b in zip(ens, plain)),
+          f"ensemble: the kernel sweep places {moved} jobs differently "
+          "from the plain sweep")
     sweeps = sum(r.rank_sweeps for r in ens)
     placed = sum(r.arrivals_placed for r in ens)
     spj = sweeps / max(placed, 1)
@@ -900,36 +1100,44 @@ def phase_ensemble(dev):
         f"{busy_note(dev_ms, prof_ms)}); {len(specs)} sequential scans "
         f"{seq_ms:.1f} ms/epoch, {len(specs)} host loops {host_ms:.1f} "
         f"ms/epoch; plain-sweep ensemble {plain_ms:.1f} ms/epoch; every lane "
-        f"== its scan, {sum(same_host)}/{len(host)} lanes == the host loop; "
-        f"kernel vs plain sweep: {moved} jobs placed differently")
+        f"== its scan and the host loop ({len(host)}/{len(host)}); kernel vs "
+        f"plain sweep: {moved} jobs placed differently")
     say(f"[9] 4 profiled epochs: {prof_top}")
     say("[9] records: " + json.dumps([
         {k: rec[k] for k in ("policy", "seed", "emissions_g", "deferred",
                              "avg_start_delay_h")} for rec in records]))
     front = S.pareto_frontier(records)
     say(f"[9] pareto frontier: {[p['policy'] for p in front]}")
-    # a small mixed stream, w2 = 0 (the forecast's solver differs between
-    # the card and the CPU): the card's ensemble == the CPU's
+    for seed in ENS_SEEDS:
+        forecast_gap(grid_runs[ENS_SEEDS.index(seed)][2][1],
+                     dataclasses.replace(cfg, seed=seed), dev,
+                     f"[9] the seed-{seed} fleets'")
+    # a small mixed stream, with the forecast term off (w2 = 0) and at the
+    # paper's default weights (w2 = 0.25): the card's ensemble == the CPU's
     small = S.SimConfig(epochs=24, arrival_rate=8.0, mean_duration_h=10.0,
                         shortlist=32, history_h=48, horizon_h=12,
                         migration_budget=2, deferrable_frac=0.3,
                         outage=(0, 12, 6), flash_crowd=(20, 3, 2.5),
-                        weights=RankWeights(0.35, 0.0, 0.5, 0.15),
                         use_kernel=True)
-    out = []
-    for d in (dev, "cpu"):
-        sp = []
-        for seed in (11, 12, 13):
-            c = dataclasses.replace(small, seed=seed)
-            f, t, ri = S.synthetic_lifecycle_fleet(96, c, chips_per_node=64,
-                                                   device=d)
-            sp.append((f, t, ri, c, S.generate_jobs(c)))
-        out.append(S.simulate_fleet_ensemble(sp))
-    check(all(_same_run(a, b) for a, b in zip(*out)),
-          "ensemble: card and CPU lanes disagree on the 96-node stream")
-    say(f"[9] n=96 stream, 3 lanes: card == CPU ("
-        f"{sum(r.migrations for r in out[0])} migrations, "
-        f"{sum(r.evictions for r in out[0])} evictions)")
+    for weights in (RankWeights(0.35, 0.0, 0.5, 0.15), RankWeights()):
+        out = []
+        for d in (dev, "cpu"):
+            sp = []
+            for seed in (11, 12, 13):
+                c = dataclasses.replace(small, seed=seed, weights=weights)
+                f, t, ri = S.synthetic_lifecycle_fleet(
+                    96, c, chips_per_node=64, device=d)
+                sp.append((f, t, ri, c, S.generate_jobs(c)))
+                if weights.w2 and d == "cpu":
+                    forecast_gap(t, c, dev, f"[9] the n=96 seed-{seed} lane's")
+            out.append(S.simulate_fleet_ensemble(sp))
+        check(all(_same_run(a, b) for a, b in zip(*out)),
+              f"ensemble: card and CPU lanes disagree on the 96-node stream "
+              f"(w2 = {weights.w2})")
+        say(f"[9] n=96 stream, 3 lanes, w2 = {weights.w2}: card == CPU ("
+            f"{sum(r.migrations for r in out[0])} migrations, "
+            f"{sum(r.evictions for r in out[0])} evictions, "
+            f"{sum(r.jobs_deferred for r in out[0])} deferred)")
     return cnt
 
 

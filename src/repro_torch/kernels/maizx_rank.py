@@ -3,9 +3,11 @@
 Twin of ``repro.kernels.maizx_rank``.  Two memory-bound sweeps over the
 node axis, each reading every input stream once:
 
-K1 ``maiz_lohi`` (replaces ``_lohi_kernel``) — per 1024-node tile, compute
-    the Eq. 1 terms and reduce their tile-local (lo, hi); the wrapper folds
-    the per-tile partials into the global (R, 2) min-max normalizers.
+K1 ``maiz_lohi`` (replaces ``_lohi_kernel``) — compute the Eq. 1 terms
+    and their masked (lo, hi) over the valid nodes: the global (R, 2)
+    min-max normalizers, in one launch (a persistent grid whose last block
+    folds the blocks' partials).  ``maiz_lohi_tiles`` runs the same kernel
+    with the fold off: the reference's per-tile (lo, hi).
 
 K2 ``maiz_topk`` (replaces ``_topk_kernel``) — per node the normalized
     weighted score; per tile the local top-k in (score, index) order,
@@ -17,6 +19,12 @@ K3 ``maiz_lohi_b`` / K4 ``maiz_topk_b`` (replace ``_lohi_kernel_b`` /
     ``_topk_kernel_b``) — K1/K2 over a leading lane axis in one launch:
     node streams (L, N), per-lane ``en`` (L, 4) and ``lohi`` (L, R, 2),
     shared weights.  Each lane is bitwise what K1/K2 give on that lane.
+
+±0.0 compare equal, so a min/max keeps whichever zero its reduction order
+meets first; K1/K3 and the twins' fold (``fold_lohi``) order -0.0 below
++0.0 instead, so the (R, 2) result does not depend on the fold order.
+K1/K3 read each stream with 16-byte loads: every stream (and so every
+lane's row) must start on a 16-byte boundary, or the wrapper raises.
 
 R = 5 when the marginal-CFP streams (``pk``/``cap``/``ct`` plus the (4,)
 ``en = [idle_frac, dyn_frac, embodied·horizon, w_marginal]``) are given,
@@ -33,7 +41,7 @@ not count).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -108,6 +116,19 @@ def maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
     hi = torch.stack([torch.where(valid, t, -_BIG).reshape(tiles).amax(-1)
                       for t in terms], dim=-1)
     return lo, hi
+
+
+def fold_lohi(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Fold per-tile (lo, hi), each (..., nt, R), into the (..., R, 2)
+    normalizers: the min of lo and the max of hi over the tiles, with -0.0
+    below +0.0 (amin/amax alone keep whichever zero they meet first)."""
+    a, b = lo.amin(-2), hi.amax(-2)
+    neg0 = ((lo == 0) & torch.signbit(lo)).any(-2)
+    pos0 = ((hi == 0) & ~torch.signbit(hi)).any(-2)
+    zero = torch.zeros((), dtype=lo.dtype, device=lo.device)
+    a = torch.where(a == 0, torch.where(neg0, -zero, zero), a)
+    b = torch.where(b == 0, torch.where(pos0, zero, -zero), b)
+    return torch.stack([a, b], dim=-1)
 
 
 def _scores_plain(ec, pue, ci, fc, eff, sw, n_valid, lohi, w, pk, cap, ct,
@@ -206,13 +227,15 @@ def _check_lanes(ec, en, lohi) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.maiz_lohi_launch.argtypes = [p] * 10 + [i, ll, ll, p, p, p]
+    lib.maiz_lohi_launch.argtypes = [p] * 10 + [i, ll, ll, ll, ll] + [p] * 4
     lib.maiz_lohi_launch.restype = i
+    lib.maiz_lohi_resident.argtypes = [i]
+    lib.maiz_lohi_resident.restype = i
+    lib.maiz_lohi_tiles_launch.argtypes = [p] * 10 + [i, ll, ll, ll, p, p, p]
+    lib.maiz_lohi_tiles_launch.restype = i
     lib.maiz_topk_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll]
                                      + [p] * 4)
     lib.maiz_topk_launch.restype = i
-    lib.maiz_lohi_b_launch.argtypes = [p] * 10 + [i, ll, ll, ll, p, p, p]
-    lib.maiz_lohi_b_launch.restype = i
     lib.maiz_topk_b_launch.argtypes = ([p] * 10 + [i, p, p, i, ll, ll, ll]
                                        + [p] * 4)
     lib.maiz_topk_b_launch.restype = i
@@ -225,9 +248,11 @@ def _lib() -> ctypes.CDLL:
 _check = _build.check
 
 
-def _kernel_args(streams, extra):
+def _kernel_args(streams, extra, aligned=False):
     """Validate the node streams for a launch, all (N,) or all (L, N), and
-    return (N, their pointers) (null for absent marginal streams)."""
+    return (N, their pointers) (null for absent marginal streams).
+    ``aligned``: each stream must start on a 16-byte boundary (K1/K3's
+    vector loads; with N % 1024 == 0 every lane's row then does too)."""
     shape = tuple(streams[0].shape)
     n = shape[-1]
     if n % TILE:
@@ -242,6 +267,10 @@ def _kernel_args(streams, extra):
             raise ValueError("rank kernel streams must be contiguous f32 "
                              f"{shape} CUDA tensors; got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+        if aligned and x.data_ptr() % 16:
+            raise ValueError("maiz_lohi reads each stream with 16-byte "
+                             "loads: a stream starts at address "
+                             f"{x.data_ptr():#x}, not on a 16-byte boundary")
         ptrs.append(x.data_ptr())
     return n, ptrs
 
@@ -261,36 +290,101 @@ def _small(x: Optional[torch.Tensor], shape, name: str):
 # ---------------------------------------------------------------------------
 
 
+# per (device, r): the fused K1/K3's resident blocks; per (device, stream):
+# the lane tickets its last blocks count on (left zero by every launch), so
+# two streams never share one
+_RESIDENT: Dict[Tuple[int, int], int] = {}
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def lohi_blocks(device, r: int, lanes: int, n_valid: int) -> int:
+    """Blocks per lane of the fused K1/K3's persistent grid: the device's
+    resident blocks split over the lanes, at most one per chunk of valid
+    nodes, at least one."""
+    key = (torch.device(device).index, r)
+    if key not in _RESIDENT:
+        with torch.cuda.device(key[0]):
+            res = _lib().maiz_lohi_resident(r)
+        if res <= 0:
+            raise RuntimeError(f"maiz_lohi: occupancy query failed ({res})")
+        _RESIDENT[key] = res
+    chunks = -(-max(int(n_valid), 0) // TILE)
+    return max(1, min(chunks, _RESIDENT[key] // lanes))
+
+
+def _tickets(dev: torch.device, stream: int, lanes: int) -> torch.Tensor:
+    """The (device, stream)'s lane tickets, at least ``lanes`` of them
+    (zeroed on ``stream`` when made)."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < lanes:
+        t = torch.zeros(max(lanes, 8), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
+
+
+def _lohi_fused(ec, pue, ci, fc, eff, sw, n_valid, pk, cap, ct, en,
+                lanes: int) -> torch.Tensor:
+    """Launch the fused K1/K3 over ``lanes`` rows: (lanes, R, 2)."""
+    r = 5 if en is not None else 4
+    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct),
+                           aligned=True)
+    en_p = _small(en, (lanes, 4) if ec.dim() == 2 else (4,), "en")
+    dev = ec.device
+    n_valid = min(max(int(n_valid), 0), n)
+    blocks = lohi_blocks(dev, r, lanes, n_valid)
+    part = torch.empty((lanes, blocks, 2 * r), dtype=torch.int32,
+                       device=dev)
+    out = torch.empty((lanes, r, 2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ticket = _tickets(dev, stream, lanes)
+    _check(_lib().maiz_lohi_launch(*ptrs, en_p, r, lanes, n, n_valid,
+                                   blocks, part.data_ptr(), ticket.data_ptr(),
+                                   out.data_ptr(), stream),
+           "maiz_lohi")
+    return out
+
+
+def _lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid, pk, cap, ct, en,
+                lanes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1/K3 with the fold off: per-tile (lo, hi), (lanes, nt, R)."""
+    r = 5 if en is not None else 4
+    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct),
+                           aligned=True)
+    en_p = _small(en, (lanes, 4) if ec.dim() == 2 else (4,), "en")
+    lo = torch.empty((lanes, n // TILE, r), dtype=torch.float32,
+                     device=ec.device)
+    hi = torch.empty_like(lo)
+    stream = torch.cuda.current_stream(ec.device).cuda_stream
+    _check(_lib().maiz_lohi_tiles_launch(*ptrs, en_p, r, lanes, n,
+                                         int(n_valid), lo.data_ptr(),
+                                         hi.data_ptr(), stream),
+           "maiz_lohi_tiles")
+    return lo, hi
+
+
 def maiz_lohi(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None, cap=None,
               ct=None, en=None) -> torch.Tensor:
     """Sweep 1: the global (R, 2) term lo/hi.  Node arrays (N,) f32 with
     N % 1024 == 0; ``n_valid`` masks the padded tail.  R = 5 with the
-    marginal streams, else 4."""
+    marginal streams, else 4.  On the card one launch of the fused K1."""
     if ec.device.type == "cpu":
-        lo, hi = maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
-                                 cap=cap, ct=ct, en=en)
-    else:
-        lo, hi = maiz_lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
-                                 cap=cap, ct=ct, en=en)
-    return torch.stack([lo.amin(0), hi.amax(0)], dim=-1)
+        return fold_lohi(*maiz_lohi_plain(ec, pue, ci, fc, eff, sw, n_valid,
+                                          pk=pk, cap=cap, ct=ct, en=en))
+    out = _lohi_fused(ec, pue, ci, fc, eff, sw, n_valid, pk, cap, ct, en, 1)
+    maiz_lohi.launches += 1
+    return out[0]
 
 
 def maiz_lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
                     cap=None, ct=None, en=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1: per-tile (lo, hi), each (nt, R), on ``ec``'s stream."""
-    r = 5 if en is not None else 4
-    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
-    en_p = _small(en, (4,), "en")
-    nt = n // TILE
-    lo = torch.empty((nt, r), dtype=torch.float32, device=ec.device)
-    hi = torch.empty_like(lo)
-    stream = torch.cuda.current_stream(ec.device).cuda_stream
-    _check(_lib().maiz_lohi_launch(*ptrs, en_p, r, n, int(n_valid),
-                                   lo.data_ptr(), hi.data_ptr(), stream),
-           "maiz_lohi")
+    """Launch K1 tile by tile: per-tile (lo, hi), each (nt, R), on ``ec``'s
+    stream (what ``maiz_lohi_plain`` gives)."""
+    lo, hi = _lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid, pk, cap, ct, en,
+                         1)
     maiz_lohi.launches += 1
-    return lo, hi
+    return lo[0], hi[0]
 
 
 def maiz_topk(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights, *,
@@ -327,37 +421,37 @@ def maiz_topk(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights, *,
 MAX_LANES = 65535
 
 
+def _check_lane_count(L: int) -> None:
+    if not 1 <= L <= MAX_LANES:
+        raise ValueError(f"{L} lanes is outside [1, {MAX_LANES}]")
+
+
 def maiz_lohi_b(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
                 cap=None, ct=None, en=None) -> torch.Tensor:
     """Batched sweep 1: node arrays (L, N) with N % 1024 == 0, ``en``
-    (L, 4) -> the per-lane (L, R, 2) lo/hi in one launch."""
+    (L, 4) -> the per-lane (L, R, 2) lo/hi in one launch of the fused
+    K3."""
     if ec.device.type == "cpu":
-        lo, hi = maiz_lohi_plain_b(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
-                                   cap=cap, ct=ct, en=en)
-    else:
-        lo, hi = maiz_lohi_tiles_b(ec, pue, ci, fc, eff, sw, n_valid, pk=pk,
-                                   cap=cap, ct=ct, en=en)
-    return torch.stack([lo.amin(1), hi.amax(1)], dim=-1)
+        return fold_lohi(*maiz_lohi_plain_b(ec, pue, ci, fc, eff, sw,
+                                            n_valid, pk=pk, cap=cap, ct=ct,
+                                            en=en))
+    _check_lanes(ec, en, None)
+    _check_lane_count(ec.shape[0])
+    out = _lohi_fused(ec, pue, ci, fc, eff, sw, n_valid, pk, cap, ct, en,
+                      ec.shape[0])
+    maiz_lohi_b.launches += 1
+    return out
 
 
 def maiz_lohi_tiles_b(ec, pue, ci, fc, eff, sw, n_valid: int, *, pk=None,
                       cap=None, ct=None, en=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3: per-lane, per-tile (lo, hi), each (L, nt, R)."""
+    """Launch K3 tile by tile: per-lane, per-tile (lo, hi), each
+    (L, nt, R)."""
     _check_lanes(ec, en, None)
-    L = ec.shape[0]
-    if not 1 <= L <= MAX_LANES:
-        raise ValueError(f"{L} lanes is outside [1, {MAX_LANES}]")
-    r = 5 if en is not None else 4
-    n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
-    en_p = _small(en, (L, 4), "en")
-    nt = n // TILE
-    lo = torch.empty((L, nt, r), dtype=torch.float32, device=ec.device)
-    hi = torch.empty_like(lo)
-    stream = torch.cuda.current_stream(ec.device).cuda_stream
-    _check(_lib().maiz_lohi_b_launch(*ptrs, en_p, r, L, n, int(n_valid),
-                                     lo.data_ptr(), hi.data_ptr(), stream),
-           "maiz_lohi_b")
+    _check_lane_count(ec.shape[0])
+    lo, hi = _lohi_tiles(ec, pue, ci, fc, eff, sw, n_valid, pk, cap, ct, en,
+                         ec.shape[0])
     maiz_lohi_b.launches += 1
     return lo, hi
 
@@ -375,8 +469,7 @@ def maiz_topk_b(ec, pue, ci, fc, eff, sw, n_valid: int, lohi, weights, *,
         return maiz_topk_plain_b(ec, pue, ci, fc, eff, sw, n_valid, lohi,
                                  weights, k=k, pk=pk, cap=cap, ct=ct, en=en)
     L = ec.shape[0]
-    if not 1 <= L <= MAX_LANES:
-        raise ValueError(f"{L} lanes is outside [1, {MAX_LANES}]")
+    _check_lane_count(L)
     r = 5 if en is not None else 4
     n, ptrs = _kernel_args((ec, pue, ci, fc, eff, sw), (pk, cap, ct))
     en_p = _small(en, (L, 4), "en")

@@ -273,6 +273,188 @@ def test_ensemble_kernel_lanes_equal_cpu_and_host_loop(dev):
         assert a.rank_sweeps == h.rank_sweeps
 
 
+def test_ensemble_kernel_lanes_equal_cpu_and_host_loop_with_forecast(dev):
+    """The paper's default weights (w2 = 0.25): the forecast (a float64
+    fit on both devices) feeds FCFP and the deferral signal, and the
+    card's trajectories still equal the CPU's and the host loop's."""
+    cfg = S.SimConfig(epochs=12, arrival_rate=6.0, mean_duration_h=6.0,
+                      shortlist=16, history_h=48, horizon_h=8,
+                      migration_budget=2, outage=(0, 4, 4), use_kernel=True,
+                      deferrable_frac=0.3)
+    assert cfg.weights.w2 == 0.25
+    out = {}
+    for d in (dev, "cpu"):
+        runs = []
+        for seed in (0, 1):
+            c = dataclasses.replace(cfg, seed=seed)
+            f, t, r = S.synthetic_lifecycle_fleet(2048, c, chips_per_node=64,
+                                                  device=d)
+            runs.append((f, t, r, c, S.generate_jobs(c)))
+        mr.reset_launch_counts()
+        out[str(d)] = S.simulate_fleet_ensemble(runs)
+        if d == dev:
+            assert mr.maiz_topk_b.launches > 0
+            host = [S.simulate_fleet(*spec[:4], jobs=spec[4])
+                    for spec in runs]
+    for a, b, h in zip(out[str(dev)], out["cpu"], host):
+        for other in (b, h):
+            assert np.array_equal(a.node_log, other.node_log)
+            assert np.array_equal(a.start_epoch, other.start_epoch)
+            assert a.rank_sweeps == other.rank_sweeps
+            assert a.jobs_deferred == other.jobs_deferred
+        assert a.emissions_g == pytest.approx(b.emissions_g, rel=1e-4)
+
+
+def test_forecast_card_equals_cpu(dev):
+    """The float64 fit on the card and on the CPU, on 48- and 336-hour
+    windows: within 1e-5 of each region's scale (the bar the CPU tests
+    hold against the reference)."""
+    from repro_torch.core import forecast
+    for seed, hist, hor in ((11, 48, 12), (1, 336, 24)):
+        cfg = S.SimConfig(epochs=24, seed=seed, history_h=hist,
+                          horizon_h=hor)
+        _, tr, _ = S.synthetic_lifecycle_fleet(8, cfg, device="cpu")
+        tr = torch.from_numpy(tr.astype(np.float32))
+        for t in range(0, cfg.epochs, 5):
+            win = tr[:, t:t + hist]
+            card, _ = forecast.forecast_regions(win.to(dev), hor, 0)
+            cpu, _ = forecast.forecast_regions(win, hor, 0)
+            gap = (card.cpu() - cpu).abs().amax(1)
+            assert bool((gap <= 1e-5 * cpu.abs().amax(1)).all())
+
+
+# ---------------------------------------------------------------------------
+# the fused K1/K3 (one launch, the fold in the kernel) against the twins
+# ---------------------------------------------------------------------------
+
+
+def _fused_case(n, seed, dev, marginal, w_m, lanes):
+    """Streams and kwargs for K1 (lanes None) or K3 over ``lanes``."""
+    if lanes is None:
+        s, kw = _streams(n, seed, dev, marginal)
+        if marginal:
+            kw["en"] = torch.tensor([0.35, 0.65, 120.0, w_m], device=dev)
+        return s, kw
+    s, kw = _lane_streams(lanes, n, seed, dev, marginal)
+    if marginal:
+        rows = [[0.35, 0.65, 120.0], [0.25, 0.75, 0.0], [0.4, 0.6, 30.0]]
+        kw["en"] = torch.tensor([rows[l % 3] + [w_m] for l in range(lanes)],
+                                device=dev)
+    return s, kw
+
+
+def _fused(s, n_valid, kw, lanes):
+    if lanes is None:
+        return (mr.maiz_lohi(*s, n_valid, **kw),
+                mr.fold_lohi(*mr.maiz_lohi_plain(*s, n_valid, **kw)))
+    return (mr.maiz_lohi_b(*s, n_valid, **kw),
+            mr.fold_lohi(*mr.maiz_lohi_plain_b(*s, n_valid, **kw)))
+
+
+@pytest.mark.parametrize("n,n_valid", [(1024, 1024), (1024, 1000),
+                                       (2048, 2048), (2048, 1100),
+                                       (1 << 20, 1 << 20),
+                                       (1 << 20, 1_000_003)])
+@pytest.mark.parametrize("w_m", [None, 0.3])
+@pytest.mark.parametrize("lanes", [None, 1, 3, 8])
+def test_fused_lohi_bitwise_equal_twin_fold(dev, n, n_valid, w_m, lanes):
+    """K1 (lanes None) and K3 in one launch each: bitwise the twins'
+    folded (R, 2) / (L, R, 2), on the card and on the CPU; each K3 lane
+    equals K1 on that lane."""
+    s, kw = _fused_case(n, n + (lanes or 0), dev, w_m is not None,
+                        w_m or 0.0, lanes)
+    mr.reset_launch_counts()
+    got, want = _fused(s, n_valid, kw, lanes)
+    assert (mr.maiz_lohi.launches, mr.maiz_lohi_b.launches) == (
+        (1, 0) if lanes is None else (0, 1))
+    _eq(got, want)
+    cpu, _ = _fused([x.cpu() for x in s], n_valid,
+                    {a: b.cpu() for a, b in kw.items()}, lanes)
+    _eq(got, cpu)
+    if lanes is not None:
+        for l in range(lanes):
+            _eq(got[l], mr.maiz_lohi(*[x[l] for x in s], n_valid,
+                                     **{a: b[l] for a, b in kw.items()}))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("zero_frac,n_valid", [(0.02, 4096), (0.9, 4096),
+                                               (0.3, 3077)])
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_fused_lohi_ties_and_zeros(dev, zero_frac, n_valid, lanes):
+    """Streams on a few levels (every min and max tied across many nodes
+    and tiles, eff's zeros at its min): bitwise the twins' fold."""
+    s = _level_streams(4096, int(100 * zero_frac), dev, zero_frac)
+    if lanes is not None:
+        s = [torch.stack([x.roll(997 * l) for l in range(lanes)]) for x in s]
+    got, want = _fused(s, n_valid, {}, lanes)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("n_valid", [4096, 3000])
+def test_fused_lohi_signed_zeros_in_different_tiles(dev, n_valid):
+    """+0.0 in one tile and -0.0 in another for the same term (eff's and
+    sched's min, the CFP terms' max): K1 and K3 order -0.0 below +0.0, as
+    the twins' fold does, whatever order the blocks finish in."""
+    n = 4096
+    g = np.random.default_rng(5)
+    s = [g.random(n).astype(np.float32) + 1 for _ in range(6)]
+    s[0] = -s[0]
+    s[0][5], s[0][1024 + 9] = 0.0, -0.0
+    s[4][100], s[4][2048 + 7] = 0.0, -0.0
+    s[5][10], s[5][3000] = 0.0, -0.0
+    s = [torch.from_numpy(x).to(dev) for x in s]
+    for _ in range(3):
+        got, want = _fused(s, n_valid, {}, None)
+        _eq(got, want)
+        assert bool(torch.signbit(got[2, 0]))         # eff's -0.0
+        assert not bool(torch.signbit(got[:2, 1]).any())   # +0.0 maxima
+    lanes = [torch.stack([x, x.flip(0), x]) for x in s]
+    got, want = _fused(lanes, n_valid, {}, 3)
+    _eq(got, want)
+
+
+def test_fused_lohi_misaligned_stream_raises(dev):
+    """A stream that does not start on a 16-byte boundary is refused by
+    K1, K3 and the per-tile launchers (no other route is taken)."""
+    n = 2048
+    s, _ = _streams(n, 4, dev, False)
+    mis = torch.zeros(n + 4, device=dev)[1:n + 1]
+    assert mis.is_contiguous() and mis.data_ptr() % 16
+    mr.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        mr.maiz_lohi(mis, *s[1:], n)
+    with pytest.raises(ValueError, match="16-byte"):
+        mr.maiz_lohi_tiles(*s[:3], mis, *s[4:], n)
+    wide = torch.zeros(2 * n + 4, device=dev)[1:2 * n + 1].view(2, n)
+    lanes = [torch.stack([x, x]) for x in s]
+    with pytest.raises(ValueError, match="16-byte"):
+        mr.maiz_lohi_b(*lanes[:5], wide, n)
+    assert all(f.launches == 0 for f in mr.WRAPPERS)
+
+
+def test_fused_lohi_state_per_stream(dev):
+    """Many launches, alternating between two streams, each with its own
+    state (reset by every launch's last block): every result equals the
+    twin's fold."""
+    n = 1 << 16
+    cases = [_fused_case(n, 30 + i, dev, i % 2 == 1, 0.3, 4 if i > 1 else
+                         None) for i in range(4)]
+    want = [_fused(s, n - 5, kw, 4 if i > 1 else None)[1]
+            for i, (s, kw) in enumerate(cases)]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    got = []
+    for rep in range(8):
+        with torch.cuda.stream(streams[rep % 2]):
+            i = rep % 4
+            got.append((i, _fused(cases[i][0], n - 5, cases[i][1],
+                                  4 if i > 1 else None)[0]))
+    torch.cuda.synchronize()
+    for i, g in got:
+        _eq(g, want[i])
+
+
 # ---------------------------------------------------------------------------
 # K5 flash attention / K6 selective scan against their plain versions
 # ---------------------------------------------------------------------------

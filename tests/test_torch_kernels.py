@@ -417,3 +417,67 @@ def test_batched_wrappers_check_shapes_and_never_count_on_cpu():
     with pytest.raises(ValueError, match="MAX_TILE_K"):
         mr.maiz_topk_b(*[x] * 6, 1024, lohi, torch.from_numpy(W4),
                        k=mr.MAX_TILE_K + 1)
+
+
+# ---------------------------------------------------------------------------
+# the fused K1/K3's fold: zero order and grid size (host side)
+# ---------------------------------------------------------------------------
+
+
+def _signed_zero_streams(n=4096):
+    """+0.0 in one tile and -0.0 in another for the same term: the min of
+    eff (term 2) and sched (term 3), the max of the two CFP terms (ec < 0
+    makes them negative, so their max is a zero)."""
+    rng = np.random.default_rng(5)
+    s = [rng.random(n).astype(np.float32) + 1 for _ in range(6)]
+    s[0] = -s[0]
+    s[0][5], s[0][1024 + 9] = 0.0, -0.0
+    s[4][100], s[4][2048 + 7] = 0.0, -0.0
+    s[5][10], s[5][3000] = 0.0, -0.0
+    return [torch.from_numpy(x) for x in s]
+
+
+@pytest.mark.parametrize("n_valid,sched_lo_neg", [(4096, True),
+                                                  (3000, False)])
+def test_fold_orders_signed_zeros_across_tiles(n_valid, sched_lo_neg):
+    """The fold keeps -0.0 as the min and +0.0 as the max of a zero, in
+    any tile order, as the fused kernel does; K1's and K3's CPU routes
+    fold so, lane by lane."""
+    s = _signed_zero_streams()
+    lohi = mr.maiz_lohi(*s, n_valid)
+    sign = torch.signbit(lohi)
+    assert bool((lohi[:2, 1] == 0).all()) and not bool(sign[:2, 1].any())
+    assert float(lohi[2, 0]) == 0 and bool(sign[2, 0])
+    assert float(lohi[3, 0]) == 0 and bool(sign[3, 0]) == sched_lo_neg
+    lo, hi = mr.maiz_lohi_plain(*s, n_valid)
+    for order in (torch.arange(4), torch.tensor([3, 1, 2, 0])):
+        np.testing.assert_array_equal(
+            bits(mr.fold_lohi(lo[order], hi[order])), bits(lohi))
+    lanes = [torch.stack([x, x.flip(0)]) for x in s]
+    got = mr.maiz_lohi_b(*lanes, n_valid)
+    np.testing.assert_array_equal(bits(got[0]), bits(lohi))
+    np.testing.assert_array_equal(
+        bits(got[1]), bits(mr.maiz_lohi(*[x.flip(0) for x in s], n_valid)))
+
+
+def test_fold_without_zeros_is_amin_amax():
+    rng = np.random.default_rng(9)
+    lo = torch.from_numpy(rng.standard_normal((3, 7, 5)).astype(np.float32))
+    hi = torch.from_numpy(rng.standard_normal((3, 7, 5)).astype(np.float32))
+    np.testing.assert_array_equal(
+        bits(mr.fold_lohi(lo, hi)),
+        bits(torch.stack([lo.amin(1), hi.amax(1)], -1)))
+
+
+@pytest.mark.parametrize("lanes,n_valid,want", [
+    (1, 1 << 20, 792), (1, 3000, 3), (1, 0, 1), (8, 65536, 64),
+    (4, 1 << 20, 198), (2000, 1024, 1)])
+def test_fused_grid_splits_the_resident_blocks(lanes, n_valid, want):
+    """Blocks per lane: the resident blocks over the lanes, at most one
+    per chunk of valid nodes, at least one (the occupancy is cached per
+    device and term count)."""
+    mr._RESIDENT[(0, 4)] = 792
+    try:
+        assert mr.lohi_blocks("cuda:0", 4, lanes, n_valid) == want
+    finally:
+        del mr._RESIDENT[(0, 4)]

@@ -197,6 +197,34 @@ def test_forecast_matches_reference_to_tolerance(T, horizon, off, t0):
                                           jnp().asarray(test))), rtol=1e-4)
 
 
+# the windows chip_smoke.py fits on the card: (seed, history_h, horizon_h)
+# of phase 5's and phase 9's small streams and of the sim_scale config
+SMOKE_WINDOWS = [(11, 48, 12), (12, 48, 12), (13, 48, 12), (1, 336, 24),
+                 (2, 336, 24)]
+
+
+@pytest.mark.parametrize("seed,history_h,horizon_h", SMOKE_WINDOWS)
+def test_forecast_card_route_matches_reference_on_smoke_windows(
+        seed, history_h, horizon_h):
+    """The card's lstsq driver (gels, QR) against the reference, on every
+    epoch window the simulator fits in chip_smoke.py's phases 5 and 9,
+    within 1e-5 of each region's scale.  CPU torch's gels is LAPACK's QR,
+    not cuSOLVER's, so this holds the route, not the card's bits: the
+    card's own gap is measured on the card (chip_smoke.py)."""
+    ref = load_reference()
+    cfg = S.SimConfig(epochs=24, seed=seed, history_h=history_h,
+                      horizon_h=horizon_h)
+    _, traces, _ = S.synthetic_lifecycle_fleet(8, cfg, device="cpu")
+    traces = traces.astype(np.float32)
+    for t in range(cfg.epochs):
+        win = traces[:, t:t + history_h]
+        fc, _ = forecast.forecast_regions(torch.from_numpy(win), horizon_h,
+                                          0, driver="gels")
+        fc_r, _ = ref.forecast.forecast_regions(jnp().asarray(win),
+                                                horizon_h, 0)
+        _close_to_scale(fc.numpy(), fc_r)
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(faults=object()), "item 7"), (dict(traffic=object()), "item 7"),
     (dict(n_tenants=2), "item 7"),
