@@ -36,6 +36,7 @@ outputs against the port's CPU path and the paper headline:
      bitwise, at L = 4 lanes x N = 1,048,576 and 1,000,003 (k in {1, 64,
      65, 128}) and at the ensemble's 8 x 65,536 (k in {64, 65}), each lane
      also against K1/K2; times beside the bound (CUDA events, L2 flushed)
+     and ``torch.aminmax`` over the (L, R, N) term rows as K3's yardstick
   8. batched fleet ranking: ``ops.maiz_ranking_topk_batched`` on four
      1,048,576-node fleets (K3 + K4), each lane == the sequential ranking
   9. ensemble: ``sweep_policies`` over 4 deferral thresholds x 2 seeds on
@@ -65,9 +66,20 @@ outputs against the port's CPU path and the paper headline:
      model through the plain versions on the card, on two prompt batches
      (2e-2 / 8e-2 x max|logit|) and with f32 parameters (1e-4); the
      f32-parameter prefill is granite's path through K5's f32 kernel
+ 12. policies and faults on 65,536-node fleets, 24 epochs, K2/K4:
+     ``sweep_policies`` over reactive, the green-window planner and SLO
+     deferral (seeds 1, 2), and ``simulate_fleet_ensemble`` over the
+     robustness bench's three operators at 50 % CI dropout plus its chaos
+     config with 4 tenants; every lane == its own scan and the host loop,
+     the policy lanes == the plain sweep, jobs conserved, the tenant bins
+     summing to the emissions and within the reference's host-vs-scan
+     bar; the reference's 96-node chaos and tenant probes and its n = 64
+     SLO frontier card == CPU; wall and profiled device ms per epoch,
+     syncs per epoch per bucket, the planner's gCO2 against reactive and
+     the frontier's points printed
 
-Launch counts are set to 0 just before each of phases 3-5, 8, 9 and 11
-(and each held prefill of phase 11) and read just after; K5 counts its
+Launch counts are set to 0 just before each of phases 3-5, 8, 9, 11 and
+12 (and each held prefill of phase 11) and read just after; K5 counts its
 bf16 and f32 kernels apart.  The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero before that line.  Needs one
@@ -141,6 +153,14 @@ REPLACES = {
     "selective_scan": ("src/repro/kernels/selective_scan.py:32",
                        "src/repro_torch/kernels/csrc/selective_scan.cu"),
 }
+
+
+# the reference bench's chaos config (benchmarks/run.py:833-837)
+def _chaos():
+    from repro_torch.core.faults import FaultConfig
+    return FaultConfig(ci_dropout=0.6, stale_cap_h=2, safe_stale_h=4,
+                       telem_sigma=0.1, fc_outage=((5, 4),), fc_dropout=0.2,
+                       mig_fail=0.4, flap_rate=0.03, quarantine_h=2)
 
 
 class SmokeFailure(AssertionError):
@@ -863,7 +883,7 @@ def phase_batched_kernels(dev, rates, flush):
 
     w = torch.tensor([0.35, 0.25, 0.25, 0.15], device=dev)
     err = {"maiz_lohi_b": [0.0, 0], "maiz_topk_b": [0.0, 0]}
-    times, tiles = {}, {}
+    times, tiles, yard_k3 = {}, {}, {}
 
     def note(name, a, b):
         err[name][0] = max(err[name][0], abs_err(a, b))
@@ -911,6 +931,15 @@ def phase_batched_kernels(dev, rates, flush):
                     lane_eq(a[l], b, f"K4 N={n} {variant} k={k}")
         torch.cuda.synchronize()
         tag = variant if lanes == LANES else f"{variant}_L{lanes}"
+        if (n, variant) in ((N_BIG, "4term"), (SIM_N, "5term_wm0")):
+            # K3's reduction alone: aminmax over the precomputed (L, R, N)
+            # term rows (no mask, no zero order)
+            terms = torch.stack(mr._terms(
+                *sp, kwp.get("pk"), kwp.get("cap"), kwp.get("ct"),
+                kwp.get("en")), dim=1)
+            yard_k3[(n, tag)] = (terms.shape, time_ms(
+                lambda: torch.aminmax(terms, dim=-1), flush))
+            del terms
         if lanes != LANES:
             rows = mr.maiz_topk_b(*sp, n, lohi, w, k=1, **kwp)[0].view(
                 -1, mr.TILE)
@@ -954,6 +983,11 @@ def phase_batched_kernels(dev, rates, flush):
     say(f"[7] yardstick for the selection alone: torch.topk(k=65, "
         f"sorted=True) over the ensemble's {tuple(shape)} tile score rows "
         f"{yard * 1e3:.1f} us (no tie rule; the port never calls it)")
+    for (n, tag), (tshape, tyard) in sorted(yard_k3.items(), key=str):
+        say(f"[7] yardstick for K3's reduction alone (N={n} {tag}): "
+            f"torch.aminmax over the precomputed {tuple(tshape)} term rows "
+            f"{tyard * 1e3:.1f} us (no mask, no zero order; the port never "
+            f"calls it)")
     for name, (ae, ulp) in err.items():
         say(f"[7] {name} vs plain: max abs err {ae}, max ulp diff {ulp}; "
             "every lane == K1/K2 on that lane")
@@ -997,10 +1031,11 @@ def phase_batched_ranking(dev):
     return n
 
 
-def _grid_runs(S, cfg, grid, n, seeds, dev):
+def _grid_runs(S, cfg, grid, n, seeds, dev, region=None):
     """The (policy x seed) runs ``sweep_policies`` builds, in its order."""
     fleets = {s: S.synthetic_lifecycle_fleet(
-        n, dataclasses.replace(cfg, seed=s), device=dev) for s in seeds}
+        n, dataclasses.replace(cfg, seed=s), region=region, device=dev)
+        for s in seeds}
     runs = []
     for name, pcfg in grid.items():
         for s in seeds:
@@ -1012,7 +1047,8 @@ def _grid_runs(S, cfg, grid, n, seeds, dev):
 def _same_run(a, b, emissions_rel=1e-4):
     keys = ("rank_sweeps", "arrivals_placed", "jobs_completed",
             "jobs_dropped", "jobs_deferred", "migrations", "evictions",
-            "deadline_misses", "defer_delay_h")
+            "deadline_misses", "defer_delay_h", "migrations_failed",
+            "jobs_active_end", "safe_epochs")
     return (np.array_equal(a.node_log, b.node_log)
             and np.array_equal(a.first_node, b.first_node)
             and np.array_equal(a.start_epoch, b.start_epoch)
@@ -1139,6 +1175,255 @@ def phase_ensemble(dev):
             f"{sum(r.evictions for r in out[0])} evictions, "
             f"{sum(r.jobs_deferred for r in out[0])} deferred)")
     return cnt
+
+
+def _conserved(r, jobs, epochs):
+    """No job silently dropped: every in-horizon job is completed,
+    dropped, or still running at the horizon."""
+    in_h = int((np.asarray(jobs.arrive) < epochs).sum())
+    placed = r.first_node >= 0
+    return (r.jobs_completed + r.jobs_dropped + r.jobs_active_end == in_h
+            and r.jobs_completed + r.jobs_active_end <= int(placed.sum())
+            and bool(np.all(r.node_log[~placed] == -1)))
+
+
+def _tenant_bins_ok(r, rel):
+    t = r.tenant_emissions_g
+    return t is not None and abs(t.sum() / r.emissions_g - 1) <= rel
+
+
+def _syncs(results, epochs):
+    """Host syncs per epoch of each distinct bucket among ``results``."""
+    return sorted({round(r.host_syncs / epochs, 2) for r in results})
+
+
+def phase_policies(dev):
+    """Phase 12: the carbon policies (reactive, green-window planner, SLO
+    deferral) and signal faults (the robustness bench's three operators,
+    the chaos config with tenants) through the ensemble, the scanned
+    driver and the host loop on 65,536-node fleets with K2/K4; three
+    small probes card == CPU."""
+    import torch
+    from repro_torch.core import policy as P
+    from repro_torch.core import simulator as S
+    from repro_torch.core.faults import FaultConfig
+    n = SIM_N
+    cfg = S.SimConfig(epochs=24, arrival_rate=12.0, mean_duration_h=12.0,
+                      migration_budget=2, deferrable_frac=0.1, shortlist=64,
+                      use_kernel=True)
+    T = cfg.epochs
+    grid = {"reactive": P.REACTIVE, "green_window": P.green_window(),
+            "slo": P.slo_deferral(0.95, value_weight=1.0, deadline_hi=24)}
+    S.sweep_policies(dataclasses.replace(cfg, epochs=2), grid, n=n,
+                     seeds=ENS_SEEDS, device=dev)              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records, cnt = counted(lambda: S.sweep_policies(
+        cfg, grid, n=n, seeds=ENS_SEEDS, device=dev))
+    sweep_ms = (time.perf_counter() - t0) * 1e3 / T
+    grid_runs = _grid_runs(S, cfg, grid, n, ENS_SEEDS, dev)
+    specs = [sp for _, _, sp in grid_runs]
+    ens = S.simulate_fleet_ensemble(specs)
+    for rec, r in zip(records, ens):
+        check(rec["deferred"] == r.jobs_deferred
+              and rec["emissions_g"] == r.emissions_g,
+              "[12] sweep_policies records != the ensemble's lanes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scans = [S.simulate_fleet_scan(*sp[:4], jobs=sp[4], pad_plan=True)
+             for sp in specs]
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / T
+    t0 = time.perf_counter()
+    hosts, cnt_h = counted(lambda: [S.simulate_fleet(*sp[:4], jobs=sp[4])
+                                    for sp in specs])
+    host_ms = (time.perf_counter() - t0) * 1e3 / T
+    for (name, seed, _), a, b, h in zip(grid_runs, ens, scans, hosts):
+        check(_same_run(a, b, 1e-5), f"[12] ensemble lane ({name}, seed "
+              f"{seed}) != its own simulate_fleet_scan")
+        check(_same_run(a, h), f"[12] ensemble lane ({name}, seed {seed}) "
+              "!= the host loop simulate_fleet")
+        check(math.isfinite(a.emissions_g) and a.emissions_series.shape
+              == (T,), "[12] ensemble emissions malformed")
+    plain = S.simulate_fleet_ensemble(
+        [sp[:3] + (dataclasses.replace(sp[3], use_kernel=False), sp[4])
+         for sp in specs])
+    moved = sum(int((a.node_log != b.node_log).sum())
+                for a, b in zip(ens, plain))
+    check(moved == 0 and all(_same_run(a, b) for a, b in zip(ens, plain)),
+          f"[12] the kernel sweep places {moved} jobs differently from the "
+          "plain sweep under the policies")
+    check(cnt["maiz_topk_b"] > 0 and cnt_h["maiz_topk"] > 0,
+          f"[12] policy runs launched no rank kernel: {cnt}, {cnt_h}")
+    by = {}
+    for rec in records:
+        by.setdefault(rec["policy"], []).append(rec)
+    mean = {k: {f: float(np.mean([r[f] for r in v])) for f in
+                ("emissions_g", "migrations", "deferred", "deadline_misses",
+                 "avg_start_delay_h")} for k, v in by.items()}
+    short = [sp[:3] + (dataclasses.replace(sp[3], epochs=4),
+                       S.generate_jobs(dataclasses.replace(sp[3], epochs=4)))
+             for sp in specs]
+    _, dev_ms, prof_ms, prof_top = device_busy(
+        lambda: S.simulate_fleet_ensemble(short), top=6)
+    say(f"[12] policies: sweep_policies {len(specs)} lanes (3 policies x "
+        f"seeds {ENS_SEEDS}) x n={n} x {T} epochs: {sweep_ms:.1f} ms/epoch "
+        f"wall, profiled device time "
+        + ("not measured" if dev_ms is None else f"{dev_ms / 4:.3f} ms")
+        + f" per epoch (4 epochs {busy_note(dev_ms, prof_ms)}), host syncs/"
+        f"epoch per bucket {_syncs(ens, T)}, K4 launches "
+        f"{cnt['maiz_topk_b']}; {len(specs)} scans {scan_ms:.1f} ms/epoch, "
+        f"{len(specs)} host loops {host_ms:.1f} ms/epoch (K2 launches "
+        f"{cnt_h['maiz_topk']}); every lane == its scan and the host loop, "
+        f"kernel vs plain sweep: {moved} moved")
+    say(f"[12] policies, 4 profiled epochs: {prof_top}")
+    say("[12] policy means over seeds: " + json.dumps(mean))
+    gw, re_ = mean["green_window"], mean["reactive"]
+    say(f"[12] planner vs reactive (mean of seeds {ENS_SEEDS}): gCO2 "
+        f"{gw['emissions_g']!r} vs {re_['emissions_g']!r} ("
+        f"{100 * (gw['emissions_g'] / re_['emissions_g'] - 1):+.4f} %), "
+        f"migrations {gw['migrations']} vs {re_['migrations']}")
+
+    # ---- signal faults: three operators at 50 % dropout, chaos + tenants
+    modes = {"naive": FaultConfig(), "degraded": FaultConfig(stale_cap_h=6),
+             "safe": FaultConfig(stale_cap_h=6, safe_stale_h=12)}
+    fleets = {s: sp[:3] for (_, s, sp) in grid_runs[:len(ENS_SEEDS)]}
+    fspecs, fnames = [], []
+    for mode, fc in modes.items():
+        for s in ENS_SEEDS:
+            c = dataclasses.replace(cfg, seed=s, faults=dataclasses.replace(
+                fc, ci_dropout=0.5))
+            fspecs.append(fleets[s] + (c, S.generate_jobs(c)))
+            fnames.append(f"{mode}, seed {s}")
+    c = dataclasses.replace(cfg, seed=ENS_SEEDS[0], faults=_chaos(),
+                            n_tenants=4)
+    fspecs.append(fleets[ENS_SEEDS[0]] + (c, S.generate_jobs(c)))
+    fnames.append(f"chaos + 4 tenants, seed {ENS_SEEDS[0]}")
+    S.simulate_fleet_ensemble(
+        [sp[:3] + (dataclasses.replace(sp[3], epochs=2),
+                   S.generate_jobs(dataclasses.replace(sp[3], epochs=2)))
+         for sp in fspecs])                                    # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fens, cnt_f = counted(lambda: S.simulate_fleet_ensemble(fspecs))
+    fens_ms = (time.perf_counter() - t0) * 1e3 / T
+    fscans = [S.simulate_fleet_scan(*sp[:4], jobs=sp[4], pad_plan=True)
+              for sp in fspecs]
+    t0 = time.perf_counter()
+    fhosts, cnt_fh = counted(lambda: [S.simulate_fleet(*sp[:4], jobs=sp[4])
+                                      for sp in fspecs])
+    fhost_ms = (time.perf_counter() - t0) * 1e3 / T
+    for name, sp, a, b, h in zip(fnames, fspecs, fens, fscans, fhosts):
+        check(_same_run(a, b, 1e-5), f"[12] fault lane ({name}) != its own "
+              "simulate_fleet_scan")
+        check(_same_run(a, h), f"[12] fault lane ({name}) != the host loop")
+        check(_conserved(a, sp[4], T) and _conserved(h, sp[4], T),
+              f"[12] fault lane ({name}): jobs not conserved")
+    ch, chh = fens[-1], fhosts[-1]
+    check(_tenant_bins_ok(ch, 1e-5) and _tenant_bins_ok(chh, 1e-12),
+          "[12] tenant bins do not sum to the emissions")
+    # the reference's bar (tests/test_energy.py:130-134): rtol 1e-3 with
+    # an atol of 1e-7 of the total, for the near-zero idle bin
+    diff = np.abs(ch.tenant_emissions_g - chh.tenant_emissions_g)
+    bar = 1e-7 * chh.emissions_g + 1e-3 * np.abs(chh.tenant_emissions_g)
+    bins_gap = float(np.max(diff / bar))
+    check(bins_gap <= 1.0, f"[12] tenant bins: scan vs host at "
+          f"{bins_gap:.3g} x the reference's bar")
+    check(ch.evictions > 0, "[12] the chaos lane saw no flap eviction")
+    check(cnt_f["maiz_topk_b"] > 0 and cnt_fh["maiz_topk"] > 0,
+          f"[12] fault runs launched no rank kernel: {cnt_f}, {cnt_fh}")
+    fshort = [sp[:3] + (dataclasses.replace(sp[3], epochs=4),
+                        S.generate_jobs(dataclasses.replace(sp[3],
+                                                            epochs=4)))
+              for sp in fspecs]
+    _, fdev_ms, fprof_ms, _ = device_busy(
+        lambda: S.simulate_fleet_ensemble(fshort))
+    say(f"[12] faults: simulate_fleet_ensemble {len(fspecs)} lanes x n={n} "
+        f"x {T} epochs: {fens_ms:.1f} ms/epoch wall, profiled device time "
+        + ("not measured" if fdev_ms is None else f"{fdev_ms / 4:.3f} ms")
+        + f" per epoch (4 epochs {busy_note(fdev_ms, fprof_ms)}), host "
+        f"syncs/epoch per bucket {_syncs(fens, T)}, K4 launches "
+        f"{cnt_f['maiz_topk_b']}; {len(fspecs)} host loops {fhost_ms:.1f} "
+        f"ms/epoch; every lane == its scan and the host loop, jobs "
+        f"conserved")
+    say("[12] fault lanes: " + "; ".join(
+        f"{nm}: {r.emissions_g:.6e} g, {r.migrations} mig, "
+        f"{r.migrations_failed} failed, {r.evictions} evicted, "
+        f"{r.safe_epochs} safe, {r.jobs_deferred} deferred"
+        for nm, r in zip(fnames, fens)))
+    say(f"[12] chaos tenant bins (g): {ch.tenant_emissions_g.tolist()} "
+        f"(scan) vs host {chh.tenant_emissions_g.tolist()}, gap "
+        f"{bins_gap:.3g} x the bar; sum / emissions - 1 = "
+        f"{ch.tenant_emissions_g.sum() / ch.emissions_g - 1:.3g}")
+
+    # ---- card == CPU on the reference's own probes --------------------
+    probes = {
+        "chaos probe": S.SimConfig(
+            epochs=36, seed=3, arrival_rate=6.0, mean_duration_h=12.0,
+            migration_budget=2, deferrable_frac=0.3, shortlist=16,
+            history_h=48, horizon_h=8, outage=[(0, 6, 4), (1, 18, 4)],
+            faults=_chaos(), use_kernel=True),
+        "tenant probe": S.SimConfig(
+            epochs=48, seed=3, arrival_rate=6.0, mean_duration_h=6.0,
+            shortlist=16, history_h=48, horizon_h=8, n_tenants=4,
+            use_kernel=True)}
+    for name, pc in probes.items():
+        out = {}
+        for d in (dev, "cpu"):
+            f, t, ri = S.synthetic_lifecycle_fleet(96, pc, chips_per_node=64,
+                                                   device=d)
+            jobs = S.generate_jobs(pc)
+            out[str(d)] = (S.simulate_fleet(f, t, ri, pc, jobs=jobs),
+                           S.simulate_fleet_scan(f, t, ri, pc, jobs=jobs))
+        (hc, sc), (hp, sp_) = out[str(dev)], out["cpu"]
+        check(_same_run(hc, hp, 0.0) and _same_run(sc, sp_, 1e-6)
+              and _same_run(sc, hc), f"[12] {name}: card and CPU disagree")
+        if pc.faults is not None:
+            check(hc.migrations_failed > 0 and hc.evictions > 0,
+                  f"[12] {name}: no migration failure or eviction")
+        if pc.n_tenants:
+            # the tenants' bins are float64 sums of the same f32 shares on
+            # both devices; the idle bin carries the f32 rounding of each
+            # epoch's total, whose summation order is the device's: it is
+            # held to the emissions' own card-vs-CPU bar
+            check(np.allclose(sc.tenant_emissions_g, sp_.tenant_emissions_g,
+                              rtol=1e-9, atol=1e-6 * sp_.emissions_g)
+                  and np.array_equal(hc.tenant_emissions_g,
+                                     hp.tenant_emissions_g)
+                  and _tenant_bins_ok(sc, 1e-5),
+                  f"[12] {name}: tenant bins card vs CPU")
+        say(f"[12] {name} (n=96): card == CPU, host loop and scan "
+            f"({hc.migrations} migrations, {hc.migrations_failed} failed, "
+            f"{hc.evictions} evictions, {hc.safe_epochs} safe epochs, "
+            f"{hc.jobs_deferred} deferred)")
+    fcfg = S.SimConfig(epochs=24, seed=ENS_SEEDS[0], arrival_rate=24.0,
+                       mean_duration_h=3.0, migration_budget=0,
+                       deferrable_frac=0.5, defer_max_h=24, shortlist=64,
+                       use_kernel=True)
+    fgrid = {"no_defer": P.slo_deferral(0.0, deadline_hi=24)}
+    for w in (4.0, 2.0, 1.0, 0.5, 0.0):
+        fgrid[f"slo_w{w:g}"] = P.slo_deferral(0.95, value_weight=w,
+                                              deadline_hi=24)
+    lanes = {}
+    for d in (dev, "cpu"):
+        runs = _grid_runs(S, fcfg, fgrid, 64, ENS_SEEDS, d, region=0)
+        lanes[str(d)] = S.simulate_fleet_ensemble([sp for _, _, sp in runs])
+    check(all(_same_run(a, b, 1e-5) for a, b in zip(lanes[str(dev)],
+                                                    lanes["cpu"])),
+          "[12] SLO frontier: card and CPU lanes disagree")
+    frecs = S.sweep_policies(fcfg, fgrid, n=64, seeds=ENS_SEEDS, region=0,
+                             device=dev)
+    front = S.pareto_frontier(frecs)
+    say(f"[12] SLO frontier (n=64, region 0, {fcfg.epochs} epochs, "
+        f"{len(frecs)} lanes): card == CPU lane by lane; frontier "
+        + json.dumps([{k: p[k] for k in ("policy", "avg_start_delay_h",
+                                         "emissions_g", "miss_rate")}
+                      for p in front]))
+    total = {}
+    for part in (cnt, cnt_h, cnt_f, cnt_fh):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def _allclose_err(got, want, bar):
@@ -1498,7 +1783,8 @@ def main() -> int:
     n8 = phase_batched_ranking(dev)
     n9 = phase_ensemble(dev)
     n11 = phase_serving(dev)
-    for part in (n3, n4, n5, n8, n9, n11):
+    n12 = phase_policies(dev)
+    for part in (n3, n4, n5, n8, n9, n11, n12):
         for k, v in part.items():
             launches[k] += v
     for k in launches:

@@ -5,8 +5,8 @@ A Fourier basis over daily / weekly / annual periods is fit by least
 squares, plus the last day's residual pattern decaying toward the fit.
 ``forecast_regions`` fits every region at once (the regions share the
 design matrix, so they are the right-hand sides of one ``lstsq``) in place
-of the reference's ``vmap``.  ``green_window_signals`` (the look-ahead
-planner's input) is not ported yet: ROADMAP Queue 1 item 7.
+of the reference's ``vmap``.  ``green_window_signals`` reduces a forecast
+tensor to the green-window planner's inputs.
 
 ``torch.linalg.lstsq`` is not bit-equal to ``jnp.linalg.lstsq``: the CPU
 uses the SVD driver ``gelsd`` (nearest to JAX's SVD solve), the card the
@@ -16,7 +16,9 @@ on the 336-hour windows of ``sim_scale``'s seed-1 traces LAPACK's f32 fit
 left the reference by more than the tests' 1e-5 of a region's forecast
 scale.  So the fit runs in float64 and rounds to f32 once, at the end:
 the drivers then agree with each other, and with the reference within
-its own f32 rounding.
+its own f32 rounding.  ``green_window_signals`` takes its discounted mean
+the same way (weights and sum in float64, one f32 rounding), so the card
+and the CPU give the same planner signals bit for bit.
 """
 from __future__ import annotations
 
@@ -103,6 +105,35 @@ def persistence_regions(history: torch.Tensor, horizon: int) -> torch.Tensor:
 
 def persistence_forecast(history: torch.Tensor, horizon: int) -> torch.Tensor:
     return persistence_regions(history, horizon)
+
+
+def green_window_signals(fc: torch.Tensor, region_pue: torch.Tensor,
+                         lookahead_h: int, discount: float = 0.9
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Green-window extraction over a region forecast tensor.
+
+    ``fc`` is ``(..., R, H)`` forecast CI with any leading batch axes
+    (one epoch ``(R, H)``, a trajectory ``(T, R, H)``, lanes ``(L, T, R,
+    H)``); ``region_pue`` is the per-region representative PUE (``+inf``
+    for regions with no nodes, so they never win a min).  Returns
+
+    - ``la_ci`` ``(..., R)``: the discount-weighted mean forecast CI over
+      the next ``L = min(lookahead_h, H)`` hours (weights ``discount**h``,
+      normalized), in float64 and rounded to f32 once;
+    - ``gw_min`` ``(...,)``: the greenest CFP rate (CI x PUE, an f32
+      product as the reference takes it) at any single hour in the window.
+    """
+    L = max(1, min(int(lookahead_h), fc.shape[-1]))
+    w = float(discount) ** torch.arange(L, dtype=torch.float64,
+                                        device=fc.device)
+    w = w / w.sum()
+    la_ci = (fc[..., :L].to(torch.float64) * w).sum(-1).to(torch.float32)
+    # node-less regions are masked explicitly: a forecast clamped at
+    # exactly 0.0 times the +inf sentinel would be NaN
+    rp = region_pue.to(torch.float32)
+    gw = torch.where(torch.isfinite(rp)[..., :, None],
+                     fc[..., :L] * rp[..., :, None], torch.inf)
+    return la_ci, gw.amin(dim=(-2, -1))
 
 
 def forecast_skill(history: torch.Tensor, test: torch.Tensor) -> torch.Tensor:

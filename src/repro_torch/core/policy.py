@@ -3,9 +3,9 @@
 The port's own copy of ``repro.core.policy`` (pure numpy, so it is copied
 as it is; the port imports nothing of the JAX package).  The shared
 expressions run with ``xp=numpy`` in the host loop and ``xp=torch`` on the
-scanned driver's device tensors, in the reference's op order.  The port's
-drivers support the reactive policies; ``migration="lookahead"`` and
-``deferral="slo"`` raise there (ROADMAP Queue 1 items 6-7).
+scanned driver's device tensors, in the reference's op order.  All three
+of the port's drivers (host loop, scanned driver, ensemble) run every
+policy below.
 
 MAIZX's headline reduction comes from acting on *forecasted* carbon
 intensity, yet the simulator's original policies were reactive: the
@@ -52,7 +52,7 @@ policies ship:
 
 Every numeric expression that must agree across drivers is written once,
 parameterized over the array namespace (``xp`` = numpy on the host path,
-``jax.numpy`` in the scanned core), with per-path precision following the
+``torch`` in the scanned driver), with per-path precision following the
 established simulator convention (host f64 accounting, scan f32; ordering
 near-ties are the only possible divergence and none are observed on the
 tested streams).  Per-job columns (slack, value, green threshold,
@@ -209,7 +209,7 @@ def degraded_gain(xp, gain, safe):
     garbage telemetry risks paying real checkpoint carbon for an imagined
     win, so the degraded operator holds still until signal returns.
     Written once over ``xp`` so the host loop (numpy) and the scanned
-    core (jnp) freeze identically."""
+    driver (torch) freeze identically."""
     return xp.where(safe, -xp.inf, gain)
 
 
@@ -237,10 +237,10 @@ def slo_queue_order(value: np.ndarray, deadline_ep: np.ndarray,
     """Host-side priority order for SLO queue admission: value ascending,
     then deadline DESCENDING, then job id — cheap, flexible work wins
     queue slots; urgent/valuable overflow places immediately.  The
-    scanned core sorts on the identical ``(value, -deadline_ep, jid)``
-    key tuple (``lax.sort`` num_keys=3), so admission and the resulting
-    queue storage order match bit-for-bit (value is the shared f32
-    column)."""
+    scanned driver sorts on the identical ``(value, -deadline_ep, jid)``
+    key tuple (three stable ``torch.sort`` passes, minor key first), so
+    admission and the resulting queue storage order match bit-for-bit
+    (value is the shared f32 column)."""
     return np.lexsort((jid, -np.asarray(deadline_ep, np.int64),
                        np.asarray(value, np.float32)))
 

@@ -6,12 +6,23 @@ Each hourly epoch:
 1. reads ``ci_now`` from per-region traces and, when the FCFP weight is
    on, fits the forecaster on the trailing ``history_h`` window;
 2. releases finished jobs;
-3. migrates the worst-placed running jobs when the reactive policy's gain
-   beats the checkpoint carbon (``migration_budget`` per epoch), and
-   force-evicts jobs from outaged regions;
+3. migrates the worst-placed running jobs when the policy's gain beats
+   the checkpoint carbon (``migration_budget`` per epoch), and
+   force-evicts jobs from outaged or flapping nodes.  The gain and the
+   deferral decision come from ``SimConfig.policy``
+   (``repro_torch.core.policy``): the reactive parity oracle, the
+   green-window planner (a discounted look-ahead over the forecast) and
+   SLO deferral (a deadline/value priority queue with deadline-miss
+   accounting);
 4. admits the seeded arrival stream (deferrable jobs may wait for a
    greener hour), placing every event through ONE lifecycle-engine call;
-5. accounts emissions in f64 numpy on the host.
+5. accounts emissions in f64 numpy on the host, per tenant too when
+   ``n_tenants > 0``.
+
+``SimConfig.faults`` (``repro_torch.core.faults``) degrades every signal
+the policies read — the observed CI trace, the forecast service, the
+migration actuator, node health — while emissions and migration cost are
+charged at the true CI.
 
 Steps 1 and 4's placement run on the fleet's device (the rank kernel when
 ``use_kernel``); the job bookkeeping and the accounting are the
@@ -31,9 +42,9 @@ epoch for all lanes (the scan is its one-lane case), and
 ``sweep_policies`` drives a (policy x seed) grid through it.  Placements
 and counters match the host loop exactly, emissions to f32 tolerance.
 
-Not ported yet (raise ``NotImplementedError``): signal faults, serving
-traffic, tenants and SLO deferral (ROADMAP Queue 1 item 7), the look-ahead
-planner (items 6-7), and the ensemble's device sharding (item 1).
+Not ported yet (raise ``NotImplementedError``): serving traffic and its
+router (ROADMAP Queue 1 item 7b) and the ensemble's device sharding
+(item 1).
 """
 from __future__ import annotations
 
@@ -47,6 +58,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import forecast, telemetry
 from repro_torch.core import policy as policylib
 from repro_torch.core.energy import DEFAULT_ENERGY, EnergyModel
+from repro_torch.core.faults import (FaultConfig, FaultPlan, fault_graph_key,
+                                     plan_faults)
 from repro_torch.core.fleet import Fleet, fleet_tensors
 from repro_torch.core.placement import (HostSyncs, place_lifecycle_batched,
                                         place_lifecycle_full_rerank,
@@ -80,8 +93,10 @@ class SimConfig:
     deferrable_frac: float = 0.0    # batch jobs that can wait for green hours
     defer_max_h: int = 6
     policy: PolicyConfig = PolicyConfig()
-    # not ported yet; anything but None raises (ROADMAP Queue 1 item 7)
-    faults: Optional[Any] = None
+    # None = perfect signals; a FaultConfig degrades every signal the
+    # policies read while emission accounting stays on ground truth
+    faults: Optional[FaultConfig] = None
+    # not ported yet; anything but None raises (ROADMAP Queue 1 item 7b)
     traffic: Optional[Any] = None
     # --- migration ---
     migration_budget: int = 0       # max policy migrations / epoch
@@ -89,7 +104,10 @@ class SimConfig:
     # --- power model ---
     energy: EnergyModel = DEFAULT_ENERGY
     power_off_idle: bool = True     # nodes with no jobs draw zero
-    n_tenants: int = 0              # not ported yet (> 0 raises)
+    # > 0 draws a tenant id per job (after every other column) and splits
+    # each on-node's gCO2 across its jobs by chips; the idle/rounding
+    # remainder lands in bin n_tenants, so the bins sum to the total
+    n_tenants: int = 0
     # manual override for the scanned core's job-table width (0 = the
     # sound ScanPlan bound); named by the slot-overflow error message
     scan_slots: int = 0
@@ -103,18 +121,11 @@ class SimConfig:
 
 
 def _check_ported(cfg: SimConfig) -> None:
-    """Raise on every option this slice of the port does not run."""
-    todo = [(cfg.faults is not None, "faults (signal faults)", "7"),
-            (cfg.traffic is not None, "traffic (serving requests)", "7"),
-            (cfg.n_tenants > 0, "n_tenants (tenant attribution)", "7"),
-            (cfg.policy.deferral == "slo", "policy.deferral='slo'", "7"),
-            (cfg.policy.migration == "lookahead",
-             "policy.migration='lookahead'", "6-7")]
-    for hit, what, item in todo:
-        if hit:
-            raise NotImplementedError(
-                f"SimConfig.{what} is not ported to repro_torch yet "
-                f"(ROADMAP Queue 1 item {item})")
+    """Raise on the one option this slice of the port does not run."""
+    if cfg.traffic is not None:
+        raise NotImplementedError(
+            "SimConfig.traffic (serving requests) is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 7b)")
 
 
 def _outage_windows(outage) -> Tuple[Tuple[int, int, int], ...]:
@@ -129,7 +140,12 @@ def _outage_windows(outage) -> Tuple[Tuple[int, int, int], ...]:
 
 @dataclasses.dataclass
 class JobSchedule:
-    """Struct-of-arrays over jobs, sorted by arrival epoch."""
+    """Struct-of-arrays over jobs, sorted by arrival epoch.
+
+    ``deadline``/``value`` are the SLO-deferral columns (start slack in
+    epochs, queue-priority value); ``None`` means the policy layer derives
+    the reactive defaults (``policy.Policy.for_jobs``).  ``tenant`` is the
+    attribution column (``SimConfig.n_tenants``)."""
     arrive: np.ndarray      # (J,) epoch of arrival
     chips: np.ndarray       # (J,) chip demand
     duration: np.ndarray    # (J,) epochs of runtime
@@ -137,6 +153,7 @@ class JobSchedule:
     deferrable: np.ndarray  # (J,) bool
     deadline: Optional[np.ndarray] = None   # (J,) start slack in epochs
     value: Optional[np.ndarray] = None      # (J,) f32 job value
+    tenant: Optional[np.ndarray] = None     # (J,) tenant id (attribution)
 
     @property
     def n(self) -> int:
@@ -146,7 +163,9 @@ class JobSchedule:
 def generate_jobs(cfg: SimConfig) -> JobSchedule:
     """Seeded stochastic arrival stream: Poisson with diurnal modulation and
     an optional flash crowd; geometric durations; uniform chip demands.
-    The reference's numpy draws in the reference's order."""
+    The reference's numpy draws in the reference's order: the reactive
+    columns, then the SLO columns, then the tenant ids, so turning a later
+    column on perturbs none of the earlier ones."""
     _check_ported(cfg)
     rng = np.random.default_rng(np.uint64(cfg.seed) * np.uint64(977) + 13)
     t = np.arange(cfg.epochs)
@@ -165,10 +184,21 @@ def generate_jobs(cfg: SimConfig) -> JobSchedule:
     duration = 1 + rng.geometric(p, J) \
         if cfg.mean_duration_h > 1.0 else np.ones(J, np.int64)
     deferrable = rng.random(J) < cfg.deferrable_frac
+    deadline = value = None
+    if cfg.policy.deferral == "slo":
+        lo = max(cfg.policy.deadline_lo, 1)
+        hi = max(cfg.policy.deadline_hi
+                 if cfg.policy.deadline_hi > 0 else cfg.defer_max_h, lo)
+        deadline = rng.integers(lo, hi + 1, J)
+        value = rng.exponential(1.0, J).astype(np.float32)
+    tenant = None
+    if cfg.n_tenants > 0:
+        tenant = rng.integers(0, cfg.n_tenants, J).astype(np.int32)
     return JobSchedule(arrive=arrive, chips=chips.astype(np.int64),
                        duration=duration.astype(np.int64),
                        load=chips.astype(np.float64),
-                       deferrable=deferrable)
+                       deferrable=deferrable, deadline=deadline,
+                       value=value, tenant=tenant)
 
 
 @dataclasses.dataclass
@@ -187,12 +217,16 @@ class SimResult:
     emissions_series: np.ndarray    # (T,) gCO2 per epoch
     deadline_misses: int = 0        # slack>0 jobs that never started in time
     defer_delay_h: int = 0          # sum of (start - arrive) over placements
-    migrations_failed: int = 0      # actuation failures (faults only)
+    migrations_failed: int = 0      # actuation failures (budget consumed)
     jobs_active_end: int = 0        # still running when the horizon ends
-    safe_epochs: int = 0            # epochs spent with policy frozen (faults)
+    safe_epochs: int = 0            # epochs spent with policy frozen
     start_epoch: Optional[np.ndarray] = None  # (J,) first-placement epoch
     util: Optional[np.ndarray] = None   # (N, T) when record_matrices
     on: Optional[np.ndarray] = None
+    # (n_tenants + 1,) gCO2 per tenant when cfg.n_tenants > 0; the last
+    # bin is the unattributed idle/overhead remainder; the bins sum to
+    # emissions_g
+    tenant_emissions_g: Optional[np.ndarray] = None
     # device reads the scanned driver waited for (its whole bucket's, each
     # a loop test of the batched placement engine); 0 for the host loop
     host_syncs: int = 0
@@ -231,19 +265,16 @@ def _place_epoch(pue, power_kw, chips_total, straggler, flops_per_j,
 
 
 def _epoch_core(traces, ridx, pue, power_kw, chips_total, straggler,
-                flops_per_j, region_pue, t, cap, healthy, demands, nodes,
-                statics, energy=None):
-    """One simulator epoch on the device: slice the CI column, refresh the
-    FCFP forecast, build the Fleet and run the lifecycle placement engine.
+                flops_per_j, t, cap, healthy, demands, nodes, statics, fc,
+                energy=None):
+    """One simulator epoch on the device: slice the (observed) CI column,
+    build the Fleet and run the lifecycle placement engine.  ``fc`` is the
+    epoch's ``_forecast_step`` (None when the forecast is not an input);
     ``straggler`` already carries the per-epoch consolidation bonus.
     Returns (node, capacity, n_sweeps, ci_now, cur_rate, fut_rate)."""
-    (engine, shortlist, use_kernel, weights, horizon_h, history_h,
-     use_forecast, defer_window) = statics
     ci_now = traces[:, t][ridx]
-    if use_forecast:
-        ci_fc_r, fut_rate = _forecast_step(traces, region_pue, t, history_h,
-                                           horizon_h, defer_window)
-        ci_fc = ci_fc_r[ridx]
+    if fc is not None:
+        ci_fc, fut_rate = fc[0][ridx], fc[1]
     else:
         ci_fc = ci_now
         fut_rate = torch.tensor(torch.inf, device=traces.device)
@@ -255,19 +286,34 @@ def _epoch_core(traces, ridx, pue, power_kw, chips_total, straggler,
 
 
 def _forecast_step(traces, region_pue, a: int, history_h: int,
-                   horizon_h: int, defer_window: int):
+                   horizon_h: int, defer_window: int, fc_ok: bool = True,
+                   lookahead: Optional[Tuple[int, float]] = None):
     """The forecast inputs of the epoch that reads trace column ``a``:
     (per-region mean FCFP forecast (R,), the greenest CFP rate inside the
-    deferral window).  One fit per epoch window in both drivers, so the
-    scanned core's hoisted forecast is the host loop's, bit for bit."""
+    deferral window), plus, with ``lookahead = (lookahead_h, discount)``,
+    the green-window planner's (la_ci (R,), la_dst, gw_min).  One fit per
+    epoch window in both drivers, so the scanned core's hoisted forecast
+    is the host loop's, bit for bit.  ``fc_ok = False`` is a
+    forecast-service outage: the persistence-of-day forecast over the same
+    (observed) window stands in for the fit."""
     window = traces[:, a - history_h:a]
-    fc, _ = forecast.forecast_regions(window, horizon_h, 0)      # (R, H)
+    if fc_ok:
+        fc, _ = forecast.forecast_regions(window, horizon_h, 0)  # (R, H)
+    else:
+        fc = forecast.persistence_regions(window, horizon_h)
     # node-less regions are masked (a clamped 0.0 forecast times +inf is
     # NaN)
-    fut_rate = torch.where(torch.isfinite(region_pue)[:, None],
+    rp_ok = torch.isfinite(region_pue)
+    fut_rate = torch.where(rp_ok[:, None],
                            fc[:, :defer_window] * region_pue[:, None],
                            torch.inf).min()
-    return torch.mean(fc, dim=-1), fut_rate
+    out = (torch.mean(fc, dim=-1), fut_rate)
+    if lookahead is not None:
+        la_ci, gw_min = forecast.green_window_signals(fc, region_pue,
+                                                      *lookahead)
+        la_dst = torch.where(rp_ok, la_ci * region_pue, torch.inf).min()
+        out += (la_ci, la_dst, gw_min)
+    return out
 
 
 def _region_pue(n_regions: int, ridx: np.ndarray, pue) -> np.ndarray:
@@ -285,6 +331,25 @@ def _pad_bucket(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _fault_plan(cfg: SimConfig, region_ci: np.ndarray, ridx: np.ndarray,
+                n_nodes: int) -> Optional[FaultPlan]:
+    """The run's materialized fault streams (None without faults)."""
+    if cfg.faults is None:
+        return None
+    return plan_faults(cfg.faults, np.asarray(region_ci, np.float64),
+                       np.asarray(ridx), cfg.epochs, cfg.history_h,
+                       cfg.migration_budget, n_nodes, cfg.seed)
+
+
+def _tenant_column(cfg: SimConfig, jobs: JobSchedule) -> Optional[np.ndarray]:
+    if not cfg.n_tenants:
+        return None
+    if jobs.tenant is None:
+        raise ValueError("cfg.n_tenants > 0 requires jobs.tenant "
+                         "(generate_jobs draws it when n_tenants is set)")
+    return np.asarray(jobs.tenant, np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -313,13 +378,25 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
     rr_ptr = [0]                            # round-robin pointer (spread)
     pol = Policy.for_jobs(cfg.policy, jobs.arrive, jobs.deferrable,
                           cfg.defer_max_h, jobs.deadline, jobs.value)
+    slo = pol.slo
+    q_cap = pol.queue_cap(T) if slo else 0
+    use_fc = cfg.use_forecast and not blind
+    planner = (pol.lookahead and cfg.migration_budget > 0 and use_fc)
     green_factor = float(cfg.policy.defer_green_factor)
     outs = _outage_windows(cfg.outage)
     dev = fleet0.device
 
     region_ci = np.asarray(region_ci)
     ridx = np.asarray(ridx)
-    traces = torch.from_numpy(region_ci.astype(np.float32)).to(dev)
+    # fault streams: every policy decision reads the degraded OBSERVED
+    # trace (the device epoch step included); emission and migration-cost
+    # accounting stays on the true trace
+    fplan = _fault_plan(cfg, region_ci, ridx, N)
+    obs_ci = region_ci if fplan is None else fplan.obs_traces
+    has_flaps = fplan is not None and fplan.has_flaps
+    mig_block: Dict[int, Tuple[int, int]] = {}  # job -> (until, n_fails)
+    mig_failed = 0
+    traces = torch.from_numpy(np.asarray(obs_ci).astype(np.float32)).to(dev)
     ridx_d = torch.from_numpy(ridx.astype(np.int64)).to(dev)
 
     # host mirrors for policy + accounting (f64)
@@ -347,6 +424,7 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
     for j in range(J):
         by_arrival.setdefault(int(jobs.arrive[j]), []).append(j)
     deferred: Dict[int, list] = {}
+    slo_queue: list = []                   # SLO priority queue (sorted)
 
     emissions = 0.0
     mig_cost_total = 0.0
@@ -362,24 +440,38 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
     em_dev = em_host.device(w_marginal=cfg.weights.marginal, device=dev)
     statics = (cfg.engine, cfg.shortlist, cfg.use_kernel,
                cfg.weights.graph_key(),
-               cfg.horizon_h, cfg.history_h,
-               cfg.use_forecast and not blind,
+               cfg.horizon_h, cfg.history_h, use_fc,
                pol.defer_window(cfg.defer_max_h))
+    lookahead = (cfg.policy.lookahead_h, cfg.policy.discount) \
+        if planner else None
     overhead_s = cfg.migration_overhead_h * 3600.0
+    ten = _tenant_column(cfg, jobs)
+    n_ten = int(cfg.n_tenants)
+    tenant_g = np.zeros(n_ten + 1) if n_ten else None
 
     def epoch_step(a, dem, tgt):
         return _epoch_core(
             traces, ridx_d, fleet0.pue, fleet0.power_kw, fleet0.chips_total,
-            strag, fleet0.flops_per_j, region_pue_d, a, cap,
-            healthy_d, dem, tgt, statics, em_dev)
+            strag, fleet0.flops_per_j, a, cap, healthy_d, dem, tgt, statics,
+            fc_t, em_dev)
 
     for t in range(T):
         a = cfg.history_h + t
-        ci_col = region_ci[:, a][ridx]      # (N,) f64 (accounting + policy)
+        ci_col = region_ci[:, a][ridx]      # (N,) f64 TRUE (accounting)
+        ci_obs_col = obs_ci[:, a][ridx]     # (N,) f64 observed (policy)
+        fc_ok_t = bool(fplan.fc_ok[t]) if fplan is not None else True
+        safe_t = bool(fplan.safe[t]) if fplan is not None else False
         healthy = healthy0.copy()
         for reg, t0, length in outs:
             if t0 <= t < t0 + length:
                 healthy &= (ridx != reg)
+        if has_flaps:
+            healthy &= fplan.eligible[t]
+        # the epoch's forecast (and planner signals), fitted once on the
+        # observed window; the placement and its redo call share it
+        fc_t = _forecast_step(traces, region_pue_d, a, cfg.history_h,
+                              cfg.horizon_h, statics[7], fc_ok_t,
+                              lookahead) if use_fc else None
 
         # ---- 1. end-of-life releases --------------------------------
         rel_jobs = [j for j in ends.pop(t, []) if jstate[j] == _ACTIVE]
@@ -391,13 +483,15 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
 
         # ---- 2. forced evictions + migration policy -----------------
         active = np.where(jstate == _ACTIVE)[0]
-        evict = active[~healthy[jnode[active]]] if outs \
+        evict = active[~healthy[jnode[active]]] if (outs or has_flaps) \
             else np.empty(0, np.int64)
         mig: list = []
         if cfg.migration_budget > 0 and not blind and active.size:
             stay = active[healthy[jnode[active]]]
             free = cap_h.copy()
-            rate = np.where(healthy, pue_h * ci_col, np.inf)
+            # policy rates read the OBSERVED trace; the move is charged at
+            # the true CI below
+            rate = np.where(healthy, pue_h * ci_obs_col, np.inf)
             # best achievable CFP rate per distinct chip demand, O(C·N)
             best_rate: Dict[int, float] = {}
             for c in np.unique(jobs.chips[stay]):
@@ -406,6 +500,13 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
             chips_arr = jobs.chips[stay]
             br_arr = np.array([best_rate[int(c)] for c in chips_arr]) \
                 if stay.size else np.empty(0)
+            la_kw = {}
+            if planner:
+                la = torch.cat([fc_t[2], fc_t[3][None], fc_t[4][None]]
+                               ).cpu().numpy()
+                la_node = la[:-2][ridx] * pue_h            # (N,) f64
+                la_kw = dict(src_la=la_node[jnode[stay]],
+                             dst_la=float(la[-2]), gw_min=float(la[-1]))
             gain = policylib.migration_gain(
                 np, cfg.policy,
                 rate_cur=rate[jnode[stay]], best_rate=br_arr,
@@ -413,11 +514,33 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
                 remaining=np.maximum(jend[stay] - t, 0),
                 e_kwh_h=float(em_host.e_kwh_h),
                 ckpt=np.asarray(em_host.job_energy_kwh(overhead_s, 1,
-                                                       chips_arr)))
+                                                       chips_arr)),
+                **la_kw)
+            if mig_block and stay.size:
+                # retry with backoff: a job whose last actuation failed
+                # sits out the candidate sort until its backoff ends
+                blocked = np.array([mig_block.get(int(j), (0, 0))[0] > t
+                                    for j in stay])
+                gain = np.where(blocked, -np.inf, gain)
+            if safe_t:
+                gain = policylib.degraded_gain(np, gain, safe_t)
             order = np.argsort(-gain, kind="stable")
-            for i in order[:cfg.migration_budget]:
-                if gain[i] > 0.0:
-                    mig.append(int(stay[i]))
+            # attempt rank k draws fault stream mig_fail[t, k]: a failed
+            # command uses up its budget slot (the job stays put, nothing
+            # charged) and doubles the job's retry backoff
+            for k, i in enumerate(order[:cfg.migration_budget]):
+                if not gain[i] > 0.0:
+                    continue
+                j = int(stay[i])
+                if fplan is not None and k < fplan.mig_fail.shape[1] \
+                        and fplan.mig_fail[t, k]:
+                    nf = mig_block.get(j, (0, 0))[1] + 1
+                    mig_block[j] = (t + cfg.faults.mig_backoff_h
+                                    * (1 << min(nf - 1, 10)), nf)
+                    mig_failed += 1
+                    continue
+                mig.append(j)
+                mig_block.pop(j, None)
         migrations += len(mig)
         evictions += evict.size
         movers = list(evict) + mig
@@ -425,12 +548,16 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
             njobs[jnode[j]] -= 1
             load_on[jnode[j]] -= jobs.load[j]
             if j in mig:
-                mig_cost_total += (float(em_host.job_energy_kwh(
-                    overhead_s, 1, int(jobs.chips[j])))
-                    * pue_h[jnode[j]] * ci_col[jnode[j]])
+                mc = (float(em_host.job_energy_kwh(overhead_s, 1,
+                                                   int(jobs.chips[j])))
+                      * pue_h[jnode[j]] * ci_col[jnode[j]])
+                mig_cost_total += mc
+                if n_ten:       # the overhead belongs to the mover's tenant
+                    tenant_g[ten[j]] += mc
 
         # ---- 3. new arrivals (+ deferral policy) --------------------
-        arr_jobs = deferred.pop(t, []) + by_arrival.pop(t, [])
+        arr_jobs = (slo_queue if slo else deferred.pop(t, [])) \
+            + by_arrival.pop(t, [])
         ev_d = ([-int(jobs.chips[j]) for j in rel_jobs]
                 + [-int(jobs.chips[j]) for j in movers]
                 + [int(jobs.chips[j]) for j in movers]
@@ -460,6 +587,10 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
             cap_h = cap.cpu().numpy().astype(np.int64)
             sweeps += int(n_sw)
             cur_rate, fut_rate = torch.stack([cur_rate, fut_rate]).tolist()
+            # safe mode: a stale fleet stops chasing green hours it can no
+            # longer see — the inf future rate turns every wants_defer off
+            fut_rate = float(policylib.degraded_future(np, fut_rate,
+                                                       safe_t))
 
         # ---- 4. record outcomes -------------------------------------
         # deferrable jobs whose green hour is coming release their slot
@@ -467,21 +598,47 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
         # stays identical across engines
         green_later = bool(policylib.wants_defer(fut_rate, cur_rate,
                                                  green_factor))
+        keepset: set = set()
+        if slo:
+            # SLO deferral: queued and new jobs that want to wait compete
+            # for the fixed-capacity priority queue (value asc, deadline
+            # desc, job id); overflow and deadline-reached jobs place now.
+            # The per-job green test runs in float32, as the scan's does
+            cur32, fut32 = np.float32(cur_rate), np.float32(fut_rate)
+            cand = []
+            for i, j in enumerate(arr_jobs):
+                if pol.slack[j] > 0 \
+                        and (t - int(jobs.arrive[j])) < int(pol.slack[j]):
+                    node = int(out[arr_off + i])
+                    if node < 0 or bool(policylib.wants_defer(
+                            fut32, cur32, pol.thresh[j])):
+                        cand.append(j)
+            slo_queue = []
+            if cand:
+                cj = np.asarray(cand, np.int64)
+                order = policylib.slo_queue_order(pol.value[cj],
+                                                  pol.deadline_ep[cj], cj)
+                slo_queue = [int(cj[k]) for k in order[:q_cap]]
+            keepset = set(slo_queue)
         redo_d, redo_n = [], []
         for i, j in enumerate(movers + arr_jobs):
             node = int(out[arr_off - len(movers) + i]) if i < len(movers) \
                 else int(out[arr_off + (i - len(movers))])
             is_new = i >= len(movers)
             if is_new:
-                defer_now = bool(jobs.deferrable[j]) \
-                    and (t - int(jobs.arrive[j])) < cfg.defer_max_h \
-                    and (green_later if node >= 0 else True)
+                if slo:
+                    defer_now = j in keepset
+                else:
+                    defer_now = bool(jobs.deferrable[j]) \
+                        and (t - int(jobs.arrive[j])) < cfg.defer_max_h \
+                        and (green_later if node >= 0 else True)
                 if defer_now:
                     if node >= 0:
                         # take the placement back: defer to next epoch
                         redo_d.append(-int(jobs.chips[j]))
                         redo_n.append(node)
-                    deferred.setdefault(t + 1, []).append(j)
+                    if not slo:
+                        deferred.setdefault(t + 1, []).append(j)
                     deferred_n += 1
                     continue
             if node < 0:
@@ -516,7 +673,7 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
                 _, cap, _, _, _, _ = epoch_step(a, d2, n2)
                 cap_h = cap.cpu().numpy().astype(np.int64)
 
-        # ---- 5. emission accounting ---------------------------------
+        # ---- 5. emission accounting (at the TRUE CI) ----------------
         # the spread comparator models the paper's baseline: all nodes on
         on = (njobs > 0) if cfg.power_off_idle and not spread \
             else np.ones(N, bool)
@@ -529,13 +686,25 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
                   + em_host.embodied_g_per_node_h * on)
         series[t] = float(np.sum(node_g))
         emissions += series[t]
+        if n_ten:
+            # each on-node's gCO2 split across its resident jobs by chips;
+            # the idle/rounding remainder goes to the last bin, so the bins
+            # sum to series[t]
+            act = np.where(jstate == _ACTIVE)[0]
+            occ_chips = np.zeros(N)
+            np.add.at(occ_chips, jnode[act], jobs.chips[act])
+            share = node_g / np.maximum(occ_chips, 1.0)
+            contrib = share[jnode[act]] * jobs.chips[act]
+            np.add.at(tenant_g, ten[act], contrib)
+            tenant_g[-1] += series[t] - float(contrib.sum())
         if record_matrices:
             util_m[:, t] = load_on
             on_m[:, t] = on.astype(np.float64)
 
-    # jobs still waiting in the deferral queue when the horizon ends were
-    # never run: account them as dropped and as deadline misses
-    for pending in deferred.values():
+    # jobs still waiting in a deferral queue when the horizon ends were
+    # never run: account them as dropped and as deadline misses (every
+    # queued job has slack > 0)
+    for pending in list(deferred.values()) + [slo_queue]:
         for j in pending:
             if jstate[j] == _PENDING:
                 jstate[j] = _DROPPED
@@ -549,9 +718,12 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
                      jobs_deferred=deferred_n, migrations=migrations,
                      evictions=evictions, node_log=jnode, first_node=jfirst,
                      emissions_series=series, deadline_misses=misses,
-                     defer_delay_h=delay_h,
+                     defer_delay_h=delay_h, migrations_failed=mig_failed,
                      jobs_active_end=int((jstate == _ACTIVE).sum()),
-                     start_epoch=jstart, util=util_m, on=on_m)
+                     safe_epochs=int(fplan.safe.sum())
+                     if fplan is not None else 0,
+                     start_epoch=jstart, util=util_m, on=on_m,
+                     tenant_emissions_g=tenant_g)
 
 
 def _place_blind(dem: np.ndarray, tgt: np.ndarray, cap: np.ndarray,
@@ -600,8 +772,10 @@ class ScanPlan:
       jobs (a job can hold chips only during ``[arrive, arrive +
       defer_slack + duration)``);
     - ``a_max`` / ``rel_cap`` / ``d_cap``: most new arrivals, end-of-life
-      releases and carried deferrals in any epoch;
-    - ``m_evict``: eviction buffer — ``slots`` with outage windows, else 0.
+      releases and carried deferrals in any epoch (under SLO deferral
+      ``d_cap`` is the priority queue's capacity, ``Policy.queue_cap``);
+    - ``m_evict``: eviction buffer — ``slots`` with outage windows or node
+      flapping, else 0.
 
     The core still counts any bound violation in ``overflow`` (a nonzero
     value is an internal error, raised after the run)."""
@@ -649,13 +823,19 @@ def _scan_plan(cfg: SimConfig, jobs: JobSchedule, pol: Policy,
     np.add.at(rdiff, np.minimum((arrive + dur + slack)[in_h] + 1, hi - 1),
               -1)
     rel_cap = max(int(np.cumsum(rdiff)[:T].max(initial=0)), 1)
-    d_cap = policylib.sound_queue_bound(arrive, slack, T)
+    if pol.slo:
+        # SLO: the carry IS the fixed-capacity priority queue
+        d_cap = pol.queue_cap(T) if bool((slack[in_h] > 0).any()) else 0
+    else:
+        d_cap = policylib.sound_queue_bound(arrive, slack, T)
     if pad:
         slots = _pad_bucket(slots)
         rel_cap = _pad_bucket(rel_cap)
-        if d_cap > 0:
+        if d_cap > 0 and not pol.slo:   # the SLO queue cap is semantic
             d_cap = _pad_bucket(d_cap)
-    m_evict = slots if _outage_windows(cfg.outage) else 0
+    # flapping nodes force evictions as outage windows do
+    flaps = cfg.faults is not None and cfg.faults.flap_rate > 0.0
+    m_evict = slots if (_outage_windows(cfg.outage) or flaps) else 0
     return ScanPlan(slots=slots, a_max=a_max, d_cap=d_cap, rel_cap=rel_cap,
                     m_evict=m_evict, arr_ids=arr_ids)
 
@@ -678,6 +858,15 @@ class _Dims:
     power_off_idle: bool
     consolidate: float
     policy: PolicyConfig
+    n_ten: int              # tenant bins - 1 (0 = no attribution)
+    faults: tuple           # faults.fault_graph_key
+
+    @property
+    def planner(self) -> bool:
+        """The green-window planner runs (given a forecast): it needs a
+        migration budget and a job table to migrate from."""
+        return (self.policy.migration == "lookahead"
+                and min(self.budget, self.slots) > 0)
 
 
 @dataclasses.dataclass
@@ -693,6 +882,7 @@ class _ScanRun:
     plan: ScanPlan
     statics: tuple
     mig_nmax: int           # widest region (columns of the mig_perm table)
+    fplan: Optional[FaultPlan] = None   # materialized fault streams
 
 
 def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
@@ -705,6 +895,7 @@ def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
             f"{cfg.engine!r} (blind/spread comparators are host-only)")
     _check_ported(cfg)
     jobs = jobs if jobs is not None else generate_jobs(cfg)
+    _tenant_column(cfg, jobs)       # raises when the tenant ids are missing
     pol = Policy.for_jobs(cfg.policy, jobs.arrive, jobs.deferrable,
                           cfg.defer_max_h, jobs.deadline, jobs.value)
     plan = _scan_plan(cfg, jobs, pol, pad=pad_plan)
@@ -716,7 +907,8 @@ def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
     return _ScanRun(fleet0=fleet0, region_ci=np.asarray(region_ci),
                     ridx=np.asarray(ridx), cfg=cfg, jobs=jobs, pol=pol,
                     plan=plan, statics=statics,
-                    mig_nmax=max(int(sizes.max(initial=0)), 1))
+                    mig_nmax=max(int(sizes.max(initial=0)), 1),
+                    fplan=_fault_plan(cfg, region_ci, ridx, fleet0.n))
 
 
 def _bucket_key(run: _ScanRun) -> tuple:
@@ -727,6 +919,7 @@ def _bucket_key(run: _ScanRun) -> tuple:
             cfg.migration_budget, cfg.defer_max_h,
             _outage_windows(cfg.outage), cfg.power_off_idle,
             float(cfg.consolidate), cfg.policy.graph_key(),
+            cfg.n_tenants > 0, fault_graph_key(cfg.faults),
             str(run.fleet0.device))
 
 
@@ -737,16 +930,19 @@ def _shared_dims(runs, pad: bool):
     cfg = runs[0].cfg
     slots = max(r.plan.slots for r in runs)
     outs = _outage_windows(cfg.outage)
+    fkey = fault_graph_key(cfg.faults)
     dims = _Dims(
         epochs=cfg.epochs, slots=slots,
         a_max=max(r.plan.a_max for r in runs),
         d_cap=max(r.plan.d_cap for r in runs),
         rel_cap=max(r.plan.rel_cap for r in runs),
-        m_evict=slots if outs else 0, budget=cfg.migration_budget,
+        m_evict=slots if (outs or fkey[2]) else 0,
+        budget=cfg.migration_budget,
         chips_max=max(int(np.max(r.jobs.chips, initial=1)) for r in runs),
         history_h=cfg.history_h, defer_max_h=cfg.defer_max_h, outage=outs,
         power_off_idle=cfg.power_off_idle,
-        consolidate=float(cfg.consolidate), policy=cfg.policy.graph_key())
+        consolidate=float(cfg.consolidate), policy=cfg.policy.graph_key(),
+        n_ten=max(r.cfg.n_tenants for r in runs), faults=fkey)
     jp = max((_pad_bucket(max(r.jobs.n, 1)) if pad else max(r.jobs.n, 1))
              for r in runs)
     return dims, jp, max(r.mig_nmax for r in runs)
@@ -758,10 +954,13 @@ def _build_arrs(run: _ScanRun, dims: _Dims, jp: int, mig_nmax: int,
 
     Padding conventions (exact no-ops): padded jobs arrive past the
     horizon; padded ``arr_ids`` hold -1; padded ``mig_perm`` columns hold
-    the node count N with +inf pue.  The forecast is fitted here for every
-    epoch window, with the host loop's own per-epoch call
-    (``_forecast_step``); ``fc_cache`` shares the fits between runs of
-    one fleet and trace set."""
+    the node count N with +inf pue.  The forecast (and the planner's
+    signals) is fitted here for every epoch window, with the host loop's
+    own per-epoch call (``_forecast_step``); ``fc_cache`` shares the fits
+    between runs of one fleet and observed trace set.  Under faults the
+    decisions read the observed trace (``traces``) and the accounting the
+    true one (``traces_true``); the fault streams are uploaded here, once
+    per run."""
     fleet0, cfg, jobs, plan = run.fleet0, run.cfg, run.jobs, run.plan
     region_ci, ridx = run.region_ci, run.ridx
     N, T, J = fleet0.n, cfg.epochs, jobs.n
@@ -788,7 +987,9 @@ def _build_arrs(run: _ScanRun, dims: _Dims, jp: int, mig_nmax: int,
     mig_pue[ridx_np[order], col] = pue_np[order]
     arr_ids = np.full((T, dims.a_max), -1, np.int64)
     arr_ids[:, :plan.a_max] = plan.arr_ids
-    traces = torch.from_numpy(region_ci.astype(np.float32)).to(dev)
+    fp = run.fplan
+    obs_ci = region_ci if fp is None else fp.obs_traces
+    traces = torch.from_numpy(np.asarray(obs_ci).astype(np.float32)).to(dev)
     region_pue = torch.from_numpy(_region_pue(
         R, ridx_np, pue_np.astype(np.float64)).astype(np.float32)).to(dev)
 
@@ -817,22 +1018,57 @@ def _build_arrs(run: _ScanRun, dims: _Dims, jp: int, mig_nmax: int,
         en_embodied=f32(em.embodied_g_per_node_h),
         en_wmarg=f32(cfg.weights.marginal), en_ekwh=f32(em.e_kwh_h),
         en_ckpt=f32(em.ckpt_kwh(cfg.migration_overhead_h)))
+    if dims.n_ten > 0:
+        ten = jobs.tenant if jobs.tenant is not None \
+            else np.zeros(J, np.int64)
+        arrs["tenant"] = jconst(ten, 0, np.int64)
+    if run.pol.slo:
+        arrs.update(
+            slack=jconst(run.pol.slack, 0, np.int64),
+            thresh=jconst(run.pol.thresh, 1.0, np.float32),
+            value=jconst(run.pol.value, np.inf, np.float32),
+            deadline=jconst(run.pol.deadline_ep, 0, np.int64),
+            q_cap=torch.tensor(plan.d_cap, dtype=torch.int64, device=dev))
+    if fp is not None:
+        # every fault stream is data: only fault_graph_key decides which
+        # of them exist, so a dropout/staleness grid shares one bucket
+        arrs.update(
+            traces_true=torch.from_numpy(
+                region_ci.astype(np.float32)).to(dev),
+            f_safe=torch.from_numpy(fp.safe).to(dev),
+            mig_backoff=torch.tensor(int(cfg.faults.mig_backoff_h),
+                                     dtype=torch.int64, device=dev))
+        if dims.faults[1]:
+            arrs["f_mig_fail"] = torch.from_numpy(fp.mig_fail).to(dev)
+        if dims.faults[2]:
+            arrs["f_elig"] = torch.from_numpy(fp.eligible).to(dev)
     if cfg.use_forecast:
         key = (id(region_ci), id(fleet0))
+        if fp is not None:
+            key += (cfg.faults, cfg.seed)
         if fc_cache is None or key not in fc_cache:
             horizon_h, history_h, defer_window = (run.statics[4],
                                                   run.statics[5],
                                                   run.statics[7])
-            steps = [_forecast_step(traces, region_pue, history_h + t,
-                                    history_h, horizon_h, defer_window)
-                     for t in range(T)]
-            fc = (torch.stack([c for c, _ in steps]),       # (T, R)
-                  torch.stack([f for _, f in steps]))       # (T,)
+            lookahead = (dims.policy.lookahead_h, dims.policy.discount) \
+                if dims.planner else None
+            steps = [_forecast_step(
+                traces, region_pue, history_h + t, history_h, horizon_h,
+                defer_window, bool(fp.fc_ok[t]) if fp is not None else True,
+                lookahead) for t in range(T)]
+            # (T, R) mean forecast, (T,) fut [, (T, R) la_ci, (T,) la_dst,
+            # (T,) gw_min]
+            fc = tuple(torch.stack(col) for col in zip(*steps))
             if fc_cache is not None:
                 fc_cache[key] = fc
         else:
             fc = fc_cache[key]
-        arrs["ci_fc_r"], arrs["fut"] = fc
+        arrs["ci_fc_r"], fut = fc[:2]
+        # safe mode: no green window while the signal is stale
+        arrs["fut"] = fut if fp is None else policylib.degraded_future(
+            torch, fut, arrs["f_safe"])
+        if len(fc) > 2:
+            arrs["la_ci"], arrs["la_dst"], arrs["gw_min"] = fc[2:]
     return arrs
 
 
@@ -888,18 +1124,22 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
     """The whole trajectory of L stacked lanes: a Python loop over epochs,
     each ``epoch_pre`` (releases, evictions + migration policy, the
     compacted arrival stream) -> the batched placement engine ->
-    ``epoch_post`` (outcomes, the deferral carry, emission accounting).
-    Both halves are loop-free masked tensor code over the (L, ...) axes.
+    ``epoch_post`` (outcomes, the deferral carry or SLO queue, emission
+    accounting).  Both halves are loop-free masked tensor code over the
+    (L, ...) axes.
 
     Returns (carry, ys): the final (cap, njobs, slot_jid, slot_node,
-    slot_end, defer_ids, mig_cost, overflow), each (L, ...), and the
-    per-epoch outputs stacked as (L, T, ...), all on the host.
+    slot_end, defer_ids, mig_cost, overflow[, mig_until, mig_nfail]), each
+    (L, ...), and the per-epoch outputs stacked as (L, T, ...), all on the
+    host.
 
     An epoch's releases are commutative capacity edits on a dirty engine,
     so they are applied as one scatter and the engine starts at the
     post-release capacity while the normalizers see the pre-release one;
     the best feasible rate per chip demand runs a cummax of free capacity
-    along each region's static pue order plus a searchsorted."""
+    along each region's static pue order plus a searchsorted.  Decisions
+    read the observed CI (``traces``); emissions and migration cost read
+    the true CI (``traces_true`` under faults, the same tensor without)."""
     (engine, shortlist, use_kernel, weights, horizon_h, history_h,
      use_forecast, defer_window) = statics
     T, S = dims.epochs, dims.slots
@@ -909,6 +1149,11 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
     m_evict, d_cap, a_max = dims.m_evict, dims.d_cap, dims.a_max
     rel_cap, chips_max = dims.rel_cap, dims.chips_max
     pcfg = dims.policy
+    faulty, fault_mig, fault_flap = dims.faults
+    fault_mig = fault_mig and budget > 0
+    slo = pcfg.deferral == "slo"
+    planner = dims.planner and use_forecast
+    n_ten = dims.n_ten
     m_cap = budget + m_evict
     n_narr = d_cap + a_max
     has_defer = d_cap > 0
@@ -917,21 +1162,38 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
     INT_MAX = 2 ** 31 - 1
     inf = torch.inf
     chips_d, pue, ridx = arrs["chips"], arrs["pue"], arrs["ridx"]
+    traces_true = arrs["traces_true"] if faulty else arrs["traces"]
     energies = [_lane_energy(arrs, l) for l in range(L)]
     cr = torch.arange(chips_max + 1, device=dev, dtype=torch.int32)
     i64 = dict(dtype=torch.int64, device=dev)
     empty = torch.zeros((L, 0), **i64)
+    bins = torch.arange(n_ten + 1, device=dev)
+    if slo:
+        arange_d = torch.arange(d_cap, device=dev)
+
+    def tenant_sum(tid, g):
+        """(L, n_ten + 1) f64 per-bin sums of g (L, M) by tenant id tid
+        (L, M): masked sums, so the order (and the result) is fixed on
+        every device (no atomics)."""
+        hit = tid[:, :, None] == bins
+        return torch.where(hit, g.to(torch.float64)[:, :, None],
+                           0.0).sum(1)
 
     def epoch_pre(st, t):
         cap, njobs, slot_jid, slot_node, slot_end, defer_ids, mig_cost, \
-            overflow = st
+            overflow = st[:8]
+        mig_until, mig_nfail = st[8:] if fault_mig else (None, None)
         a = t + history_h
         healthy = arrs["healthy"]
         for reg, t0, length in dims.outage:
             if t0 <= t < t0 + length:
                 healthy = healthy & (ridx != reg)
+        if fault_flap:
+            healthy = healthy & arrs["f_elig"][:, t]
         ci_col_r = arrs["traces"][:, :, a]                       # (L, R)
         ci_col = ci_col_r.gather(1, ridx)                        # (L, N)
+        ci_true = traces_true[:, :, a].gather(1, ridx) if faulty \
+            else ci_col
 
         # ---- 1. end-of-life releases (one scatter) -----------------------
         rel_mask = (slot_jid >= 0) & (slot_end == t)
@@ -951,8 +1213,9 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         node_healthy = _take(healthy, slot_node, occupied, False)
         stay_mask = occupied & node_healthy
         seg_slot, seg_ok = [], []
-        evictions_t = migrations_t = torch.zeros(L, **i64)
+        evictions_t = migrations_t = failed_t = torch.zeros(L, **i64)
         mig_cost_t = torch.zeros(L, dtype=torch.float32, device=dev)
+        mid = {}
         if m_evict > 0:
             evict_mask = occupied & ~node_healthy
             evictions_t = evict_mask.sum(1)
@@ -982,11 +1245,25 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             rate_cur = _take(rate, slot_node, stay_mask, inf)
             remaining = (slot_end - t).clamp(min=0).to(torch.float32)
             chips_f = s_chips.to(torch.float32)
+            la_kw = {}
+            if planner:
+                la_node = arrs["la_ci"][:, t].gather(1, ridx) * pue
+                la_kw = dict(
+                    src_la=_take(la_node, slot_node, stay_mask, 0.0),
+                    dst_la=arrs["la_dst"][:, t, None],
+                    gw_min=arrs["gw_min"][:, t, None])
             gain = policylib.migration_gain(
                 torch, pcfg, rate_cur=rate_cur, best_rate=br, chips=chips_f,
                 remaining=remaining, e_kwh_h=arrs["en_ekwh"][:, None],
                 ckpt=arrs["en_ckpt"][:, None] * chips_f,
-                green_gate=arrs["green_gate"][:, None])
+                green_gate=arrs["green_gate"][:, None], **la_kw)
+            if fault_mig:
+                # retry with backoff: a slot whose last actuation failed
+                # sits out the candidate sort until its backoff ends
+                gain = torch.where(stay_mask & (mig_until > t), -inf, gain)
+            if faulty:
+                gain = policylib.degraded_gain(torch, gain,
+                                               arrs["f_safe"][:, t, None])
             # (-gain, job id) order by two stable sorts, minor key first;
             # only gain > 0 is ever moved, so the order of ±0.0 ties (which
             # torch's sort and XLA's differ on) cannot change a mover
@@ -997,14 +1274,40 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             mig_slot = o2.gather(1, o1)[:, :budget]
             mig_ok = stay_mask.gather(1, mig_slot) \
                 & (gain.gather(1, mig_slot) > 0.0)
+            if fault_mig:
+                # attempt rank k draws fault stream mig_fail[t, k]: a failed
+                # command uses up its budget slot (the job stays put,
+                # nothing charged) and doubles the slot's backoff; a later
+                # success resets it
+                mfail = arrs["f_mig_fail"][:, t, :budget]
+                fail = mig_ok & mfail
+                mig_ok = mig_ok & ~mfail
+                failed_t = fail.sum(1)
+                nf1 = _take(mig_nfail, mig_slot, fail, 0) + 1
+                until = t + arrs["mig_backoff"][:, None] \
+                    * torch.bitwise_left_shift(torch.ones_like(nf1),
+                                               (nf1 - 1).clamp(max=10))
+                at_fail = torch.where(fail, mig_slot, S)
+                at_ok = torch.where(mig_ok, mig_slot, S)
+                mig_until = _scatter_drop(mig_until, at_fail, until,
+                                          add=False)
+                mig_nfail = _scatter_drop(mig_nfail, at_fail, nf1, add=False)
+                mig_until = _scatter_drop(mig_until, at_ok, 0, add=False)
+                mig_nfail = _scatter_drop(mig_nfail, at_ok, 0, add=False)
+                mid.update(mig_until=mig_until, mig_nfail=mig_nfail)
             migrations_t = mig_ok.sum(1)
             mnode = slot_node.gather(1, mig_slot).clamp(0, N - 1)
-            mchip = chips_d.gather(1, slot_jid.gather(1, mig_slot).clamp(
-                min=0))
+            mjid = slot_jid.gather(1, mig_slot).clamp(min=0)
+            mchip = chips_d.gather(1, mjid)
+            # kept per mover so that attribution charges each move to its
+            # mover's tenant
             mc_vec = torch.where(
                 mig_ok, arrs["en_ckpt"][:, None] * mchip.to(torch.float32)
-                * pue.gather(1, mnode) * ci_col.gather(1, mnode), 0.0)
+                * pue.gather(1, mnode) * ci_true.gather(1, mnode), 0.0)
             mig_cost_t = mc_vec.sum(1)
+            if n_ten > 0:
+                mid.update(mc_vec=mc_vec,
+                           mig_ten=arrs["tenant"].gather(1, mjid))
             seg_slot.append(mig_slot)
             seg_ok.append(mig_ok)
         if m_cap > 0:
@@ -1043,15 +1346,17 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             ci_fc = ci_col
             fut_rate = torch.full((L,), inf, device=dev)
         cur_rate = torch.where(healthy, ci_col * pue, inf).amin(1)
-        return dict(cap_ctx=cap, ci_col=ci_col, ci_fc=ci_fc, healthy=healthy,
-                    strag=strag, cap_start=cap_start, dem=dem, n_ev=n_ev,
-                    ev_idx=ev_idx, fut_rate=fut_rate, cur_rate=cur_rate,
-                    njobs=njobs, slot_jid=slot_jid, slot_node=slot_node,
-                    slot_end=slot_end, mov_slot=mov_slot, mov_jid=mov_jid,
-                    narr_jid=narr_jid, narr_chips=narr_chips,
-                    completed_t=completed_t, evictions_t=evictions_t,
-                    migrations_t=migrations_t,
-                    mig_cost=mig_cost + mig_cost_t, overflow=overflow)
+        mid.update(cap_ctx=cap, ci_col=ci_col, ci_true=ci_true, ci_fc=ci_fc,
+                   healthy=healthy, strag=strag, cap_start=cap_start,
+                   dem=dem, n_ev=n_ev, ev_idx=ev_idx, fut_rate=fut_rate,
+                   cur_rate=cur_rate, njobs=njobs, slot_jid=slot_jid,
+                   slot_node=slot_node, slot_end=slot_end,
+                   mov_slot=mov_slot, mov_jid=mov_jid, narr_jid=narr_jid,
+                   narr_chips=narr_chips, completed_t=completed_t,
+                   evictions_t=evictions_t, migrations_t=migrations_t,
+                   failed_t=failed_t, mig_cost=mig_cost + mig_cost_t,
+                   overflow=overflow)
+        return mid
 
     def epoch_post(mid, t, out_c, cap2, n_sw):
         slot_jid, slot_node = mid["slot_jid"], mid["slot_node"]
@@ -1059,12 +1364,11 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         mov_slot, mov_jid = mid["mov_slot"], mid["mov_jid"]
         narr_jid, narr_chips = mid["narr_jid"], mid["narr_chips"]
         overflow = mid["overflow"]
+        fut_rate, cur_rate = mid["fut_rate"], mid["cur_rate"]
         out = _scatter_drop(torch.full((L, EV), -1, **i64), mid["ev_idx"],
                             out_c, add=False)
 
         # ---- 4. record outcomes ------------------------------------------
-        green = policylib.wants_defer(mid["fut_rate"], mid["cur_rate"],
-                                      arrs["green_factor"])
         placed_t = dropped_t = torch.zeros(L, **i64)
         if m_cap > 0:
             mnode_new = out[:, :m_cap]
@@ -1085,7 +1389,44 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         nnode = out[:, m_cap:]
         valid = narr_jid >= 0
         jsafe = narr_jid.clamp(min=0)
-        if has_defer:
+        if has_defer and slo:
+            # SLO deferral: candidates that want to wait (green for their
+            # own value-tightened threshold, or unplaced, inside their
+            # slack window) compete for the fixed-capacity priority queue
+            # on the (value asc, deadline desc, job id) key — the host's
+            # lexsort, as three stable sorts (minor key first)
+            slack_j = arrs["slack"].gather(1, jsafe)
+            in_win = (t - arrs["arrive"].gather(1, jsafe)) < slack_j
+            can_defer = valid & (slack_j > 0) & in_win
+            green_j = policylib.wants_defer(
+                fut_rate[:, None], cur_rate[:, None],
+                arrs["thresh"].gather(1, jsafe))
+            want = can_defer & torch.where(nnode >= 0, green_j, True)
+            k1 = torch.where(want, arrs["value"].gather(1, jsafe), inf)
+            k2 = torch.where(want, -arrs["deadline"].gather(1, jsafe),
+                             INT_MAX)
+            k3 = torch.where(want, narr_jid, INT_MAX)
+            perm = torch.sort(k3, dim=1, stable=True).indices
+            perm = perm.gather(1, torch.sort(k2.gather(1, perm), dim=1,
+                                             stable=True).indices)
+            perm = perm.gather(1, torch.sort(k1.gather(1, perm), dim=1,
+                                             stable=True).indices)
+            sel_idx = perm[:, :d_cap]
+            sel_ok = torch.isfinite(k1.gather(1, sel_idx)) \
+                & (arange_d < arrs["q_cap"][:, None])
+            defer_again = _scatter_drop(
+                torch.zeros((L, n_narr), dtype=torch.bool, device=dev),
+                torch.where(sel_ok, sel_idx, n_narr), True, add=False)
+            takeback = defer_again & (nnode >= 0)
+            cap2 = _scatter_drop(cap2, torch.where(takeback, nnode, N),
+                                 narr_chips, add=True)
+            deferred_t = defer_again.sum(1)
+            # the queue carries in priority order (overflow places this
+            # epoch: no overflow accounting by design)
+            defer_ids = torch.where(sel_ok, narr_jid.gather(1, sel_idx), -1)
+        elif has_defer:
+            green = policylib.wants_defer(fut_rate, cur_rate,
+                                          arrs["green_factor"])
             in_win = (t - arrs["arrive"].gather(1, jsafe)) < dims.defer_max_h
             can_defer = valid & arrs["deferrable"].gather(1, jsafe) & in_win
             takeback = can_defer & green[:, None] & (nnode >= 0)
@@ -1105,9 +1446,13 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         place_new = valid & (nnode >= 0) & ~takeback
         drop_new = valid & (nnode < 0) & ~defer_again
         # a dropped job is a deadline miss only if it ever had start slack
-        # (the host counts pol.slack > 0, defer_max_h-gated)
-        slackable = arrs["deferrable"].gather(1, jsafe) \
-            if dims.defer_max_h > 0 else torch.zeros_like(valid)
+        # (the host counts pol.slack > 0, defer_max_h-gated for reactive)
+        if slo:
+            slackable = arrs["slack"].gather(1, jsafe) > 0
+        elif dims.defer_max_h > 0:
+            slackable = arrs["deferrable"].gather(1, jsafe)
+        else:
+            slackable = torch.zeros_like(valid)
         miss_t = (drop_new & slackable).sum(1)
         free_idx = _nonzero_sized(slot_jid < 0, alloc_cap, S)
         rank = place_new.cumsum(1) - 1
@@ -1126,22 +1471,54 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         placed_t = placed_t + place_new.sum(1)
         dropped_t = dropped_t + drop_new.sum(1)
 
-        # ---- 5. emission accounting (f32 on the device) -------------------
+        # ---- 5. emission accounting (f32 on the device, at the TRUE CI) --
         on = (njobs > 0) if dims.power_off_idle \
             else torch.ones((L, N), dtype=torch.bool, device=dev)
         occ = 1.0 - cap2.to(torch.float32) \
             / arrs["chips_total"].to(torch.float32).clamp(min=1.0)
         energy = arrs["power_kw"] * (arrs["en_idle"][:, None]
                                      + arrs["en_dyn"][:, None] * occ) * on
-        node_g = energy * pue * mid["ci_col"] \
+        node_g = energy * pue * mid["ci_true"] \
             + arrs["en_embodied"][:, None] * on
+        e_t = node_g.sum(1)
+        ys = {}
+        if n_ten > 0:
+            # attribution from the post-update slot table: each on-node's
+            # gCO2 split across its resident jobs by chips; the
+            # idle/rounding remainder goes to bin n_ten; sums in float64
+            occ3 = slot_jid >= 0
+            s_jid = slot_jid.clamp(min=0)
+            s_chips = torch.where(occ3, chips_d.gather(1, s_jid),
+                                  0).to(torch.float32)
+            occ_chips = _scatter_drop(
+                torch.zeros((L, N), dtype=torch.float32, device=dev),
+                torch.where(occ3, slot_node, N), s_chips, add=True)
+            share = node_g / occ_chips.clamp(min=1.0)
+            contrib = torch.where(
+                occ3, share.gather(1, slot_node.clamp(0, N - 1)) * s_chips,
+                0.0)
+            ten_t = tenant_sum(torch.where(
+                occ3, arrs["tenant"].gather(1, s_jid), n_ten), contrib)
+            ten_t[:, n_ten] += e_t.to(torch.float64) \
+                - contrib.to(torch.float64).sum(1)
+            if budget > 0:
+                # migration overhead is charged to the mover's tenant
+                ten_t = ten_t + tenant_sum(mid["mig_ten"], mid["mc_vec"])
+            ys["ten_t"] = ten_t
         carry = (cap2, njobs, slot_jid, slot_node, slot_end, defer_ids,
                  mid["mig_cost"], overflow)
-        ys = dict(e_t=node_g.sum(1), n_sw=n_sw,
+        if fault_mig:
+            # a reused slot belongs to a fresh job with no failure history
+            carry += (_scatter_drop(mid["mig_until"], tgt_slot, 0,
+                                    add=False),
+                      _scatter_drop(mid["mig_nfail"], tgt_slot, 0,
+                                    add=False))
+        ys.update(e_t=e_t, n_sw=n_sw,
                   completed_t=mid["completed_t"], dropped_t=dropped_t,
                   placed_t=placed_t, deferred_t=deferred_t,
                   mig_t=mid["migrations_t"], evi_t=mid["evictions_t"],
-                  miss_t=miss_t, mov_jid=mov_jid, mov_node=ys_mov_node,
+                  failed_t=mid["failed_t"], miss_t=miss_t,
+                  mov_jid=mov_jid, mov_node=ys_mov_node,
                   new_jid=torch.where(place_new, narr_jid, -1),
                   new_node=torch.where(place_new, nnode, -1),
                   ov_t=overflow)
@@ -1152,6 +1529,8 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
           torch.zeros((L, S), **i64), torch.full((L, d_cap), -1, **i64),
           torch.zeros(L, dtype=torch.float32, device=dev),
           torch.zeros(L, **i64))
+    if fault_mig:
+        st += (torch.zeros((L, S), **i64), torch.zeros((L, S), **i64))
     ys_all = []
     for t in range(T):
         mid = epoch_pre(st, t)
@@ -1220,6 +1599,13 @@ def _scan_result(run: _ScanRun, carry, ys, host_syncs: int) -> SimResult:
     # (every carried job has slack > 0) a deadline miss
     still_q = int((defer_f >= 0).sum())
     mig_cost = float(mig_cost_f)
+    tenant_g = None
+    n_run = run.cfg.n_tenants
+    if n_run:
+        # the bucket's bins may be wider than this run's tenant count: its
+        # extra bins are zero, and the idle/remainder bin sits last
+        tg = ys["ten_t"].sum(axis=0)
+        tenant_g = np.concatenate([tg[:n_run], tg[-1:]])
     return SimResult(
         emissions_g=float(series.sum()) + mig_cost,
         migration_cost_g=mig_cost,
@@ -1234,8 +1620,12 @@ def _scan_result(run: _ScanRun, carry, ys, host_syncs: int) -> SimResult:
         emissions_series=series,
         deadline_misses=int(ys["miss_t"].sum()) + still_q,
         defer_delay_h=delay_h,
+        migrations_failed=int(ys["failed_t"].sum()),
         jobs_active_end=int((carry[2] >= 0).sum()),
-        start_epoch=start_epoch, host_syncs=host_syncs)
+        safe_epochs=int(run.fplan.safe.sum())
+        if run.fplan is not None else 0,
+        start_epoch=start_epoch, tenant_emissions_g=tenant_g,
+        host_syncs=host_syncs)
 
 
 def _run_bucket(members, pad_plan: bool) -> list:

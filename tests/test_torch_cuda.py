@@ -4,7 +4,9 @@ CPU), each K3/K4 lane equal to K1/K2 on that lane, and the placement
 engines' and the ensemble's kernel paths equal to their CPU paths; the
 sorted tile top-k at every k up to the cap (128), with exact ties, zero
 scores and tiles with fewer than k finite scores, and the merged
-shortlist through tile candidates equal to the full-vector merge; K5
+shortlist through tile candidates equal to the full-vector merge; the
+carbon policies, signal faults and tenant attribution on the card equal to
+the CPU (the chaos probe, SLO streams, planner lanes); K5
 (bf16 on the tensor cores, f32 on the FMA pipes) and K6 within the JAX
 suite's bars of their plain versions, edge cases included (S 1 and 2048,
 GQA groups, padded head dims, windows, large logits, long and short scan
@@ -321,6 +323,131 @@ def test_forecast_card_equals_cpu(dev):
             cpu, _ = forecast.forecast_regions(win, hor, 0)
             gap = (card.cpu() - cpu).abs().amax(1)
             assert bool((gap <= 1e-5 * cpu.abs().amax(1)).all())
+
+
+# ---------------------------------------------------------------------------
+# the carbon policies, signal faults and tenants: card == CPU
+# ---------------------------------------------------------------------------
+
+
+def _chaos():
+    from repro_torch.core.faults import FaultConfig
+    return FaultConfig(ci_dropout=0.6, stale_cap_h=2, safe_stale_h=4,
+                       telem_sigma=0.1, fc_outage=((5, 4),), fc_dropout=0.2,
+                       mig_fail=0.4, flap_rate=0.03, quarantine_h=2)
+
+
+def _same(a, b, rel):
+    for f in ("node_log", "first_node", "start_epoch"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    for f in ("rank_sweeps", "arrivals_placed", "jobs_completed",
+              "jobs_dropped", "jobs_deferred", "migrations", "evictions",
+              "migrations_failed", "jobs_active_end", "safe_epochs",
+              "deadline_misses", "defer_delay_h"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert a.emissions_g == pytest.approx(b.emissions_g, rel=rel, abs=0)
+
+
+def _both_devices(dev, cfg, n=96):
+    """{device: (host loop, scan)} of one stream on the card and the CPU."""
+    out = {}
+    for d in (dev, "cpu"):
+        f, t, r = S.synthetic_lifecycle_fleet(n, cfg, chips_per_node=64,
+                                              device=d)
+        jobs = S.generate_jobs(cfg)
+        out[str(d)] = (S.simulate_fleet(f, t, r, cfg, jobs=jobs),
+                       S.simulate_fleet_scan(f, t, r, cfg, jobs=jobs))
+    return out[str(dev)], out["cpu"]
+
+
+def test_chaos_probe_card_equals_cpu(dev):
+    """The reference bench's chaos probe: every fault class, outages, a
+    flash of failures; host loop and scan on the card == the CPU's."""
+    cfg = S.SimConfig(epochs=36, seed=3, arrival_rate=6.0,
+                      mean_duration_h=12.0, migration_budget=2,
+                      deferrable_frac=0.3, shortlist=16, history_h=48,
+                      horizon_h=8, outage=[(0, 6, 4), (1, 18, 4)],
+                      faults=_chaos(), use_kernel=True)
+    (hc, sc), (hp, sp) = _both_devices(dev, cfg)
+    _same(hc, hp, 0.0)
+    _same(sc, sp, 1e-6)
+    _same(sc, hc, 1e-4)
+    assert hc.migrations_failed > 0 and hc.evictions > 0
+
+
+@pytest.mark.parametrize("policy", ["slo", "combined"])
+def test_slo_stream_card_equals_cpu(dev, policy):
+    from repro_torch.core import policy as P
+    pcfg = P.slo_deferral(value_weight=0.7, deadline_hi=8) \
+        if policy == "slo" else P.PolicyConfig(migration="lookahead",
+                                               deferral="slo")
+    cfg = S.SimConfig(epochs=36, seed=11, arrival_rate=8.0,
+                      mean_duration_h=10.0, shortlist=32, history_h=48,
+                      horizon_h=12, migration_budget=2, deferrable_frac=0.5,
+                      outage=(0, 12, 6), flash_crowd=(20, 3, 2.5),
+                      policy=pcfg, n_tenants=3, use_kernel=True)
+    (hc, sc), (hp, sp) = _both_devices(dev, cfg)
+    _same(hc, hp, 0.0)
+    _same(sc, sp, 1e-6)
+    _same(sc, hc, 1e-4)
+    assert hc.jobs_deferred > 0
+    assert np.array_equal(hc.tenant_emissions_g, hp.tenant_emissions_g)
+    # the tenants' bins: float64 sums of the same f32 shares; the idle bin
+    # carries the f32 rounding of each epoch's total (summed in the
+    # device's order), so it is held to the emissions' card-vs-CPU bar
+    np.testing.assert_allclose(sc.tenant_emissions_g[:-1],
+                               sp.tenant_emissions_g[:-1], rtol=1e-9)
+    assert abs(sc.tenant_emissions_g[-1] - sp.tenant_emissions_g[-1]) \
+        <= 1e-6 * sp.emissions_g
+    assert sc.tenant_emissions_g.sum() == pytest.approx(sc.emissions_g,
+                                                        rel=1e-5)
+
+
+def test_planner_lanes_kernel_equal_plain_and_cpu(dev):
+    """Green-window planner lanes with per-epoch flap eligibility and a
+    degraded CI trace: K4's lanes == the plain sweep's on the card, == the
+    CPU's, == the host loop's."""
+    from repro_torch.core import policy as P
+    from repro_torch.core.faults import FaultConfig
+    cfg = S.SimConfig(epochs=24, arrival_rate=8.0, mean_duration_h=10.0,
+                      shortlist=16, history_h=48, horizon_h=12,
+                      migration_budget=2, deferrable_frac=0.2,
+                      policy=P.green_window(), use_kernel=True,
+                      faults=FaultConfig(ci_dropout=0.5, stale_cap_h=3,
+                                         flap_rate=0.02, quarantine_h=2))
+    out = {}
+    for d, kern in ((dev, True), (dev, False), ("cpu", True)):
+        runs = []
+        for seed in (11, 12):
+            c = dataclasses.replace(cfg, seed=seed, use_kernel=kern)
+            f, t, r = S.synthetic_lifecycle_fleet(2048, c, chips_per_node=64,
+                                                  device=d)
+            runs.append((f, t, r, c, S.generate_jobs(c)))
+        mr.reset_launch_counts()
+        out[(str(d), kern)] = S.simulate_fleet_ensemble(runs)
+        if d == dev and kern:
+            assert mr.maiz_topk_b.launches > 0
+            host = [S.simulate_fleet(*sp[:4], jobs=sp[4]) for sp in runs]
+    for a, b, c, h in zip(out[(str(dev), True)], out[(str(dev), False)],
+                          out[("cpu", True)], host):
+        _same(a, b, 1e-6)
+        _same(a, c, 1e-6)
+        _same(a, h, 1e-4)
+
+
+def test_green_window_signals_card_equals_cpu(dev):
+    from repro_torch.core import forecast
+    rng = np.random.default_rng(3)
+    fc = torch.from_numpy(rng.uniform(20, 600, (2, 24, 4, 24)).astype(
+        np.float32))
+    rpue = torch.tensor([1.1, 1.4, np.inf, 1.6], dtype=torch.float32)
+    fc[:, :, 2] = 0.0                      # a node-less region at the floor
+    for la_h, disc in ((12, 0.9), (48, 0.5), (1, 0.99)):
+        card = forecast.green_window_signals(fc.to(dev), rpue.to(dev), la_h,
+                                             disc)
+        cpu = forecast.green_window_signals(fc, rpue, la_h, disc)
+        for x, y in zip(card, cpu):
+            _eq(x, y)
 
 
 # ---------------------------------------------------------------------------

@@ -231,21 +231,16 @@ def test_sweep_policies_and_pareto_frontier_match_reference():
     assert sum(r["deferred"] for r in a) > 0
 
 
-@pytest.mark.parametrize("what", ["shard", "shard_en", "slo", "lookahead",
-                                  "blind"])
+@pytest.mark.parametrize("what", ["shard", "shard_en", "blind"])
 def test_unported_ensemble_options_raise(what):
     cp = S.SimConfig(**dict(BASE, epochs=4))
     f, t, r = S.synthetic_lifecycle_fleet(16, cp, device="cpu")
     kw, err, match = {}, NotImplementedError, "ROADMAP Queue 1 item"
     if what.startswith("shard"):
         kw = dict(shard=True if what == "shard" else "en")
-    elif what == "blind":
+    else:
         cp, err, match = dataclasses.replace(cp, engine="blind"), \
             ValueError, "scanned core"
-    else:
-        cp = dataclasses.replace(cp, policy=PolicyConfig(
-            deferral="slo") if what == "slo" else PolicyConfig(
-                migration="lookahead"))
     with pytest.raises(err, match=match):
         S.simulate_fleet_ensemble([(f, t, r, cp)], **kw)
     if what.startswith("shard"):

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import dataclasses
 import importlib
 import sys
 import types
@@ -31,7 +32,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 _CORE = ("telemetry", "carbon", "energy", "ranking", "fleet", "placement",
-         "scheduler", "forecast", "policy", "simulator", "scenarios")
+         "scheduler", "forecast", "policy", "simulator", "scenarios", "cpp",
+         "faults", "traffic", "router")
 _REF: types.SimpleNamespace | None = None
 
 
@@ -112,6 +114,22 @@ def port_fleet(ref_fleet, device="cpu"):
     return fleet_from_numpy(ref_fleet_arrays(ref_fleet), device=device)
 
 
+def ref_sim_config(cp):
+    """The reference's ``SimConfig`` for the port's ``cp``: every field
+    copied, the nested weights, policy, energy and fault configs rebuilt
+    as the reference's own classes."""
+    ref = load_reference()
+    kw = {f.name: getattr(cp, f.name) for f in dataclasses.fields(cp)}
+    for name, cls in (("weights", ref.ranking.RankWeights),
+                      ("policy", ref.policy.PolicyConfig),
+                      ("energy", ref.energy.EnergyModel),
+                      ("faults", ref.faults.FaultConfig)):
+        if kw[name] is not None:
+            kw[name] = cls(**{f.name: getattr(kw[name], f.name)
+                              for f in dataclasses.fields(kw[name])})
+    return ref.simulator.SimConfig(**kw)
+
+
 def bits(x) -> np.ndarray:
     """f32 values as their int32 bit patterns, for bitwise asserts."""
     if isinstance(x, torch.Tensor):
@@ -156,6 +174,12 @@ def _port_sources():
     return files
 
 
+def test_import_check_covers_the_policy_fault_and_cpp_modules():
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for mod in ("cpp", "faults", "policy", "forecast", "simulator"):
+        assert f"src/repro_torch/core/{mod}.py" in names, mod
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_reference(path):
@@ -174,9 +198,10 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 @pytest.mark.parametrize("entry", ["synthetic_fleet", "lifecycle",
-                                   "paper", "experiment", "convert",
-                                   "energy", "sweep", "model_init",
-                                   "serve_engine", "serve_main"])
+                                   "paper", "experiment", "calibrate",
+                                   "convert", "energy", "sweep",
+                                   "model_init", "serve_engine",
+                                   "serve_main"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry,
                                                            monkeypatch):
     from repro_torch import convert
@@ -194,6 +219,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry,
         "paper": lambda: simulator.paper_scenario_alloc(
             np.ones((3, 4)), np.ones(3), 0.5),
         "experiment": lambda: scenarios.run_paper_experiment(hours=4),
+        "calibrate": lambda: scenarios.calibrate_dip_depth(iters=1,
+                                                           hours=4),
         "convert": lambda: convert.fleet_from_numpy(
             {f: np.ones(4) for f in fleet.FIELDS}),
         "energy": lambda: energy.DEFAULT_ENERGY.device(),

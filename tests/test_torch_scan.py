@@ -177,8 +177,9 @@ def test_scan_rejects_host_only_engines_and_unported_options():
     with pytest.raises(ValueError, match="scanned core"):
         S.simulate_fleet_scan(f, t, r, dataclasses.replace(cp,
                                                            engine="blind"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        S.simulate_fleet_scan(f, t, r, dataclasses.replace(cp, n_tenants=2))
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        S.simulate_fleet_scan(f, t, r, dataclasses.replace(cp,
+                                                           traffic=object()))
 
 
 def test_policy_expressions_on_torch_tensors_match_numpy():
