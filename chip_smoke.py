@@ -77,9 +77,24 @@ outputs against the port's CPU path and the paper headline:
      SLO frontier card == CPU; wall and profiled device ms per epoch,
      syncs per epoch per bucket, the planner's gCO2 against reactive and
      the frontier's points printed
+ 13. serving traffic and the carbon-aware QPS router, held against the
+     reference serving bench's recorded results (``BENCH_serving.json``):
+     (a) its fixed probe (48 nodes, 24 epochs, 3 tenants, SLO 12 s, γ
+     0.75) through the host loop and the scan on the card and the host
+     loop on the CPU: 773,913 requests served, 4 p99 violations, the
+     placement digest e6b7b02c6bd36633 with and without traffic, request
+     gCO2 scan vs host within 1e-4, the tenant request bins, and a
+     zero-QPS layer as a no-op; (b) its (SLO x greenness) grid at its own
+     size (5 SLOs x 5 γ x seeds 1-3 = 75 lanes of 96 nodes, 168 epochs)
+     as one kernel ensemble bucket, every lane against the recorded grid,
+     the 8-point frontier and the 59.607 % greenness saving, the middle
+     SLO's seed-1 lanes against their host loops; (c) the router attached
+     to phase 9's 8 lanes of 65,536 nodes: placements bitwise phase 9's,
+     lane 0's requests == its host loop, step 5b's cost (ms and device
+     ops per epoch, traffic on vs off)
 
-Launch counts are set to 0 just before each of phases 3-5, 8, 9, 11 and
-12 (and each held prefill of phase 11) and read just after; K5 counts its
+Launch counts are set to 0 just before each of phases 3-5, 8, 9, 11,
+12 and 13 (and each held prefill of phase 11) and read just after; K5 counts its
 bf16 and f32 kernels apart.  The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero before that line.  Needs one
@@ -130,6 +145,12 @@ SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 512, 32
 # prefill logits, kernel route vs plain route: the JAX suite's
 # prefill-vs-forward bars (tests/test_decode_consistency.py), x max|logit|
 SERVE_BARS = {"granite-3-2b": 2e-2, "falcon-mamba-7b": 8e-2}
+# phase 13: the reference serving bench's grid (benchmarks/run.py:1149-1175,
+# its defaults SERVE_NS / SERVE_EPOCHS / SERVE_QPS / SERVE_SEEDS)
+TRAFFIC_N, TRAFFIC_EPOCHS, TRAFFIC_QPS = 96, 168, 20000.0
+TRAFFIC_SEEDS = (1, 2, 3)
+TRAFFIC_SLOS = (10.5, 11.0, 12.0, 14.0, 18.0)
+TRAFFIC_GAMMAS = (0.0, 0.25, 0.5, 0.75, 1.0)
 # the same with f32 parameters on both routes: the CPU suite's f32 bar
 # (tests/test_torch_models.py), x max|logit|
 SERVE_F32_BAR = 1e-4
@@ -1174,7 +1195,7 @@ def phase_ensemble(dev):
             f"{sum(r.migrations for r in out[0])} migrations, "
             f"{sum(r.evictions for r in out[0])} evictions, "
             f"{sum(r.jobs_deferred for r in out[0])} deferred)")
-    return cnt
+    return cnt, (cfg, grid_runs, ens)
 
 
 def _conserved(r, jobs, epochs):
@@ -1424,6 +1445,328 @@ def phase_policies(dev):
         for k, v in part.items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+def _digest(r) -> str:
+    """The reference's placement digest (``node_log`` then
+    ``first_node``, sha256, first 16 hex digits)."""
+    import hashlib
+    return hashlib.sha256(np.concatenate(
+        [r.node_log, r.first_node]).tobytes()).hexdigest()[:16]
+
+
+def _router(cfg, slo, g):
+    return dataclasses.replace(cfg, policy=dataclasses.replace(
+        cfg.policy, router_slo_s=slo, router_greenness=g))
+
+
+def _requests(r):
+    return (r.req_served, r.req_offered, r.p99_violations)
+
+
+def device_ops(fn):
+    """(device ops, device ms) of one ``fn()`` under ``torch.profiler``,
+    or (None, None) when the profiler sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:          # the profiler found no CUPTI
+        say(f"profiler unavailable: {e}")
+        return None, None
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    if not dev:
+        return None, None
+    return (sum(e.count for e in dev),
+            sum(e.self_device_time_total for e in dev) / 1e3)
+
+
+def phase_traffic(dev, ens9):
+    """Phase 13: serving traffic and the QPS router through the host loop,
+    the scan and the ensemble, against the reference serving bench's
+    recorded results; step 5b's cost on phase 9's fleet-scale lanes."""
+    import torch
+    from repro_torch.core import simulator as S
+    from repro_torch.core.traffic import TrafficConfig
+    t_phase = time.perf_counter()
+    bench = json.loads((SRC.parent / "BENCH_serving.json").read_text())
+    bench = bench["configs"][0]
+    total = {}
+
+    def add(cnt):
+        for k, v in cnt.items():
+            total[k] = total.get(k, 0) + v
+
+    # ---- (a) the bench's fixed parity probe (run.py:1117-1147) ----------
+    pcfg = S.SimConfig(epochs=24, seed=3, arrival_rate=16.0,
+                       mean_duration_h=10.0, shortlist=16, history_h=48,
+                       horizon_h=8, chips_lo=8, chips_hi=32, n_tenants=3,
+                       use_kernel=True)
+    ptc = TrafficConfig(req_rate=20000.0, n_svc=4, flash_rate=0.05,
+                        mu_per_chip=0.1)
+    loud = _router(dataclasses.replace(pcfg, traffic=ptc), 12.0, 0.75)
+    zero = dataclasses.replace(pcfg, traffic=dataclasses.replace(
+        ptc, req_rate=0.0))
+    pjobs = S.generate_jobs(loud)
+    fc = S.synthetic_lifecycle_fleet(48, pcfg, chips_per_node=64, device=dev)
+    fp = S.synthetic_lifecycle_fleet(48, pcfg, chips_per_node=64,
+                                     device="cpu")
+    t0 = time.perf_counter()
+    (base, h, sc, zh, zs), cnt = counted(lambda: (
+        S.simulate_fleet(*fc, pcfg, jobs=pjobs),
+        S.simulate_fleet(*fc, loud, jobs=pjobs),
+        S.simulate_fleet_scan(*fc, loud, jobs=pjobs),
+        S.simulate_fleet(*fc, zero, jobs=pjobs),
+        S.simulate_fleet_scan(*fc, zero, jobs=pjobs)))
+    probe_s = time.perf_counter() - t0
+    add(cnt)
+    check(cnt["maiz_topk"] > 0 and cnt["maiz_topk_b"] > 0,
+          f"[13] the probe launched no K2 or K4: {cnt}")
+    hp = S.simulate_fleet(*fp, loud, jobs=pjobs)
+    par = bench["parity"]
+    want = (par["req_served"], par["p99_violations"])
+    for name, r in (("card host loop", h), ("card scan", sc),
+                    ("CPU host loop", hp)):
+        check((r.req_served, r.p99_violations) == want,
+              f"[13] probe {name}: served/violations "
+              f"{(r.req_served, r.p99_violations)} != the bench's {want}")
+        check(_digest(r) == bench["placement_digest"],
+              f"[13] probe {name}: digest {_digest(r)}")
+        check(r.tenant_request_g is not None
+              and r.tenant_request_g[-1] == 0.0
+              and abs(r.tenant_request_g.sum() / r.req_gco2 - 1) <= 1e-4,
+              f"[13] probe {name}: tenant request bins "
+              f"{r.tenant_request_g}")
+    check(h.req_offered == sc.req_offered == hp.req_offered,
+          "[13] probe: offered requests differ between the drivers")
+    check(_digest(base) == bench["placement_digest"],
+          f"[13] probe without traffic: digest {_digest(base)} != "
+          f"{bench['placement_digest']}")
+    check(_same_run(h, hp, 0.0) and h.req_gco2 == hp.req_gco2
+          and h.req_p99_s == hp.req_p99_s,
+          "[13] probe: the card's host loop != the CPU's")
+    rel = abs(sc.req_gco2 / h.req_gco2 - 1)
+    check(rel <= 1e-4 and abs(sc.req_p99_s / h.req_p99_s - 1) <= 1e-3,
+          f"[13] probe: request gCO2 scan vs host off by {rel:.3g}")
+    for name, r in (("host loop", zh), ("scan", zs)):
+        check(_digest(r) == _digest(base) and _requests(r) == (0, 0, 0)
+              and r.req_gco2 == 0.0,
+              f"[13] probe at zero QPS: the {name} is not a no-op")
+    say(f"[13] (a) probe n=48, 24 epochs: served {h.req_served}, offered "
+        f"{h.req_offered}, {h.p99_violations} violations on the card's host "
+        f"loop and scan and the CPU's host loop (bench: {want}); digest "
+        f"{_digest(h)} with and without traffic; req gCO2 host "
+        f"{h.req_gco2!r} vs scan {sc.req_gco2!r} (rel {rel:.3g}), p99 "
+        f"{h.req_p99_s!r} vs {sc.req_p99_s!r} s; tenant request bins "
+        f"{sc.tenant_request_g.tolist()}; zero QPS a no-op; five runs "
+        f"{probe_s:.1f} s, launches {cnt}")
+
+    # ---- (b) the (SLO x greenness) grid at the bench's size -------------
+    n, T = TRAFFIC_N, TRAFFIC_EPOCHS
+    tc = TrafficConfig(req_rate=TRAFFIC_QPS, n_svc=4, flash_rate=0.0,
+                       mu_per_chip=0.1)
+    runs, metas = [], []
+    for seed in TRAFFIC_SEEDS:
+        cfg = S.SimConfig(epochs=T, seed=seed, arrival_rate=n / 3.0,
+                          mean_duration_h=10.0, shortlist=16, history_h=48,
+                          horizon_h=8, chips_lo=8, chips_hi=32, traffic=tc,
+                          use_kernel=True)
+        fl = S.synthetic_lifecycle_fleet(n, cfg, chips_per_node=64,
+                                         device=dev)
+        jobs = S.generate_jobs(cfg)
+        for slo in TRAFFIC_SLOS:
+            for g in TRAFFIC_GAMMAS:
+                runs.append(fl + (_router(cfg, slo, g), jobs))
+                metas.append((slo, g, seed))
+    keys = {S._bucket_key(S._prepare_scan_run(*sp[:4], sp[4]))
+            for sp in runs}
+    check(len(keys) == 1, f"[13] the grid split into {len(keys)} buckets")
+    S.simulate_fleet_ensemble(
+        [sp[:3] + (dataclasses.replace(sp[3], epochs=2),
+                   S.generate_jobs(dataclasses.replace(sp[3], epochs=2)))
+         for sp in runs])                                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, cnt = counted(lambda: S.simulate_fleet_ensemble(runs))
+    grid_ms = (time.perf_counter() - t0) * 1e3 / T
+    add(cnt)
+    # the engines take the frozen lo/hi of their context: K4 ranks, K3
+    # does not run here
+    check(cnt["maiz_topk_b"] > 0, f"[13] the grid launched no K4: {cnt}")
+    recorded = {(r["slo_s"], r["greenness"], r["seed"]): r
+                for r in bench["grid"]}
+    check(len(recorded) == len(runs) == 75,
+          f"[13] grid: {len(runs)} lanes, {len(recorded)} recorded")
+    recs, worst = [], [0.0, 0.0]
+    for (slo, g, seed), r in zip(metas, res):
+        served = max(r.req_served, 1)
+        rec = {"policy": f"slo{slo:g}_g{g:g}", "seed": seed, "slo_s": slo,
+               "greenness": g, "miss_rate": r.p99_violations / served,
+               "req_p99_s": r.req_p99_s, "g_per_req": r.req_gco2 / served}
+        recs.append(rec)
+        w = recorded[(slo, g, seed)]
+        e_g = abs(rec["g_per_req"] / w["g_per_req"] - 1)
+        e_p = abs(rec["req_p99_s"] / w["req_p99_s"] - 1)
+        worst = [max(worst[0], e_g), max(worst[1], e_p)]
+        check(rec["miss_rate"] == w["miss_rate"] and e_g <= 1e-4
+              and e_p <= 1e-3,
+              f"[13] grid lane (slo {slo}, γ {g}, seed {seed}): miss rate "
+              f"{rec['miss_rate']!r} vs {w['miss_rate']!r}, g/req rel "
+              f"{e_g:.3g}, p99 rel {e_p:.3g}")
+    front = S.pareto_frontier(recs, x="req_p99_s", y="g_per_req")
+    xs = [p["req_p99_s"] for p in front]
+    ys = [p["g_per_req"] for p in front]
+    monotone = (all(b > a for a, b in zip(xs, xs[1:]))
+                and all(b < a for a, b in zip(ys, ys[1:])))
+    check(len(front) == bench["frontier_points"] == 8 and monotone,
+          f"[13] frontier: {len(front)} points, monotone {monotone}")
+    mid = TRAFFIC_SLOS[len(TRAFFIC_SLOS) // 2]
+    by = dict(zip(metas, res))
+    gs = [float(np.mean([by[(mid, g, s)].req_gco2
+                         / max(by[(mid, g, s)].req_served, 1)
+                         for s in TRAFFIC_SEEDS])) for g in TRAFFIC_GAMMAS]
+    saving = 100.0 * (1.0 - gs[-1] / gs[0])
+    check(abs(saving - bench["greenness_saving_pct"]) <= 0.01
+          and all(b <= a * (1.0 + 1e-9) for a, b in zip(gs, gs[1:])),
+          f"[13] greenness saving at SLO {mid}: {saving:.4f} % vs "
+          f"{bench['greenness_saving_pct']:.4f} %")
+    # the middle SLO's seed-1 lanes against their own host loops
+    t0 = time.perf_counter()
+    hosts = [(i, S.simulate_fleet(*runs[i][:4], jobs=runs[i][4]))
+             for i, m in enumerate(metas)
+             if m[0] == mid and m[2] == TRAFFIC_SEEDS[0]]
+    host_ms = (time.perf_counter() - t0) * 1e3 / (T * len(hosts))
+    for i, hr in hosts:
+        check(_same_run(res[i], hr) and _requests(res[i]) == _requests(hr)
+              and _digest(res[i]) == _digest(hr)
+              and abs(res[i].req_gco2 / hr.req_gco2 - 1) <= 1e-4,
+              f"[13] grid lane {metas[i]} != its host loop")
+    short = [sp[:3] + (dataclasses.replace(sp[3], epochs=4),
+                       S.generate_jobs(dataclasses.replace(sp[3], epochs=4)))
+             for sp in runs]
+    _, dev_ms, prof_ms, prof_top = device_busy(
+        lambda: S.simulate_fleet_ensemble(short), top=6)
+    say(f"[13] (b) grid {len(runs)} lanes (SLO {TRAFFIC_SLOS} x γ "
+        f"{TRAFFIC_GAMMAS} x seeds {TRAFFIC_SEEDS}) x n={n} x {T} epochs, "
+        f"one bucket: {grid_ms:.1f} ms/epoch wall, profiled device time "
+        + ("not measured" if dev_ms is None else f"{dev_ms / 4:.3f} ms")
+        + f" per epoch (4 epochs {busy_note(dev_ms, prof_ms)}), "
+        f"{res[0].host_syncs / T:.2f} host syncs/epoch, launches {cnt}; "
+        f"every lane == the bench's record (worst g/req rel {worst[0]:.3g}, "
+        f"p99 rel {worst[1]:.3g}); {len(hosts)} host loops {host_ms:.1f} "
+        f"ms/epoch each, == their lanes")
+    say(f"[13] (b) 4 profiled epochs: {prof_top}")
+    say(f"[13] (b) frontier ({len(front)} points): " + json.dumps(
+        [{k: p[k] for k in ("policy", "req_p99_s", "g_per_req",
+                            "miss_rate")} for p in front]))
+    say(f"[13] (b) greenness at SLO {mid}: g/req {gs}, saving "
+        f"{saving:.4f} % (bench {bench['greenness_saving_pct']:.4f} %)")
+
+    # ---- (c) the router on phase 9's fleet-scale lanes ------------------
+    cfg9, runs9, ens_off = ens9
+    specs = [sp for _, _, sp in runs9]
+    on = [sp[:3] + (dataclasses.replace(sp[3], traffic=tc),
+                    S.generate_jobs(dataclasses.replace(sp[3], traffic=tc)))
+          for sp in specs]
+    T9 = cfg9.epochs
+    S.simulate_fleet_ensemble(
+        [sp[:3] + (dataclasses.replace(sp[3], epochs=2),
+                   S.generate_jobs(dataclasses.replace(sp[3], epochs=2)))
+         for sp in on])                                        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = S.simulate_fleet_ensemble(specs)
+    torch.cuda.synchronize()
+    off_ms = (time.perf_counter() - t0) * 1e3 / T9
+    t0 = time.perf_counter()
+    res_on, cnt = counted(lambda: S.simulate_fleet_ensemble(on))
+    on_ms = (time.perf_counter() - t0) * 1e3 / T9
+    add(cnt)
+    for (name, seed, _), a, b, c in zip(runs9, res_on, ens_off, off):
+        check(_same_run(a, b, 0.0) and _same_run(c, b, 0.0)
+              and a.emissions_g == b.emissions_g,
+              f"[13] fleet lane ({name}, seed {seed}) with traffic != "
+              "phase 9's lane")
+        check(a.req_served > 0, f"[13] fleet lane ({name}, seed {seed}) "
+              "served nothing")
+    h0 = S.simulate_fleet(*on[0][:4], jobs=on[0][4])
+    check(_requests(h0) == _requests(res_on[0])
+          and abs(res_on[0].req_gco2 / h0.req_gco2 - 1) <= 1e-4
+          and abs(res_on[0].req_p99_s / h0.req_p99_s - 1) <= 1e-3,
+          f"[13] fleet lane 0: requests {_requests(res_on[0])} != its host "
+          f"loop's {_requests(h0)}")
+    short_on = [sp[:3] + (dataclasses.replace(sp[3], epochs=4),
+                          S.generate_jobs(dataclasses.replace(sp[3],
+                                                              epochs=4)))
+                for sp in on]
+    short_off = [sp[:3] + (dataclasses.replace(sp[3], traffic=None),
+                           sp[4]) for sp in short_on]
+    ops_off, dms_off = device_ops(
+        lambda: S.simulate_fleet_ensemble(short_off))
+    ops_on, dms_on = device_ops(lambda: S.simulate_fleet_ensemble(short_on))
+    ops_note = ("not measured" if ops_on is None or ops_off is None else
+                f"{ops_off / 4:.1f} -> {ops_on / 4:.1f} device ops/epoch "
+                f"(+{(ops_on - ops_off) / 4:.1f}), device "
+                f"{dms_off / 4:.3f} -> {dms_on / 4:.3f} ms/epoch")
+    say(f"[13] (c) phase 9's {len(on)} lanes x n={SIM_N} x {T9} epochs "
+        f"with the router: placements and traffic-free counters == phase "
+        f"9's, lane 0's requests == its host loop ({_requests(h0)}); "
+        f"traffic off {off_ms:.1f} -> on {on_ms:.1f} ms/epoch wall "
+        f"(+{on_ms - off_ms:.1f}), {ops_note}; host syncs/epoch "
+        f"{off[0].host_syncs / T9:.2f} off, {res_on[0].host_syncs / T9:.2f}"
+        f" on; launches {cnt}")
+    router_cost(dev, len(on), max(
+        S._prepare_scan_run(*sp[:4], sp[4], pad_plan=True).plan.slots
+        for sp in on))
+    say(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def router_cost(dev, L, slots, reps=20):
+    """Step 5b's two parts alone on (L, slots) seeded slot tables: one
+    ``route_epoch_batched`` call and ``modeled_p99`` unrolled to 64 and 32
+    chips (synchronized wall ms per call and device ops per call)."""
+    import torch
+    from repro_torch.core import router as R
+    g = np.random.default_rng(0)
+
+    def t(lo, hi, dtype=np.int32):
+        return torch.from_numpy(g.integers(lo, hi, (L, slots)).astype(
+            dtype)).to(dev)
+    args = dict(req_t=torch.full((L,), 20000, dtype=torch.int32,
+                                 device=dev),
+                svc=t(-1, 4), jid=t(0, 1 << 20),
+                weight=t(1, 5), cap=t(0, 3000),
+                carbon=t(100, 900, np.float32), n_svc=4,
+                greenness=torch.full((L,), 0.75, device=dev))
+    routed, _ = R.route_epoch_batched(**args)
+    chips = t(8, 33)
+    mu = torch.full((L, 1), 0.1, device=dev)
+    parts = {"route_epoch_batched": lambda: R.route_epoch_batched(**args),
+             "modeled_p99 to 64": lambda: R.modeled_p99(torch, routed, chips,
+                                                        64, mu),
+             "modeled_p99 to 32": lambda: R.modeled_p99(torch, routed, chips,
+                                                        32, mu)}
+    out = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        ops, _ = device_ops(fn)
+        out.append(f"{name} {ms:.3f} ms, {ops} device ops")
+    say(f"[13] (c) step 5b's parts alone at {L} lanes x {slots} slots: "
+        + "; ".join(out))
 
 
 def _allclose_err(got, want, bar):
@@ -1781,10 +2124,11 @@ def main() -> int:
     n5 = phase_simulator(dev)
     phase_scenario_c(dev)
     n8 = phase_batched_ranking(dev)
-    n9 = phase_ensemble(dev)
+    n9, ens9 = phase_ensemble(dev)
     n11 = phase_serving(dev)
     n12 = phase_policies(dev)
-    for part in (n3, n4, n5, n8, n9, n11, n12):
+    n13 = phase_traffic(dev, ens9)
+    for part in (n3, n4, n5, n8, n9, n11, n12, n13):
         for k, v in part.items():
             launches[k] += v
     for k in launches:

@@ -17,7 +17,12 @@ Each hourly epoch:
 4. admits the seeded arrival stream (deferrable jobs may wait for a
    greener hour), placing every event through ONE lifecycle-engine call;
 5. accounts emissions in f64 numpy on the host, per tenant too when
-   ``n_tenants > 0``.
+   ``n_tenants > 0``;
+5b. with ``SimConfig.traffic``, routes the epoch's fleet requests across
+   the placed serving replicas (``repro_torch.core.router``) and
+   attributes their gCO2.  The router reads the post-placement job table
+   and never feeds back, so every traffic-free result stays bitwise as it
+   is.
 
 ``SimConfig.faults`` (``repro_torch.core.faults``) degrades every signal
 the policies read — the observed CI trace, the forecast service, the
@@ -42,14 +47,13 @@ epoch for all lanes (the scan is its one-lane case), and
 ``sweep_policies`` drives a (policy x seed) grid through it.  Placements
 and counters match the host loop exactly, emissions to f32 tolerance.
 
-Not ported yet (raise ``NotImplementedError``): serving traffic and its
-router (ROADMAP Queue 1 item 7b) and the ensemble's device sharding
-(item 1).
+Not ported yet (raises ``NotImplementedError``): the ensemble's sharding
+over more than one device (ROADMAP Queue 1 item 1).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +61,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import forecast, telemetry
 from repro_torch.core import policy as policylib
+from repro_torch.core import router as routerlib
 from repro_torch.core.energy import DEFAULT_ENERGY, EnergyModel
 from repro_torch.core.faults import (FaultConfig, FaultPlan, fault_graph_key,
                                      plan_faults)
@@ -66,6 +71,9 @@ from repro_torch.core.placement import (HostSyncs, place_lifecycle_batched,
                                         place_lifecycle_shortlist)
 from repro_torch.core.policy import Policy, PolicyConfig
 from repro_torch.core.ranking import RankWeights
+from repro_torch.core.traffic import (TrafficConfig, TrafficPlan,
+                                      plan_traffic, traffic_graph_key,
+                                      validate_qps_weights)
 
 # job state machine
 _PENDING, _ACTIVE, _DONE, _DROPPED = 0, 1, 2, 3
@@ -96,8 +104,12 @@ class SimConfig:
     # None = perfect signals; a FaultConfig degrades every signal the
     # policies read while emission accounting stays on ground truth
     faults: Optional[FaultConfig] = None
-    # not ported yet; anything but None raises (ROADMAP Queue 1 item 7b)
-    traffic: Optional[Any] = None
+    # None = no serving layer; a TrafficConfig attaches a seeded fleet-QPS
+    # stream that the router splits across the placed serving replicas
+    # every epoch under ``policy.router_slo_s`` (step 5b).  Only
+    # traffic_graph_key(traffic), the service count, shapes the scanned
+    # trajectory; rates, SLO and greenness are per-lane data
+    traffic: Optional[TrafficConfig] = None
     # --- migration ---
     migration_budget: int = 0       # max policy migrations / epoch
     migration_overhead_h: float = 0.05   # checkpoint+restore wall clock
@@ -120,14 +132,6 @@ class SimConfig:
         return self.weights.w2 != 0.0
 
 
-def _check_ported(cfg: SimConfig) -> None:
-    """Raise on the one option this slice of the port does not run."""
-    if cfg.traffic is not None:
-        raise NotImplementedError(
-            "SimConfig.traffic (serving requests) is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 7b)")
-
-
 def _outage_windows(outage) -> Tuple[Tuple[int, int, int], ...]:
     """``SimConfig.outage`` as a tuple of (region, t0, len) windows."""
     if outage is None:
@@ -145,7 +149,10 @@ class JobSchedule:
     ``deadline``/``value`` are the SLO-deferral columns (start slack in
     epochs, queue-priority value); ``None`` means the policy layer derives
     the reactive defaults (``policy.Policy.for_jobs``).  ``tenant`` is the
-    attribution column (``SimConfig.n_tenants``)."""
+    attribution column (``SimConfig.n_tenants``).  ``svc_class`` /
+    ``qps_weight`` are the serving columns (the service a placed replica
+    belongs to and its share of that service's QPS); ``None`` or
+    ``svc_class < 0`` means the job serves no requests."""
     arrive: np.ndarray      # (J,) epoch of arrival
     chips: np.ndarray       # (J,) chip demand
     duration: np.ndarray    # (J,) epochs of runtime
@@ -154,6 +161,8 @@ class JobSchedule:
     deadline: Optional[np.ndarray] = None   # (J,) start slack in epochs
     value: Optional[np.ndarray] = None      # (J,) f32 job value
     tenant: Optional[np.ndarray] = None     # (J,) tenant id (attribution)
+    qps_weight: Optional[np.ndarray] = None  # (J,) i32 QPS share weight
+    svc_class: Optional[np.ndarray] = None   # (J,) i32 service; -1 = none
 
     @property
     def n(self) -> int:
@@ -164,9 +173,9 @@ def generate_jobs(cfg: SimConfig) -> JobSchedule:
     """Seeded stochastic arrival stream: Poisson with diurnal modulation and
     an optional flash crowd; geometric durations; uniform chip demands.
     The reference's numpy draws in the reference's order: the reactive
-    columns, then the SLO columns, then the tenant ids, so turning a later
-    column on perturbs none of the earlier ones."""
-    _check_ported(cfg)
+    columns, then the SLO columns, then the tenant ids, then the serving
+    columns, so turning a later column on perturbs none of the earlier
+    ones."""
     rng = np.random.default_rng(np.uint64(cfg.seed) * np.uint64(977) + 13)
     t = np.arange(cfg.epochs)
     rate = np.full(cfg.epochs, float(cfg.arrival_rate))
@@ -194,11 +203,20 @@ def generate_jobs(cfg: SimConfig) -> JobSchedule:
     tenant = None
     if cfg.n_tenants > 0:
         tenant = rng.integers(0, cfg.n_tenants, J).astype(np.int32)
+    qps_weight = svc_class = None
+    if traffic_graph_key(cfg.traffic) > 0:
+        tc = cfg.traffic
+        serving = rng.random(J) < tc.serve_frac
+        svc_class = np.where(serving, rng.integers(0, tc.n_svc, J),
+                             -1).astype(np.int32)
+        qps_weight = np.where(serving, rng.integers(1, tc.weight_hi + 1, J),
+                              0).astype(np.int32)
     return JobSchedule(arrive=arrive, chips=chips.astype(np.int64),
                        duration=duration.astype(np.int64),
                        load=chips.astype(np.float64),
                        deferrable=deferrable, deadline=deadline,
-                       value=value, tenant=tenant)
+                       value=value, tenant=tenant,
+                       qps_weight=qps_weight, svc_class=svc_class)
 
 
 @dataclasses.dataclass
@@ -227,6 +245,17 @@ class SimResult:
     # bin is the unattributed idle/overhead remainder; the bins sum to
     # emissions_g
     tenant_emissions_g: Optional[np.ndarray] = None
+    # --- request-serving layer (SimConfig.traffic; see core.router) ---
+    req_served: int = 0             # requests routed onto replicas
+    req_offered: int = 0            # requests offered to active services
+    # request-attributed gCO2: a slice of the node energy already counted
+    # in emissions_g, not added to it
+    req_gco2: float = 0.0
+    p99_violations: int = 0         # replica-epochs routed above lambda_max
+    req_p99_s: float = 0.0          # request-weighted modeled p99 (s)
+    # (n_tenants + 1,) request gCO2 per tenant (the spare last bin stays
+    # 0); the bins sum to req_gco2
+    tenant_request_g: Optional[np.ndarray] = None
     # device reads the scanned driver waited for (its whole bucket's, each
     # a loop test of the batched placement engine); 0 for the host loop
     host_syncs: int = 0
@@ -352,6 +381,20 @@ def _tenant_column(cfg: SimConfig, jobs: JobSchedule) -> Optional[np.ndarray]:
     return np.asarray(jobs.tenant, np.int64)
 
 
+def _traffic_plan(cfg: SimConfig, jobs: JobSchedule
+                  ) -> Optional[TrafficPlan]:
+    """The run's materialized request stream (None without serving),
+    after checking the schedule's serving columns."""
+    if traffic_graph_key(cfg.traffic) == 0:
+        return None
+    validate_qps_weights(jobs.qps_weight)
+    if jobs.svc_class is None:
+        raise ValueError("SimConfig.traffic requires a JobSchedule "
+                         "svc_class column (generate_jobs draws it when "
+                         "cfg.traffic is set)")
+    return plan_traffic(cfg.traffic, cfg.epochs, cfg.seed)
+
+
 # ---------------------------------------------------------------------------
 # the simulator
 # ---------------------------------------------------------------------------
@@ -367,7 +410,6 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
     to regions via ``ridx``.  Epoch t reads column ``history_h + t`` as
     ``ci_now`` and feeds the trailing ``history_h`` window to the FCFP
     forecaster.  ``jobs`` defaults to ``generate_jobs(cfg)``."""
-    _check_ported(cfg)
     N, T = fleet0.n, cfg.epochs
     jobs = jobs if jobs is not None else generate_jobs(cfg)
     J = jobs.n
@@ -448,6 +490,28 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
     ten = _tenant_column(cfg, jobs)
     n_ten = int(cfg.n_tenants)
     tenant_g = np.zeros(n_ten + 1) if n_ten else None
+
+    # request-serving traffic: the router reads the job table after the
+    # epoch's placements settle (step 5b) and never feeds back, so every
+    # traffic-free result stays bitwise as it is
+    tplan = _traffic_plan(cfg, jobs)
+    n_svc = traffic_graph_key(cfg.traffic)
+    req_served = req_offered = req_viol = 0
+    req_g = p99_wsum = 0.0
+    ten_req = None
+    if n_svc > 0:
+        tcfg = cfg.traffic
+        svc_col = np.asarray(jobs.svc_class, np.int32)
+        w_col = np.asarray(jobs.qps_weight, np.int32)
+        c_max_r = int(np.max(jobs.chips, initial=1))
+        # per-replica admissible rate: the M/M/c inversion runs once here
+        # in f64; every driver gathers from the same int32 table
+        lam_cap = routerlib.lambda_caps(c_max_r, tcfg.mu_per_chip,
+                                        cfg.policy.router_slo_s)
+        pue32 = fleet0.pue.cpu().numpy().astype(np.float32)
+        green32 = np.float32(cfg.policy.router_greenness)
+        req_kwh = float(em_host.req_kwh(1.0 / tcfg.mu_per_chip))
+        ten_req = np.zeros(n_ten + 1) if n_ten else None
 
     def epoch_step(a, dem, tgt):
         return _epoch_core(
@@ -701,6 +765,34 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
             util_m[:, t] = load_on
             on_m[:, t] = on.astype(np.float64)
 
+        # ---- 5b. request routing + serving attribution --------------
+        # lanes are the epoch's post-placement active jobs in job-id
+        # order; the routing DECISION reads the observed CI column (f32,
+        # as the scanned driver does), the ATTRIBUTION the true one (f64)
+        if n_svc > 0:
+            act_r = np.where(jstate == _ACTIVE)[0]
+            jn = jnode[act_r]
+            ci_r32 = np.asarray(obs_ci[:, a], np.float32)
+            carbon = pue32[jn] * ci_r32[ridx[jn]]
+            chips_l = np.asarray(jobs.chips[act_r], np.int64)
+            cap_l = lam_cap[np.minimum(chips_l, c_max_r)]
+            routed, offered = routerlib.route_epoch(
+                np, req_t=np.int32(tplan.req[t]), svc=svc_col[act_r],
+                jid=act_r.astype(np.int32), weight=w_col[act_r],
+                cap=cap_l, carbon=carbon, n_svc=n_svc, greenness=green32)
+            req_served += int(routed.sum())
+            req_offered += int(offered[:n_svc].sum())
+            req_viol += int(((routed > cap_l)
+                             & (svc_col[act_r] >= 0)).sum())
+            g_lane = routed.astype(np.float64) * (
+                req_kwh * pue_h[jn] * ci_col[jn])
+            req_g += float(g_lane.sum())
+            p99_l = routerlib.modeled_p99(np, routed, chips_l, c_max_r,
+                                          tcfg.mu_per_chip)
+            p99_wsum += float((routed.astype(np.float64) * p99_l).sum())
+            if n_ten:
+                np.add.at(ten_req, ten[act_r], g_lane)
+
     # jobs still waiting in a deferral queue when the horizon ends were
     # never run: account them as dropped and as deadline misses (every
     # queued job has slack > 0)
@@ -723,7 +815,11 @@ def simulate_fleet(fleet0: Fleet, region_ci: np.ndarray, ridx: np.ndarray,
                      safe_epochs=int(fplan.safe.sum())
                      if fplan is not None else 0,
                      start_epoch=jstart, util=util_m, on=on_m,
-                     tenant_emissions_g=tenant_g)
+                     tenant_emissions_g=tenant_g,
+                     req_served=req_served, req_offered=req_offered,
+                     req_gco2=req_g, p99_violations=req_viol,
+                     req_p99_s=p99_wsum / max(req_served, 1),
+                     tenant_request_g=ten_req)
 
 
 def _place_blind(dem: np.ndarray, tgt: np.ndarray, cap: np.ndarray,
@@ -860,6 +956,7 @@ class _Dims:
     policy: PolicyConfig
     n_ten: int              # tenant bins - 1 (0 = no attribution)
     faults: tuple           # faults.fault_graph_key
+    n_svc: int              # traffic_graph_key (0 = no serving layer)
 
     @property
     def planner(self) -> bool:
@@ -883,6 +980,7 @@ class _ScanRun:
     statics: tuple
     mig_nmax: int           # widest region (columns of the mig_perm table)
     fplan: Optional[FaultPlan] = None   # materialized fault streams
+    tplan: Optional[TrafficPlan] = None  # materialized request stream
 
 
 def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
@@ -893,7 +991,6 @@ def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
         raise ValueError(
             f"scanned core supports engine='shortlist'|'full', got "
             f"{cfg.engine!r} (blind/spread comparators are host-only)")
-    _check_ported(cfg)
     jobs = jobs if jobs is not None else generate_jobs(cfg)
     _tenant_column(cfg, jobs)       # raises when the tenant ids are missing
     pol = Policy.for_jobs(cfg.policy, jobs.arrive, jobs.deferrable,
@@ -908,7 +1005,8 @@ def _prepare_scan_run(fleet0: Fleet, region_ci: np.ndarray,
                     ridx=np.asarray(ridx), cfg=cfg, jobs=jobs, pol=pol,
                     plan=plan, statics=statics,
                     mig_nmax=max(int(sizes.max(initial=0)), 1),
-                    fplan=_fault_plan(cfg, region_ci, ridx, fleet0.n))
+                    fplan=_fault_plan(cfg, region_ci, ridx, fleet0.n),
+                    tplan=_traffic_plan(cfg, jobs))
 
 
 def _bucket_key(run: _ScanRun) -> tuple:
@@ -920,7 +1018,7 @@ def _bucket_key(run: _ScanRun) -> tuple:
             _outage_windows(cfg.outage), cfg.power_off_idle,
             float(cfg.consolidate), cfg.policy.graph_key(),
             cfg.n_tenants > 0, fault_graph_key(cfg.faults),
-            str(run.fleet0.device))
+            traffic_graph_key(cfg.traffic), str(run.fleet0.device))
 
 
 def _shared_dims(runs, pad: bool):
@@ -942,7 +1040,8 @@ def _shared_dims(runs, pad: bool):
         history_h=cfg.history_h, defer_max_h=cfg.defer_max_h, outage=outs,
         power_off_idle=cfg.power_off_idle,
         consolidate=float(cfg.consolidate), policy=cfg.policy.graph_key(),
-        n_ten=max(r.cfg.n_tenants for r in runs), faults=fkey)
+        n_ten=max(r.cfg.n_tenants for r in runs), faults=fkey,
+        n_svc=traffic_graph_key(cfg.traffic))
     jp = max((_pad_bucket(max(r.jobs.n, 1)) if pad else max(r.jobs.n, 1))
              for r in runs)
     return dims, jp, max(r.mig_nmax for r in runs)
@@ -1042,6 +1141,23 @@ def _build_arrs(run: _ScanRun, dims: _Dims, jp: int, mig_nmax: int,
             arrs["f_mig_fail"] = torch.from_numpy(fp.mig_fail).to(dev)
         if dims.faults[2]:
             arrs["f_elig"] = torch.from_numpy(fp.eligible).to(dev)
+    if dims.n_svc > 0:
+        # serving: the request stream and the host-built M/M/c capacity
+        # table (the bucket's chips_max; each entry bisected on its own,
+        # so its prefix is the host loop's table) as integer data, the
+        # SLO/greenness knobs per lane, so a (SLO x greenness) grid is one
+        # bucket
+        tc = cfg.traffic
+        arrs.update(
+            tr_req=torch.from_numpy(run.tplan.req).to(dev),
+            svc=jconst(jobs.svc_class, -1, np.int64),
+            qweight=jconst(jobs.qps_weight, 0, np.int64),
+            lam_cap=torch.from_numpy(routerlib.lambda_caps(
+                dims.chips_max, tc.mu_per_chip,
+                cfg.policy.router_slo_s)).to(dev),
+            greenness=f32(cfg.policy.router_greenness),
+            tr_mu=f32(tc.mu_per_chip),
+            en_reqkwh=f32(em.req_kwh(1.0 / tc.mu_per_chip)))
     if cfg.use_forecast:
         key = (id(region_ci), id(fleet0))
         if fp is not None:
@@ -1153,7 +1269,7 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
     fault_mig = fault_mig and budget > 0
     slo = pcfg.deferral == "slo"
     planner = dims.planner and use_forecast
-    n_ten = dims.n_ten
+    n_ten, n_svc = dims.n_ten, dims.n_svc
     m_cap = budget + m_evict
     n_narr = d_cap + a_max
     has_defer = d_cap > 0
@@ -1505,6 +1621,43 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
                 # migration overhead is charged to the mover's tenant
                 ten_t = ten_t + tenant_sum(mid["mig_ten"], mid["mc_vec"])
             ys["ten_t"] = ten_t
+        if n_svc > 0:
+            # ---- 5b. request routing + serving attribution ---------------
+            # lanes are the post-update slot tables (the host loop routes
+            # over the end-of-epoch active jobs); the DECISION reads the
+            # observed CI column, the ATTRIBUTION the true one; the counts
+            # stay on the device with the other outputs (no read-back)
+            occ_r = slot_jid >= 0
+            r_jid = slot_jid.clamp(min=0)
+            svc_l = torch.where(occ_r, arrs["svc"].gather(1, r_jid), -1)
+            w_l = torch.where(occ_r, arrs["qweight"].gather(1, r_jid), 0)
+            chips_l = torch.where(occ_r, chips_d.gather(1, r_jid), 0)
+            cap_l = torch.where(occ_r, arrs["lam_cap"].gather(
+                1, chips_l.clamp(0, chips_max)), 0)
+            node_l = slot_node.clamp(0, N - 1)
+            pue_l = pue.gather(1, node_l)
+            carbon_l = pue_l * mid["ci_col"].gather(1, node_l)
+            routed, offered = routerlib.route_epoch_batched(
+                req_t=arrs["tr_req"][:, t], svc=svc_l, jid=slot_jid,
+                weight=w_l, cap=cap_l, carbon=carbon_l, n_svc=n_svc,
+                greenness=arrs["greenness"])
+            g_lane = routed.to(torch.float32) * (
+                arrs["en_reqkwh"][:, None]
+                * (pue_l * mid["ci_true"].gather(1, node_l)))
+            p99_l = routerlib.modeled_p99(torch, routed, chips_l, chips_max,
+                                          arrs["tr_mu"][:, None])
+            # the float sums in float64: no atomics, and each device's
+            # order moves them far less than the reference's f32 sums
+            ys.update(
+                served_t=routed.sum(1, dtype=torch.int64),
+                offered_t=offered[:, :n_svc].sum(1, dtype=torch.int64),
+                viol_t=((routed > cap_l) & (svc_l >= 0)).sum(1),
+                reqg_t=g_lane.to(torch.float64).sum(1),
+                p99w_t=(routed.to(torch.float32) * p99_l).to(
+                    torch.float64).sum(1))
+            if n_ten > 0:
+                ys["tenreq_t"] = tenant_sum(torch.where(
+                    occ_r, arrs["tenant"].gather(1, r_jid), n_ten), g_lane)
         carry = (cap2, njobs, slot_jid, slot_node, slot_end, defer_ids,
                  mid["mig_cost"], overflow)
         if fault_mig:
@@ -1606,6 +1759,18 @@ def _scan_result(run: _ScanRun, carry, ys, host_syncs: int) -> SimResult:
         # extra bins are zero, and the idle/remainder bin sits last
         tg = ys["ten_t"].sum(axis=0)
         tenant_g = np.concatenate([tg[:n_run], tg[-1:]])
+    req_kw = {}
+    if "served_t" in ys:
+        served = int(ys["served_t"].sum())
+        req_kw = dict(req_served=served,
+                      req_offered=int(ys["offered_t"].sum()),
+                      p99_violations=int(ys["viol_t"].sum()),
+                      req_gco2=float(ys["reqg_t"].sum()),
+                      req_p99_s=float(ys["p99w_t"].sum()) / max(served, 1))
+        if n_run:
+            tr = ys["tenreq_t"].sum(axis=0)
+            req_kw["tenant_request_g"] = np.concatenate([tr[:n_run],
+                                                         tr[-1:]])
     return SimResult(
         emissions_g=float(series.sum()) + mig_cost,
         migration_cost_g=mig_cost,
@@ -1625,7 +1790,7 @@ def _scan_result(run: _ScanRun, carry, ys, host_syncs: int) -> SimResult:
         safe_epochs=int(run.fplan.safe.sum())
         if run.fplan is not None else 0,
         start_epoch=start_epoch, tenant_emissions_g=tenant_g,
-        host_syncs=host_syncs)
+        host_syncs=host_syncs, **req_kw)
 
 
 def _run_bucket(members, pad_plan: bool) -> list:
@@ -1689,13 +1854,11 @@ def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
     lane axis and buffer sizes are the member-wise maxima.  Each epoch's
     placement is one ``place_lifecycle_batched`` call for all lanes:
     ``use_kernel=True`` lanes run one K4 launch per placement round.
-    ``shard`` (spreading lanes or the node axis over several devices) is
-    not ported."""
-    if shard:
-        raise NotImplementedError(
-            "simulate_fleet_ensemble(shard=...) — the ('e', 'n') device "
-            "mesh — is not ported to repro_torch yet (ROADMAP Queue 1 "
-            "item 1)")
+    ``shard`` (``True``/``"e"``: lanes over devices; ``"en"``: lanes, then
+    the node axis) on one device runs the unsharded program, as the
+    reference's one-device mesh does; over several devices it is not
+    ported."""
+    _check_shard(shard, [spec[0].device for spec in runs])
     preps = [_prepare_scan_run(spec[0], spec[1], spec[2], spec[3],
                                spec[4] if len(spec) > 4 else None, pad_plan)
              for spec in runs]
@@ -1708,6 +1871,21 @@ def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
                                           pad_plan)):
             results[i] = r
     return results
+
+
+def _device_count(dev: torch.device) -> int:
+    """Devices a sharded ensemble on ``dev``'s type would spread over."""
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _check_shard(shard, devices) -> None:
+    """Validate ``shard``: on one device every form is the unsharded
+    program; sharding over several devices is not ported."""
+    if shard and any(_device_count(torch.device(d)) > 1 for d in devices):
+        raise NotImplementedError(
+            f"shard={shard!r} over more than one device — the ('e', 'n') "
+            "device mesh — is not ported to repro_torch yet (ROADMAP "
+            "Queue 1 item 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -1784,10 +1962,7 @@ def sweep_policies(cfg: SimConfig, policies, *, n: int = 1024,
     if ensemble:
         rs = simulate_fleet_ensemble(runs, pad_plan=True, shard=shard)
     else:
-        if shard:
-            raise NotImplementedError(
-                "sweep_policies(shard=...) is not ported to repro_torch "
-                "yet (ROADMAP Queue 1 item 1)")
+        _check_shard(shard, [r[0].device for r in runs])
         rs = [simulate_fleet_scan(f, t, ri, c, jobs=j, pad_plan=True)
               for f, t, ri, c, j in runs]
     records = []

@@ -6,7 +6,9 @@ sorted tile top-k at every k up to the cap (128), with exact ties, zero
 scores and tiles with fewer than k finite scores, and the merged
 shortlist through tile candidates equal to the full-vector merge; the
 carbon policies, signal faults and tenant attribution on the card equal to
-the CPU (the chaos probe, SLO streams, planner lanes); K5
+the CPU (the chaos probe, SLO streams, planner lanes); the batched QPS
+router, the serving probe and a (SLO x greenness) serving grid on the card
+equal to the CPU; K5
 (bf16 on the tensor cores, f32 on the FMA pipes) and K6 within the JAX
 suite's bars of their plain versions, edge cases included (S 1 and 2048,
 GQA groups, padded head dims, windows, large logits, long and short scan
@@ -433,6 +435,128 @@ def test_planner_lanes_kernel_equal_plain_and_cpu(dev):
         _same(a, b, 1e-6)
         _same(a, c, 1e-6)
         _same(a, h, 1e-4)
+
+
+def _serving_cfg(**kw):
+    """The reference serving bench's probe (benchmarks/run.py:1117-1147)."""
+    from repro_torch.core.traffic import TrafficConfig
+    cfg = S.SimConfig(epochs=24, seed=3, arrival_rate=16.0,
+                      mean_duration_h=10.0, shortlist=16, history_h=48,
+                      horizon_h=8, chips_lo=8, chips_hi=32, use_kernel=True,
+                      traffic=TrafficConfig(req_rate=20000.0, n_svc=4,
+                                            flash_rate=0.05,
+                                            mu_per_chip=0.1), **kw)
+    return cfg
+
+
+def _with_router(cfg, slo, g):
+    return dataclasses.replace(cfg, policy=dataclasses.replace(
+        cfg.policy, router_slo_s=slo, router_greenness=g))
+
+
+def _same_requests(a, b, rel):
+    for f in ("req_served", "req_offered", "p99_violations"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert a.req_gco2 == pytest.approx(b.req_gco2, rel=rel, abs=0)
+    assert a.req_p99_s == pytest.approx(b.req_p99_s, rel=10 * rel, abs=0)
+
+
+def test_route_epoch_batched_card_equals_cpu(dev):
+    """The batched router on seeded (L, S) lanes: every service carrying
+    weight (the first-service mask with several Trues), many equal carbon
+    keys, empty slots with jid -1, infeasible and overloaded lanes: the
+    card's int32 scatter-adds, cumsums and stable sorts give the CPU's
+    split bit for bit; the f32 p99 metric within 1e-6."""
+    from repro_torch.core import router as R
+    rng = np.random.default_rng(17)
+    L, S_, n_svc = 12, 700, 4
+    svc = rng.integers(-1, n_svc, (L, S_)).astype(np.int32)
+    jid = np.stack([rng.permutation(S_) for _ in range(L)]).astype(np.int32)
+    empty = rng.random((L, S_)) < 0.3
+    svc[empty] = -1
+    jid[empty] = -1
+    w = np.where(svc >= 0, rng.integers(1, 5, (L, S_)), 0).astype(np.int32)
+    cap = rng.integers(0, 300, (L, S_)).astype(np.int32)
+    cap[3] = 0                                      # a lane all infeasible
+    carbon = (rng.integers(0, 6, (L, S_)) * np.float32(41.5)).astype(
+        np.float32)
+    req = rng.integers(0, 65535, L).astype(np.int32)
+    req[5] = 65535
+    g = np.array([0.0, 0.25, 0.5, 0.75, 1.0, 1.0, 0.0, 0.5, 0.3, 1.0, 0.9,
+                  0.1], np.float32)
+    args = dict(req_t=req, svc=svc, jid=jid, weight=w, cap=cap,
+                carbon=carbon, greenness=g)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t = {k: torch.from_numpy(v).to(d) for k, v in args.items()}
+        routed, offered = R.route_epoch_batched(n_svc=n_svc, **t)
+        out[d.type] = (routed.cpu(), offered.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    # the first-service argmax: the first of several tied maxima
+    mask = torch.tensor([[0, 1, 1, 1], [1, 1, 0, 1], [0, 0, 0, 1]],
+                        dtype=torch.int32)
+    assert torch.argmax(mask.to(dev), dim=1).tolist() == \
+        torch.argmax(mask, dim=1).tolist() == [1, 0, 3]
+    chips = torch.from_numpy(rng.integers(0, 33, (L, S_)))
+    mu = torch.full((L, 1), 0.1)
+    p_cpu = R.modeled_p99(torch, out["cpu"][0], chips, 32, mu)
+    p_dev = R.modeled_p99(torch, out["cpu"][0].to(dev), chips.to(dev), 32,
+                          mu.to(dev)).cpu()
+    torch.testing.assert_close(p_dev, p_cpu, rtol=1e-6, atol=0)
+
+
+def test_serving_probe_card_scan_equals_cpu_host_loop(dev):
+    """The reference bench's probe (n = 48, 3 tenants, SLO 12 s, γ 0.75):
+    the card's scan and host loop == the CPU's host loop on the request
+    counters and placements, at the reference's recorded 773,913 served,
+    4 violations and digest e6b7b02c6bd36633."""
+    import hashlib
+    cfg = _with_router(_serving_cfg(n_tenants=3), 12.0, 0.75)
+    jobs = S.generate_jobs(cfg)
+    res = {}
+    for d in (dev, "cpu"):
+        f, t, r = S.synthetic_lifecycle_fleet(48, cfg, chips_per_node=64,
+                                              device=d)
+        res[str(d)] = (S.simulate_fleet(f, t, r, cfg, jobs=jobs),
+                       S.simulate_fleet_scan(f, t, r, cfg, jobs=jobs))
+    (hc, sc), (hp, _) = res[str(dev)], res["cpu"]
+    _same(hc, hp, 0.0)
+    _same(sc, hp, 1e-4)
+    _same_requests(hc, hp, 0.0)
+    _same_requests(sc, hp, 1e-4)
+    assert (hp.req_served, hp.p99_violations) == (773913, 4)
+    digest = hashlib.sha256(np.concatenate(
+        [sc.node_log, sc.first_node]).tobytes()).hexdigest()[:16]
+    assert digest == "e6b7b02c6bd36633"
+    for r in (hc, sc):
+        assert r.tenant_request_g[-1] == 0.0
+        assert r.tenant_request_g.sum() == pytest.approx(r.req_gco2,
+                                                         rel=1e-5)
+
+
+def test_serving_grid_ensemble_card_equals_cpu(dev):
+    """A 3 x 3 (SLO x greenness) grid, one bucket of kernel lanes: the
+    card's ensemble == the CPU's lane by lane, K4 launched."""
+    cfg = _serving_cfg()
+    runs = {}
+    for d in (dev, "cpu"):
+        f, t, r = S.synthetic_lifecycle_fleet(48, cfg, chips_per_node=64,
+                                              device=d)
+        runs[str(d)] = [(f, t, r, _with_router(cfg, slo, g))
+                        for slo in (10.5, 12.0, 18.0)
+                        for g in (0.0, 0.5, 1.0)]
+    keys = {S._bucket_key(S._prepare_scan_run(*sp, pad_plan=True))
+            for sp in runs[str(dev)]}
+    assert len(keys) == 1
+    mr.reset_launch_counts()
+    card = S.simulate_fleet_ensemble(runs[str(dev)])
+    assert mr.maiz_topk_b.launches > 0
+    cpu = S.simulate_fleet_ensemble(runs["cpu"])
+    for a, b in zip(card, cpu):
+        _same(a, b, 1e-6)
+        _same_requests(a, b, 1e-6)
+        assert a.req_served > 0
 
 
 def test_green_window_signals_card_equals_cpu(dev):

@@ -232,12 +232,16 @@ def test_sweep_policies_and_pareto_frontier_match_reference():
 
 
 @pytest.mark.parametrize("what", ["shard", "shard_en", "blind"])
-def test_unported_ensemble_options_raise(what):
+def test_unported_ensemble_options_raise(what, monkeypatch):
+    """Sharding over more than one device (ROADMAP Queue 1 item 1) and the
+    host-only comparators refuse.  A second device is faked by the device
+    count the check reads."""
     cp = S.SimConfig(**dict(BASE, epochs=4))
     f, t, r = S.synthetic_lifecycle_fleet(16, cp, device="cpu")
-    kw, err, match = {}, NotImplementedError, "ROADMAP Queue 1 item"
+    kw, err, match = {}, NotImplementedError, "ROADMAP Queue 1 item 1"
     if what.startswith("shard"):
         kw = dict(shard=True if what == "shard" else "en")
+        monkeypatch.setattr(S, "_device_count", lambda dev: 2)
     else:
         cp, err, match = dataclasses.replace(cp, engine="blind"), \
             ValueError, "scanned core"
@@ -247,3 +251,25 @@ def test_unported_ensemble_options_raise(what):
         with pytest.raises(err, match=match):
             S.sweep_policies(cp, {"r": PolicyConfig()}, n=16, device="cpu",
                              **kw)
+
+
+@pytest.mark.parametrize("shard", [True, "e", "en"])
+def test_ensemble_shard_on_one_device_is_the_unsharded_program(shard):
+    """The reference's single-device case (tests/test_simulator_ensemble.py
+    ``test_ensemble_shard_en_single_device_is_noop``): on one device any
+    ``shard`` runs the unsharded program, bit for bit, through the
+    ensemble and ``sweep_policies`` (both of its paths)."""
+    port, _ = _specs([BASE, dict(BASE, seed=4)])
+    plain = S.simulate_fleet_ensemble(port)
+    sharded = S.simulate_fleet_ensemble(port, shard=shard)
+    for a, b in zip(plain, sharded):
+        assert_same(b, a, emissions_rel=0)
+    kw = dict(epochs=6, history_h=24, horizon_h=6, shortlist=8,
+              arrival_rate=4.0)
+    grid = {"r": PolicyConfig()}
+    args = dict(n=16, seeds=(0, 1), chips_per_node=64, device="cpu")
+    want = S.sweep_policies(S.SimConfig(**kw), grid, **args)
+    assert S.sweep_policies(S.SimConfig(**kw), grid, shard=shard,
+                            **args) == want
+    assert S.sweep_policies(S.SimConfig(**kw), grid, shard=shard,
+                            ensemble=False, **args) == want

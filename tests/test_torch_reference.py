@@ -116,14 +116,15 @@ def port_fleet(ref_fleet, device="cpu"):
 
 def ref_sim_config(cp):
     """The reference's ``SimConfig`` for the port's ``cp``: every field
-    copied, the nested weights, policy, energy and fault configs rebuilt
-    as the reference's own classes."""
+    copied, the nested weights, policy, energy, fault and traffic configs
+    rebuilt as the reference's own classes."""
     ref = load_reference()
     kw = {f.name: getattr(cp, f.name) for f in dataclasses.fields(cp)}
     for name, cls in (("weights", ref.ranking.RankWeights),
                       ("policy", ref.policy.PolicyConfig),
                       ("energy", ref.energy.EnergyModel),
-                      ("faults", ref.faults.FaultConfig)):
+                      ("faults", ref.faults.FaultConfig),
+                      ("traffic", ref.traffic.TrafficConfig)):
         if kw[name] is not None:
             kw[name] = cls(**{f.name: getattr(kw[name], f.name)
                               for f in dataclasses.fields(kw[name])})
@@ -176,7 +177,8 @@ def _port_sources():
 
 def test_import_check_covers_the_policy_fault_and_cpp_modules():
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
-    for mod in ("cpp", "faults", "policy", "forecast", "simulator"):
+    for mod in ("cpp", "faults", "policy", "forecast", "simulator",
+                "traffic", "router"):
         assert f"src/repro_torch/core/{mod}.py" in names, mod
 
 

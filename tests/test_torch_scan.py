@@ -172,14 +172,35 @@ def test_scan_overflow_raises_an_actionable_error(monkeypatch):
 
 
 def test_scan_rejects_host_only_engines_and_unported_options():
+    """The host-only comparators still refuse; serving traffic, once
+    refused, now runs in the scan and matches the reference's host loop
+    (request counters exact, request gCO2 to rel 1e-4)."""
+    from test_torch_reference import ref_sim_config
+
+    from repro_torch.core.traffic import TrafficConfig
     cp = S.SimConfig(**dict(BASE, epochs=4))
     f, t, r = S.synthetic_lifecycle_fleet(16, cp, device="cpu")
     with pytest.raises(ValueError, match="scanned core"):
         S.simulate_fleet_scan(f, t, r, dataclasses.replace(cp,
                                                            engine="blind"))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        S.simulate_fleet_scan(f, t, r, dataclasses.replace(cp,
-                                                           traffic=object()))
+    cp = S.SimConfig(**BASE, traffic=TrafficConfig(req_rate=5000.0, n_svc=2,
+                                                   mu_per_chip=0.1))
+    f, t, r = S.synthetic_lifecycle_fleet(96, cp, chips_per_node=64,
+                                          device="cpu")
+    ref = load_reference()
+    cr = ref_sim_config(cp)
+    fr, tr, rr = ref.simulator.synthetic_lifecycle_fleet(96, cr,
+                                                         chips_per_node=64)
+    jobs = S.generate_jobs(cp)
+    scan = S.simulate_fleet_scan(f, t, r, cp, jobs=jobs)
+    want = ref.simulator.simulate_fleet(
+        fr, tr, rr, cr, jobs=ref.simulator.JobSchedule(
+            **dataclasses.asdict(jobs)))
+    assert_same(scan, want)
+    assert want.req_served > 0
+    for k in ("req_served", "req_offered", "p99_violations"):
+        assert getattr(scan, k) == getattr(want, k), k
+    assert scan.req_gco2 == pytest.approx(want.req_gco2, rel=1e-4)
 
 
 def test_policy_expressions_on_torch_tensors_match_numpy():

@@ -224,12 +224,34 @@ def test_forecast_card_route_matches_reference_on_smoke_windows(
         _close_to_scale(fc.numpy(), fc_r)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(traffic=object()), "item 7b")])
+def _traffic():
+    from repro_torch.core.traffic import TrafficConfig
+    return TrafficConfig(req_rate=8000.0, n_svc=3, flash_rate=0.1,
+                         mu_per_chip=0.1)
+
+
+@pytest.mark.parametrize("kw,item", [(dict(traffic=_traffic()), "item 7b")])
 def test_unported_options_raise(kw, item):
-    cfg = S.SimConfig(epochs=4, history_h=8, horizon_h=4, **kw)
-    fleet, traces, ridx = S.synthetic_lifecycle_fleet(16, S.SimConfig(
-        epochs=4, history_h=8, horizon_h=4), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        S.simulate_fleet(fleet, traces, ridx, cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        S.generate_jobs(cfg)
+    """The options this slice once refused (ROADMAP Queue 1 item 7b,
+    serving traffic) now run: ``generate_jobs`` draws the reference's
+    serving columns and the host loop gives the reference's placements,
+    f64 emissions and request results, equal."""
+    from test_torch_reference import ref_sim_config
+    ref = load_reference()
+    cp = S.SimConfig(**dict(BASE, epochs=12), **kw)
+    cr = ref_sim_config(cp)
+    jobs = S.generate_jobs(cp)
+    jobs_r = ref.simulator.generate_jobs(cr)
+    np.testing.assert_array_equal(jobs.svc_class, jobs_r.svc_class)
+    np.testing.assert_array_equal(jobs.qps_weight, jobs_r.qps_weight)
+    fp, tp, rp = S.synthetic_lifecycle_fleet(96, cp, chips_per_node=64,
+                                             device="cpu")
+    fr, tr, rr = ref.simulator.synthetic_lifecycle_fleet(96, cr,
+                                                         chips_per_node=64)
+    a = S.simulate_fleet(fp, tp, rp, cp, jobs=jobs)
+    b = ref.simulator.simulate_fleet(fr, tr, rr, cr, jobs=jobs_r)
+    _assert_same(a, b)
+    assert b.req_served > 0
+    for f in ("req_served", "req_offered", "p99_violations", "req_gco2",
+              "req_p99_s"):
+        assert getattr(a, f) == getattr(b, f), f
