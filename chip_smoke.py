@@ -92,9 +92,33 @@ outputs against the port's CPU path and the paper headline:
      to phase 9's 8 lanes of 65,536 nodes: placements bitwise phase 9's,
      lane 0's requests == its host loop, step 5b's cost (ms and device
      ops per epoch, traffic on vs off)
+ 14. training through ``launch.train.train_loop`` (plain torch under
+     autograd, as the JAX package trains through plain jnp; no kernel):
+     (a) granite-3-2b at full width and depth (2.634 B parameters, bf16,
+     seed 0), copy task, batch 4 x seq 1024, 5 AdamW steps: step-0 loss
+     within 1e-3 of ln 49,155 (the zero-init head), every loss and grad
+     norm finite; every non-head leaf's first moment non-zero after the
+     run; with a seeded head on the trained state, ``Model.loss`` within
+     the serving bar of the cross-entropy of the serving route's logits on
+     the same tokens, every gradient leaf finite and non-zero, and in f32
+     the training forward's logits within 1e-4 x max|logit| of the
+     serving route's; ms/step, tokens/s, peak
+     memory, the model-FLOP share (6 N tokens / time / the card's bf16
+     peak) and, profiled on one more step, the profiler's device busy
+     share, the profiled step's device ms over the unprofiled steps'
+     median ms, and device ops per step; (b)
+     falcon-mamba-7b at full width with depth cut to 16 of 64 layers (the
+     full model's 102 GB of training state does not fit in 80 GB), batch
+     2 x seq 512, 3 steps, the same checks (ln 65,024); (c) reduced
+     granite, falcon and danube with f32 parameters: 4 train steps from
+     one state on the card == on the CPU (losses rel 1e-4 each step,
+     step-0 gradients within 1e-4 x max|g| per leaf), TF32 matmuls off;
+     (d) the reference's fault test on the card (reduced granite, 16
+     steps, a checkpoint every 4, a node failure at step 9): one restart,
+     final loss rel 1e-4 of the clean run; (e) K1-K6 launch 0 times
 
 Launch counts are set to 0 just before each of phases 3-5, 8, 9, 11,
-12 and 13 (and each held prefill of phase 11) and read just after; K5 counts its
+12, 13 and 14 (and each held prefill of phase 11) and read just after; K5 counts its
 bf16 and f32 kernels apart.  The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero before that line.  Needs one
@@ -154,6 +178,15 @@ TRAFFIC_GAMMAS = (0.0, 0.25, 0.5, 0.75, 1.0)
 # the same with f32 parameters on both routes: the CPU suite's f32 bar
 # (tests/test_torch_models.py), x max|logit|
 SERVE_F32_BAR = 1e-4
+# phase 14: (arch, layers, batch, seq, steps) of the full-width training
+# runs; falcon-mamba-7b's depth is cut to fit its training state in 80 GB
+TRAIN_FULL = (("granite-3-2b", 40, 4, 1024, 5),
+              ("falcon-mamba-7b", 16, 2, 512, 3))
+# the reduced card == CPU check: archs, batch, seq (past danube's reduced
+# window of 64), steps, and the bar (relative, and x max|g| per leaf)
+TRAIN_PARITY = ("granite-3-2b", "falcon-mamba-7b", "h2o-danube-3-4b")
+TRAIN_PARITY_SHAPE = (4, 96, 4)
+TRAIN_PARITY_BAR = 1e-4
 # K5 / K6 vs their plain versions: the JAX suite's bars
 # (tests/test_kernels.py), applied as |a - b| <= bar + bar * |b|
 K5_BARS = {"float32": 5e-6, "bfloat16": 6e-3}
@@ -2082,6 +2115,242 @@ def _held_prefill(model, params, prompts, cache):
     return logits, caches, held
 
 
+def phase_training(dev, rates):
+    """Phase 14: the training path through ``train_loop`` at full width,
+    card == CPU at reduced size, the fault restart; returns the launch
+    counts (all 0: training runs no kernel)."""
+    import torch
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the f32 card == CPU check needs them off")
+    (_, cnt) = counted(lambda: (_train_full(dev, rates),
+                                _train_card_equals_cpu(dev),
+                                _train_fault_restart(dev)))
+    check(not any(cnt.values()),
+          f"the training path launched a kernel: {cnt}")
+    say(f"[14] (e) kernel launches during phase 14: {cnt} (none, as in "
+        f"the reference: its training forward is plain jnp)")
+    say(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return cnt
+
+
+def _train_full(dev, rates):
+    """(a) granite-3-2b at full width and depth, (b) falcon-mamba-7b at
+    full width, 16 of 64 layers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PipelineState
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.launch.train import make_step, train_loop
+    for part, (arch, layers, batch, seq, steps) in zip("ab", TRAIN_FULL):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_loop(cfg, reduced=False, steps=steps, batch=batch,
+                         seq=seq, device=dev, seed=0, log_every=1,
+                         log=lambda m: say(f"[14] ({part}) {arch}: {m}"))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_par = sum(t.numel() for t in _leaves(run.final_state.params))
+        ln_v = math.log(cfg.vocab)
+        check(abs(run.losses[0] - ln_v) <= 1e-3,
+              f"{arch}: step-0 loss {run.losses[0]} is not ln V {ln_v}")
+        check(all(math.isfinite(x) for x in run.losses + run.grad_norms),
+              f"{arch}: a loss or grad norm is not finite: {run.losses} "
+              f"{run.grad_norms}")
+        check(run.steps_done == steps == len(run.losses),
+              f"{arch}: {run.steps_done} of {steps} steps")
+        ms = statistics.median(run.step_s[1:]) * 1e3
+        tok = batch * seq
+        mfu = 6 * n_par * tok / (ms / 1e3) / rates[2]
+        cut = "" if layers == full.n_layers else \
+            f" (depth cut from {full.n_layers})"
+        say(f"[14] ({part}) {arch}: {layers} layers{cut}, {n_par / 1e9:.3f} "
+            f"B parameters, batch {batch} x seq {seq}, {steps} steps in "
+            f"{wall:.1f} s (step 0 {run.step_s[0] * 1e3:.1f} ms); "
+            f"{ms:.1f} ms/step (median of steps 1-{steps - 1}), "
+            f"{tok / (ms / 1e3):.0f} tokens/s, peak memory "
+            f"{peak / 2**30:.2f} GiB, model-FLOP share {100 * mfu:.2f} % "
+            f"of the bf16 peak; losses "
+            f"{', '.join(f'{x:.4f}' for x in run.losses)} (ln V "
+            f"{ln_v:.4f}); grad norms "
+            f"{', '.join(f'{x:.3f}' for x in run.grad_norms)}")
+        # one more step of the launcher's program, profiled
+        model, step_fn = make_step(cfg, seq=seq, steps=steps, lr=3e-4)
+        _, b = device_batch(DataConfig(cfg, batch, seq, seed=0),
+                            PipelineState(0, steps), dev)
+        state = run.final_state
+        del run
+        _train_full_forward(part, arch, cfg, model, state, b, dev)
+        _, dev_ms, prof_ms, summ = device_busy(lambda: step_fn(state, b),
+                                               top=5)
+        ratio = ("not measured" if dev_ms is None else
+                 f"{dev_ms:.2f} / {ms:.1f} ms = {100 * dev_ms / ms:.1f} %")
+        say(f"[14] ({part}) {arch}: profiled step: "
+            f"{busy_note(dev_ms, prof_ms)}; device ms of the profiled step "
+            f"/ median ms of the unprofiled steps: {ratio}; {summ}")
+        del state, step_fn, b, model
+        torch.cuda.empty_cache()
+
+
+def _train_full_forward(part, arch, cfg, model, state, b, dev):
+    """(a) / (b), the model body at full width.  The zero head makes the
+    run's losses ln V whatever the body computes, so: every non-head leaf's
+    first moment is non-zero after the run (the body's gradients reached
+    it); with a seeded head on the trained state, ``Model.loss`` is held
+    against the cross-entropy of the serving forward's logits (plain
+    route, all positions) on the same tokens at the serving bar, and
+    every gradient leaf is finite and non-zero; with the same parameters
+    in f32, the training forward's logits are held against the serving
+    forward's at the f32 serving bar (the bf16 routes differ by design:
+    the training forward rounds the softmax weights to bf16 before P.V,
+    as the reference does)."""
+    import torch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import softmax_xent
+    from repro_torch.train.train_step import make_grad_fn
+    still = [k for k, v in state.opt["mu"].items() if k != "lm_head"
+             and not all(float(t.abs().max()) > 0 for t in _leaves(v))]
+    check(not still, f"{arch}: a leaf of {still} had no gradient in the "
+          f"whole run")
+    params = dict(state.params)
+    head = params["lm_head"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params["lm_head"] = (torch.randn(head.shape, generator=gen, device=dev)
+                         / math.sqrt(cfg.d_model)).to(head.dtype)
+    grads, met = make_grad_fn(model)(params, b)
+    loss = float(met["loss"])
+    g_max = [float(g.abs().max()) for g in _leaves(grads)]
+    del grads
+    check(all(math.isfinite(g) and g > 0 for g in g_max),
+          f"{arch}: seeded head: a gradient leaf is zero or not finite "
+          f"(max|g| per leaf {g_max})")
+    with torch.no_grad():
+        xent = float(softmax_xent(_serving_logits(model, params, b),
+                                  b["labels"]))
+    bar = SERVE_BARS[arch]
+    l_rel = abs(loss / xent - 1)
+    check(l_rel <= bar, f"{arch}: seeded head: Model.loss {loss} vs "
+          f"serving-route cross-entropy {xent} (rel {l_rel}, bar {bar})")
+    # the same parameters in f32: the training forward's logits against
+    # the serving route's at the f32 serving bar
+    params = _tree_map(lambda t: t.float(), params)
+    fl = model.flags
+    with torch.no_grad():
+        x, pos = model._inputs(b, params)
+        h, _ = tr.stack_apply(cfg, params["stack"], x, pos, remat="none",
+                              attn_chunk=fl.attn_chunk,
+                              ssm_chunk=fl.ssm_chunk)
+        lt = model._logits(params, h)
+        del h, x, pos
+        ls = _serving_logits(model, params, b)
+        scale = float(ls.abs().max())
+        e = float((lt - ls).abs().max())
+        finite = bool(torch.isfinite(lt).all())
+    del lt, ls, params
+    check(finite and e <= SERVE_F32_BAR * scale,
+          f"{arch}: f32 training vs serving logits max abs err {e} "
+          f"(max|logit| {scale}, bar {SERVE_F32_BAR})")
+    say(f"[14] ({part}) {arch}: every non-head leaf's first moment "
+        f"non-zero after the run; seeded head: Model.loss {loss:.5f} vs "
+        f"softmax_xent of the serving route's logits {xent:.5f} (bf16, "
+        f"rel {l_rel:.3g}, bar {bar}); {len(g_max)} gradient leaves, all "
+        f"finite and non-zero (least max|g| {min(g_max):.3g}); f32 "
+        f"training vs serving logits max abs err {e:.4g} = "
+        f"{e / scale:.3g} x max|logit| {scale:.4g} (bar {SERVE_F32_BAR})")
+
+
+def _serving_logits(model, params, b):
+    """Logits at every position through the serving forward
+    (``stack_prefill``, plain route: no kernel launch)."""
+    from repro_torch.models import transformer as tr
+    x, pos = model._inputs(b, params)
+    h, _ = tr.stack_prefill(model.cfg, params["stack"], x, pos, x.shape[1],
+                            use_kernel=False)
+    return model._logits(params, h)
+
+
+def _train_card_equals_cpu(dev):
+    """(c) reduced granite, falcon and danube, f32 parameters: train steps
+    from one state on the card and on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, PipelineState
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainState, make_grad_fn,
+                                              make_train_step)
+    batch, seq, steps = TRAIN_PARITY_SHAPE
+    bar = TRAIN_PARITY_BAR
+    for arch in TRAIN_PARITY:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, ModelFlags(attn_chunk=32, ssm_chunk=16))
+        gen = torch.Generator().manual_seed(0)
+        params = _tree_map(lambda t: t.float(),
+                           model.init(generator=gen, device="cpu"))
+        # a random head, so every leaf's gradient is non-zero at step 0
+        params["lm_head"] = torch.randn(cfg.d_model, cfg.vocab,
+                                        generator=gen) / math.sqrt(
+                                            cfg.d_model)
+        dcfg = DataConfig(cfg, batch, seq, seed=0)
+        step_fn = make_train_step(model, AdamWConfig(
+            lr_peak=3e-3, warmup_steps=1, total_steps=steps))
+        runs = {}
+        for d in ("cpu", dev):
+            # a copy per device: the train step updates its state in place
+            p = _tree_map(lambda t: t.to(d, copy=True), params)
+            _, b0 = device_batch(dcfg, PipelineState(0, 0), d)
+            grads, _ = make_grad_fn(model)(p, b0)
+            state, ps, losses = TrainState.create(p), PipelineState(0, 0), []
+            for _ in range(steps):
+                ps, b = device_batch(dcfg, ps, d)
+                state, met = step_fn(state, b)
+                losses.append(float(met["loss"]))
+            runs[str(d)] = (losses, _leaves(grads))
+        (lc, gc), (lg, gg) = runs["cpu"], runs[str(dev)]
+        l_err = max(abs(a / b - 1) for a, b in zip(lg, lc))
+        g_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                    for a, b in zip(gg, gc))
+        check(l_err <= bar and g_err <= bar,
+              f"{arch}: card vs CPU losses rel {l_err}, step-0 grads "
+              f"{g_err} x max|g| (bar {bar})")
+        say(f"[14] (c) {arch} reduced, f32: {steps} steps card vs CPU: "
+            f"losses rel {l_err:.3g}, step-0 grads {g_err:.3g} x max|g| "
+            f"(bar {bar}); losses {', '.join(f'{x:.5f}' for x in lg)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def _train_fault_restart(dev):
+    """(d) tests/test_fault_tolerance.py:111-126 on the card."""
+    import tempfile
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.fault_tolerance import FailureInjector
+    common = dict(steps=16, batch=4, seq=32, reduced=True, task="copy",
+                  ckpt_every=4, log_every=100, device=dev,
+                  log=lambda m: say(f"[14] (d) {m}"))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        clean = train_loop("granite-3-2b", ckpt_dir=f"{d}/clean", **common)
+        faulty = train_loop("granite-3-2b", ckpt_dir=f"{d}/faulty",
+                            injector=FailureInjector(
+                                schedule={9: "node_failure"}), **common)
+        wall = time.perf_counter() - t0
+    rel = abs(faulty.losses[-1] / clean.losses[-1] - 1)
+    check(faulty.restarts == 1 and faulty.steps_done == clean.steps_done
+          == 16 and rel <= 1e-4,
+          f"fault restart: {faulty.restarts} restarts, "
+          f"{faulty.steps_done} steps, final loss {faulty.losses[-1]} vs "
+          f"{clean.losses[-1]}")
+    say(f"[14] (d) reduced granite, 16 steps, failure at 9: 1 restart "
+        f"from the step-8 checkpoint, final loss {faulty.losses[-1]:.6f} "
+        f"vs clean {clean.losses[-1]:.6f} (rel {rel:.3g}, bar 1e-4); "
+        f"both runs {wall:.1f} s")
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2128,7 +2397,8 @@ def main() -> int:
     n11 = phase_serving(dev)
     n12 = phase_policies(dev)
     n13 = phase_traffic(dev, ens9)
-    for part in (n3, n4, n5, n8, n9, n11, n12, n13):
+    n14 = phase_training(dev, rates)
+    for part in (n3, n4, n5, n8, n9, n11, n12, n13, n14):
         for k, v in part.items():
             launches[k] += v
     for k in launches:

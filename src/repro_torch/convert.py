@@ -1,8 +1,9 @@
 """State carried into the port: the fleet, the energy model and the rank
-weights, and a model's parameters, from plain numpy arrays / numbers (for
-example the fields of a reference object read with ``np.asarray``).
-Feeding both implementations the same state through here is how the port
-is held against the reference."""
+weights, a model's parameters and a whole training state, from plain
+numpy arrays / numbers (for example the fields of a reference object read
+with ``np.asarray``), and a training state back out.  Feeding both
+implementations the same state through here is how the port is held
+against the reference."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -51,6 +52,19 @@ def weights_from(src: Any) -> RankWeights:
                           _fields(src, _WEIGHTS).items()})
 
 
+def bf16_from_bits(a: np.ndarray) -> torch.Tensor:
+    """A CPU bfloat16 tensor whose bits are the 16-bit array ``a``
+    (ml_dtypes' bfloat16, or the uint16 a checkpoint stores)."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+
+
+def bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """The bits of a bfloat16 tensor as a uint16 numpy array."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
 def tensor_from_numpy(a: np.ndarray, device: DeviceLike = None
                       ) -> torch.Tensor:
     """A numpy array (bfloat16 from ml_dtypes included) as a tensor of the
@@ -58,8 +72,7 @@ def tensor_from_numpy(a: np.ndarray, device: DeviceLike = None
     dev = resolve_device(device)
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: reuse bits
-        return torch.from_numpy(a.view(np.int16).copy()).view(
-            torch.bfloat16).to(dev)
+        return bf16_from_bits(a).to(dev)
     return torch.from_numpy(a.copy()).to(dev)
 
 
@@ -85,3 +98,33 @@ def params_from_numpy(tree: Mapping, cfg: ArchConfig,
         return tensor_from_numpy(a, dev)
 
     return conv(build_model(cfg).template(), tree, "")
+
+
+def train_state_from_numpy(tree: Mapping, cfg: ArchConfig,
+                           device: DeviceLike = None):
+    """A training state ``{"params", "opt": {"mu", "nu"}, "step"}`` of
+    numpy arrays (``np.asarray`` of each leaf of the JAX ``TrainState``)
+    as the port's ``TrainState`` on ``device``, every leaf in its own
+    dtype.  Raises when a name or shape differs from the model's
+    template."""
+    from repro_torch.train.train_step import TrainState
+    dev = resolve_device(device)
+    return TrainState(
+        params=params_from_numpy(tree["params"], cfg, dev),
+        opt={k: params_from_numpy(tree["opt"][k], cfg, dev)
+             for k in ("mu", "nu")},
+        step=torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                          device=dev))
+
+
+def train_state_to_numpy(state) -> Dict[str, Any]:
+    """The port's ``TrainState`` as ``{"params", "opt": {"mu", "nu"},
+    "step"}`` of numpy arrays on the host.  bfloat16 leaves come out as
+    float32 (exact: numpy has no bfloat16 of its own)."""
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {"params": conv(state.params), "opt": conv(state.opt),
+            "step": conv(state.step)}

@@ -1,17 +1,24 @@
-"""GQA attention: prefill through the flash-attention kernel K5 + KV-cache
-decode (twin of ``repro.models.attention``).
+"""GQA attention: the chunked training path, prefill through the
+flash-attention kernel K5, and KV-cache decode (twin of
+``repro.models.attention``).
 
-Prefill computes the whole causal (optionally banded) attention of the
-prompt in one K5 launch per layer; the JAX package's chunked
-``attention_core`` computes the same function.  Sliding-window attention
-(h2o-danube) keeps a ring-buffer KV cache whose size is the window.
-Decode is plain torch: one query row per sequence against the cache.
+Training runs the JAX package's own route: ``attention_core`` walks
+query chunks, each under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint``), so no more than one chunk's (chunk x T) f32 score
+matrix is live, and autograd differentiates it (K5 has no backward, as
+the Pallas kernel has no VJP).  Prefill computes the same function in one
+K5 launch per layer.  Sliding-window attention (h2o-danube) is a band
+mask in training and keeps a ring-buffer KV cache whose size is the
+window.  Decode is plain torch: one query row per sequence against the
+cache.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import Param
@@ -36,6 +43,59 @@ class KVCache(NamedTuple):
     v: torch.Tensor       # (B, S_cache, K, hd)
 
 
+# ---------------------------------------------------------------------------
+# Core masked attention over query chunks (the training path)
+# ---------------------------------------------------------------------------
+
+
+def _block_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  row_ids: torch.Tensor, col_ids: torch.Tensor,
+                  window: int) -> torch.Tensor:
+    """q: (B, Q, H, hd); k/v: (B, T, H, hd), kv already expanded to H
+    heads.  ids give absolute positions; window <= 0 = full causal.  The
+    scores are f32 products of the inputs (the JAX package's
+    ``preferred_element_type=f32``)."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * scale
+    mask = col_ids[None, :] <= row_ids[:, None]
+    if window > 0:
+        mask &= col_ids[None, :] > (row_ids[:, None] - window)
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqt,bthd->bqhd", w.to(v.dtype), v)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   window: int = 0, q_offset: int = 0,
+                   chunk: int = 1024) -> torch.Tensor:
+    """Causal (optionally banded) attention over query chunks.
+
+    q: (B, S, K, G, hd) vs k/v: (B, T, K, hd) with absolute query
+    positions q_offset..q_offset+S-1 and key positions 0..T-1.  The last
+    chunk is padded; each chunk runs under a checkpoint, so backward
+    recomputes its scores.  Returns (B, S, K, G, hd)."""
+    B, S, K, G, hd = q.shape
+    H = K * G
+    T = k.shape[1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+    nc = q.shape[1] // chunk
+    qh = q.reshape(B, nc * chunk, H, hd)
+    # kv expanded to H heads, head h = k * G + g (jnp.repeat's order)
+    ke = torch.repeat_interleave(k, G, dim=2)
+    ve = torch.repeat_interleave(v, G, dim=2)
+    col_ids = torch.arange(T, device=q.device)
+    rows = torch.arange(chunk, device=q.device) + q_offset
+    outs = [checkpoint(_block_attend, qh[:, i * chunk:(i + 1) * chunk],
+                       ke, ve, rows + i * chunk, col_ids, window,
+                       use_reentrant=False)
+            for i in range(nc)]
+    out = torch.cat(outs, dim=1).reshape(B, nc * chunk, K, G, hd)
+    return out[:, :S]
+
+
 def _project_qkv(cfg: ArchConfig, p, x, positions):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -47,6 +107,17 @@ def _project_qkv(cfg: ArchConfig, p, x, positions):
                        cfg.rope_theta).reshape(B, S, K, H // K, hd)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, positions: torch.Tensor, *,
+                    chunk: int = 1024) -> torch.Tensor:
+    """Training-time attention (no cache) through ``attention_core``."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    window = cfg.window if cfg.attention == "swa" else 0
+    out = attention_core(q, k, v, window=window, chunk=chunk)
+    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
 def attention_prefill(cfg: ArchConfig, p, x, positions, cache_len: int, *,

@@ -3,11 +3,12 @@
 
 Params are declarative ``Param`` templates; forward functions take plain
 dicts of tensors.  Compute dtype follows the parameters (bf16 by default),
-with f32 inside the norm and f32 logits, as in the JAX package.
+with f32 inside the norm, f32 logits and an f32 loss, as in the JAX
+package.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,3 +108,22 @@ def lm_head(table_or_w: torch.Tensor, x: torch.Tensor, *,
             tied: bool) -> torch.Tensor:
     w = table_or_w.T if tied else table_or_w
     return (x @ w.to(x.dtype)).float()
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over valid tokens; logits (B, S, V), computed
+    in f32."""
+    logits = logits.float()
+    lz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -1,23 +1,70 @@
 """Selective state-space blocks, the Mamba-1 half (falcon-mamba), twin of
 ``repro.models.ssm``.
 
-Prefill runs the selective scan K6 once per layer: it streams the per-step
-terms through the chip and keeps the (d_inner, N) state on it, where the
-JAX package's chunked scan builds (B, S, d_inner, N) decay and input
-tensors.  K6 also returns the final state for the decode cache.  Decode is
-the exact single-step recurrence in plain torch.  Mamba-2 (zamba2) is not
-ported yet.
+Training runs the JAX package's own route, the **chunked selective
+scan**: the (B, S, d_inner, N) decay and input terms are built in f32,
+each chunk of Q steps is scanned in log2(Q) doubling passes (the
+``_assoc`` combine, Hillis-Steele order) under ``torch.utils.checkpoint``,
+and the state is carried from chunk to chunk; autograd differentiates it
+(K6 has no backward, as the Pallas kernel has no VJP).  Prefill runs the
+selective scan K6 once per layer instead: it streams the per-step terms
+through the chip and keeps the (d_inner, N) state on it, and also returns
+the final state for the decode cache.  Decode is the exact single-step
+recurrence in plain torch.  Mamba-2 (zamba2) is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import Param
 from repro_torch.kernels.ops import selective_scan_op
+
+# ---------------------------------------------------------------------------
+# Chunked selective scan (the training path)
+# ---------------------------------------------------------------------------
+
+
+def _scan_chunk(a: torch.Tensor, b: torch.Tensor,
+                h: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of h_t = a_t * h_{t-1} + b_t over one chunk
+    (B, Q, M, N) from the carry h (B, M, N): step t takes in step t - d
+    with ``_assoc``'s combine (a1 * a2, a2 * b1 + b2), d = 1, 2, 4, ..."""
+    Q = a.shape[1]
+    d = 1
+    while d < Q:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return a * h[:, None] + b
+
+
+def chunked_selective_scan(dA: torch.Tensor, dBx: torch.Tensor,
+                           h0: torch.Tensor, chunk: int = 64
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dA, dBx: (B, S, M, N) decay/input terms; h0: (B, M, N).  Returns
+    (h_all (B, S, M, N), h_last).  The last chunk is padded with a = 1,
+    b = 0; each chunk runs under a checkpoint."""
+    S = dA.shape[1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        dA = F.pad(dA, (0, 0, 0, 0, 0, pad), value=1.0)
+        dBx = F.pad(dBx, (0, 0, 0, 0, 0, pad))
+    h = h0
+    outs = []
+    for i in range(dA.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        h_all = checkpoint(_scan_chunk, dA[:, sl], dBx[:, sl], h,
+                           use_reentrant=False)
+        h = h_all[:, -1]
+        outs.append(h_all)
+    return torch.cat(outs, dim=1)[:, :S], h
+
 
 def selective_scan_step(dA, dBx, h):
     """Single-token recurrence. dA/dBx: (B, M, N)."""
@@ -91,18 +138,31 @@ def _mamba1_inputs(cfg: ArchConfig, p, xc):
 
 
 def mamba1_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
-                 x: torch.Tensor, *, return_state: bool = False,
-                 use_kernel: bool = True):
-    """Prefill/forward of one Mamba-1 block; the scan is K6."""
+                 x: torch.Tensor, *, chunk: Optional[int] = None,
+                 return_state: bool = False, use_kernel: bool = True):
+    """Forward of one Mamba-1 block.  ``chunk=None`` runs the scan
+    through K6 (prefill; ``use_kernel=False`` its plain version); an int
+    runs the JAX package's chunked scan over (B, S, d_inner, N) f32 terms
+    with chunks of ``chunk`` steps, the training route autograd
+    differentiates."""
     B, S, D = x.shape
     W = cfg.ssm_conv
     x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     xc = F.silu(causal_conv(x_in, p["conv_w"], p["conv_b"]))
     dt, Bm, Cm = _mamba1_inputs(cfg, p, xc)
     A = -torch.exp(p["A_log"])                                 # (di, N)
-    # x in f32, so y stays f32 until D_skip is added, as in the JAX block
-    y, h_last = selective_scan_op(dt, xc.float(), Bm, Cm, A,
-                                  use_kernel=use_kernel)
+    if chunk is None:
+        # x in f32, so y stays f32 until D_skip is added, as in the JAX
+        # block
+        y, h_last = selective_scan_op(dt, xc.float(), Bm, Cm, A,
+                                      use_kernel=use_kernel)
+    else:
+        dA = torch.exp(dt[..., None] * A)                      # (B,S,di,N)
+        dBx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
+        h0 = torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=x.device)
+        h_all, h_last = chunked_selective_scan(dA, dBx, h0, chunk=chunk)
+        y = torch.einsum("bsmn,bsn->bsm", h_all, Cm)
     y = (y + p["D_skip"] * xc.float()).to(x.dtype)
     out = (y * F.silu(z)) @ p["out_proj"]
     if return_state:

@@ -1,15 +1,28 @@
-"""Decoder blocks + layer-stacked prefill/decode for the ``dense`` and
-``ssm`` families (twin of the cache-carrying half of
+"""Decoder blocks + layer-stacked training forward, prefill and decode
+for the ``dense`` and ``ssm`` families (twin of
 ``repro.models.transformer``).
 
 Layer parameters are stacked along a leading L axis, as in the JAX tree;
 where the JAX package runs ``lax.scan`` over that axis, the port runs a
-Python loop over layer slices (views, no copies).  Caches come back
-stacked the same way.  MoE and the zamba2 hybrid are not ported yet.
+Python loop over the layers.  Prefill and decode take layer slices
+(views, no copies).  The training forward takes ``unbind(0)`` of each
+stacked leaf once, so backward writes each leaf's gradient with one
+``stack`` (indexing layer by layer would add a full-size zero gradient
+per layer per leaf).  Its remat modes mirror the JAX package's:
+``none``, ``full`` (a checkpoint per layer, saving nothing) and ``dots``
+(a selective checkpoint that saves the matmuls' outputs, the
+``dots_with_no_batch_dims_saveable`` policy: ``mm`` / ``addmm`` are the
+products without batch dims, attention's batched ``bmm`` is recomputed).
+Caches come back stacked.  MoE and the zamba2 hybrid are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Tuple
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import stack_trees, tree_map
@@ -71,6 +84,73 @@ def stack_cache_template(cfg: ArchConfig, batch: int,
     tpl = (ssm_mod.mamba1_cache_template(cfg, batch) if cfg.has_ssm
            else attn.cache_template(cfg, batch, seq_len))
     return {"layers": _stack(tpl, cfg.n_layers)}
+
+
+# ---------------------------------------------------------------------------
+# Training forward (no cache)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, policy: str):
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {policy!r}; one of "
+                     f"{REMAT_POLICIES}")
+
+
+def block_apply(cfg: ArchConfig, p, x, positions, *, attn_chunk: int,
+                ssm_chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One repeated block.  Returns (x, aux_loss_increment)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.has_ssm:
+        return x + ssm_mod.mamba1_apply(
+            cfg, p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps),
+            chunk=ssm_chunk), aux
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn.attention_apply(cfg, p["attn"], h, positions,
+                                 chunk=attn_chunk)
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], h, cfg.mlp), aux
+
+
+def unstack_layers(tree, n: int) -> list:
+    """The per-layer trees of a layer-stacked tree: ``unbind(0)`` of each
+    leaf, taken once."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def stack_apply(cfg: ArchConfig, params, x, positions, *,
+                remat: str = "full", attn_chunk: int = 1024,
+                ssm_chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run all layers (the training forward).  Returns (hidden, aux)."""
+    check_supported(cfg)
+
+    def layer(x, pl):
+        return block_apply(cfg, pl, x, positions, attn_chunk=attn_chunk,
+                           ssm_chunk=ssm_chunk)
+
+    layer = _maybe_remat(layer, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pl in unstack_layers(params["layers"], cfg.n_layers):
+        x, a = layer(x, pl)
+        aux = aux + a
+    return x, aux
 
 
 def _layer_prefill(cfg: ArchConfig, pl, x, positions, cache_len: int,

@@ -12,8 +12,11 @@ equal to the CPU; K5
 (bf16 on the tensor cores, f32 on the FMA pipes) and K6 within the JAX
 suite's bars of their plain versions, edge cases included (S 1 and 2048,
 GQA groups, padded head dims, windows, large logits, long and short scan
-memory, element-wise staging).  Skips without a GPU; run on
-the card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+memory, element-wise staging); the training path (no kernel): train
+steps of reduced granite, falcon and danube with f32 parameters on the
+card equal to the CPU, and the launcher's fault restart on the card equal
+to its clean run.  Skips without a GPU; run on the card with ``python -m
+pytest -q -m cuda tests/test_torch_cuda.py``."""
 import dataclasses
 
 import numpy as np
@@ -868,3 +871,71 @@ def test_selective_scan_elementwise_staging(dev):
     y_p, h_p = selective_scan_plain(dt, x, b, c, a)
     torch.testing.assert_close(y, y_p, atol=2e-6, rtol=2e-6)
     torch.testing.assert_close(h, h_p, atol=2e-6, rtol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the training path (chip_smoke.py phase 14 (c) and (d), smaller)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["granite-3-2b", "falcon-mamba-7b",
+                                  "h2o-danube-3-4b"])
+def test_train_steps_card_equal_cpu(dev, name):
+    """f32 parameters with a random head, 3 AdamW steps from one state:
+    losses rel 1e-4 card vs CPU at every step, step-0 gradients within
+    1e-4 x max|g| per leaf (TF32 matmuls off, PyTorch's default)."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, PipelineState,
+                                           device_batch)
+    from repro_torch.distributed.sharding import tree_leaves, tree_map
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainState, make_grad_fn,
+                                              make_train_step)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(name).reduced()
+    model = build_model(cfg, ModelFlags(attn_chunk=16, ssm_chunk=8))
+    gen = torch.Generator().manual_seed(1)
+    params = tree_map(lambda t: t.float(),
+                      model.init(generator=gen, device="cpu"))
+    params["lm_head"] = torch.randn(cfg.d_model, cfg.vocab,
+                                    generator=gen) / math.sqrt(cfg.d_model)
+    dcfg = DataConfig(cfg, 2, 72, seed=1)
+    step_fn = make_train_step(model, AdamWConfig(lr_peak=3e-3,
+                                                 warmup_steps=1,
+                                                 total_steps=3))
+    out = []
+    for d in ("cpu", dev):
+        # a copy per device: the train step updates its state in place
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        _, b0 = device_batch(dcfg, PipelineState(1, 0), d)
+        grads, _ = make_grad_fn(model)(p, b0)
+        state, ps, losses = TrainState.create(p), PipelineState(1, 0), []
+        for _ in range(3):
+            ps, b = device_batch(dcfg, ps, d)
+            state, met = step_fn(state, b)
+            losses.append(float(met["loss"]))
+        out.append((losses, [g.cpu() for g in tree_leaves(grads)]))
+    (lc, gc), (lg, gg) = out
+    assert lg == pytest.approx(lc, rel=1e-4)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_train_loop_fault_restart_on_the_card(dev, tmp_path):
+    """8 steps, a checkpoint every 2, a node failure at step 5: one
+    restart, and the final loss rel 1e-4 of the clean run."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.fault_tolerance import FailureInjector
+    common = dict(steps=8, batch=2, seq=32, reduced=True, ckpt_every=2,
+                  device=dev, log=lambda m: None)
+    clean = train_loop("granite-3-2b", ckpt_dir=str(tmp_path / "c"),
+                       **common)
+    faulty = train_loop("granite-3-2b", ckpt_dir=str(tmp_path / "f"),
+                        injector=FailureInjector(
+                            schedule={5: "node_failure"}), **common)
+    assert faulty.restarts == 1 and faulty.steps_done == 8
+    assert faulty.final_state.params["embed"].device.type == "cuda"
+    assert faulty.losses[-1] == pytest.approx(clean.losses[-1], rel=1e-4)
