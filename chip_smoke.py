@@ -9,7 +9,9 @@ outputs against the port's CPU path and the paper headline:
   1. build: every kernel source in ``src/repro_torch/kernels/csrc`` at
      once, with nvcc's register / shared-memory / spill report; SASS
      counts (``cuobjdump``): K5's bf16 kernels run HMMA (tensor cores),
-     its f32 kernels FFMA only; K6's instructions against its exps
+     its f32 kernels FFMA only; K6's instructions against its exps, and
+     each K6 instantiation's registers and spills (the per-channel N = 64
+     ones are Mamba-2's)
   2. K1 ``maiz_lohi`` (one fused launch: the sweep and the fold) and its
      per-tile instantiation / K2 ``maiz_topk`` vs their plain twins,
      bitwise, at N = 1,048,576 and a ragged N = 1,000,003, k in {1, 64,
@@ -54,7 +56,10 @@ outputs against the port's CPU path and the paper headline:
      cores, with the FMAs' own bound on the f32 pipes printed beside
      it), the plain version and (K5)
      ``scaled_dot_product_attention`` on the first backend that takes the
-     inputs (flash first; the backend is printed)
+     inputs (flash first; the backend is printed); K5 bf16 at phase 15's
+     prefill shapes (moonshot, qwen2-vl, zamba2's tied block) and K6's
+     per-channel form (Mamba-2) at zamba2's prefill (B 4, S 512, D 4096,
+     N 64), ragged and at S 2048, timed the same way
  11. serving at full width and depth: ``launch.serve.serve`` places the
      replica with ``place_jobs`` on a 64-pod fleet and serves 8 requests
      (2 batches of 4 slots, prompt 512, 32 new tokens, greedy) with
@@ -116,11 +121,29 @@ outputs against the port's CPU path and the paper headline:
      (d) the reference's fault test on the card (reduced granite, 16
      steps, a checkpoint every 4, a node failure at step 9): one restart,
      final loss rel 1e-4 of the clean run; (e) K1-K6 launch 0 times
+ 15. the remaining model families: (a) moonshot-v1-16b-a3b (MoE, 64
+     experts top 6; 28.06 B parameters) and (b) zamba2-1.2b (Mamba-2 with
+     K6's per-channel form, the tied attention block every 6 blocks),
+     both at full width and depth, bf16 from seed 0, served like phase
+     11 (8 requests, 2 x 4 slots, prompt 512, 32 new); the launches
+     counted per prefill, each K5 / K6 launch of a prefill within its bar
+     of the plain version on that layer's inputs, the prefill logits
+     kernel vs plain route (2e-2 / 4e-1 x max|logit|; for moonshot the
+     share of (layer, token) top-6 sets that differ between the routes),
+     zamba2's SSD route vs its scan route; (c) qwen2-vl-72b at full width,
+     16 of 80 layers: stub patch embeddings (B 4, S 544) with M-RoPE ids
+     (grid 32), prefill of 512, 32 decode steps fed the stub embeddings
+     and their ids, the prefill kernel vs plain route and the last decode
+     logits vs the training forward's at that position (2e-2); (d)
+     reduced moonshot (capacity factor 16), zamba2 and qwen2-vl with f32
+     parameters, prefill and 5 decode steps card == CPU (1e-4); peak
+     memory per part, K5 bf16 and K6 per-channel launched
 
 Launch counts are set to 0 just before each of phases 3-5, 8, 9, 11,
-12, 13 and 14 (and each held prefill of phase 11) and read just after; K5 counts its
-bf16 and f32 kernels apart.  The line before the last is a JSON object
-with one entry per kernel; the last line is ``{"ok": true, "device":
+12, 13, 14 and 15 (and each held prefill of phase 11, each part of phase
+15) and read just after; K5 counts its bf16 and f32 kernels apart, K6
+its (D, N) form (Mamba-1) and its per-channel form (Mamba-2).  The line
+before the last is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero before that line.  Needs one
 CUDA device; run from anywhere with ``python3 chip_smoke.py``.
 """
@@ -168,7 +191,11 @@ SERVE_ARCHS = ("granite-3-2b", "falcon-mamba-7b")
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 512, 32
 # prefill logits, kernel route vs plain route: the JAX suite's
 # prefill-vs-forward bars (tests/test_decode_consistency.py), x max|logit|
-SERVE_BARS = {"granite-3-2b": 2e-2, "falcon-mamba-7b": 8e-2}
+SERVE_BARS = {"granite-3-2b": 2e-2, "falcon-mamba-7b": 8e-2,
+              "moonshot-v1-16b-a3b": 2e-2, "zamba2-1.2b": 4e-1,
+              "qwen2-vl-72b": 2e-2}
+# phase 15: the archs whose prefill attention K5 runs there
+PHASE15_ATTN = ("moonshot-v1-16b-a3b", "qwen2-vl-72b", "zamba2-1.2b")
 # phase 13: the reference serving bench's grid (benchmarks/run.py:1149-1175,
 # its defaults SERVE_NS / SERVE_EPOCHS / SERVE_QPS / SERVE_SEEDS)
 TRAFFIC_N, TRAFFIC_EPOCHS, TRAFFIC_QPS = 96, 168, 20000.0
@@ -187,6 +214,15 @@ TRAIN_FULL = (("granite-3-2b", 40, 4, 1024, 5),
 TRAIN_PARITY = ("granite-3-2b", "falcon-mamba-7b", "h2o-danube-3-4b")
 TRAIN_PARITY_SHAPE = (4, 96, 4)
 TRAIN_PARITY_BAR = 1e-4
+# phase 15: the remaining families served through the entry points,
+# qwen2-vl-72b at full width with its depth cut (145 GB of bf16 weights
+# do not fit in 80 GB), its stub frontend's M-RoPE grid, and the reduced
+# f32 card == CPU check: (arch, config overrides), prompt, decode steps
+FAMILY_SERVE = ("moonshot-v1-16b-a3b", "zamba2-1.2b")
+VLM_ARCH, VLM_LAYERS, VLM_GRID = "qwen2-vl-72b", 16, 32
+FAMILY_PARITY = (("moonshot-v1-16b-a3b", {"capacity_factor": 16.0}),
+                 ("zamba2-1.2b", {}), ("qwen2-vl-72b", {}))
+FAMILY_PARITY_SHAPE = (2, 37, 5)
 # K5 / K6 vs their plain versions: the JAX suite's bars
 # (tests/test_kernels.py), applied as |a - b| <= bar + bar * |b|
 K5_BARS = {"float32": 5e-6, "bfloat16": 6e-3}
@@ -206,6 +242,9 @@ REPLACES = {
                             "src/repro_torch/kernels/csrc/flash_attention.cu"),
     "selective_scan": ("src/repro/kernels/selective_scan.py:32",
                        "src/repro_torch/kernels/csrc/selective_scan.cu"),
+    "selective_scan_per_channel": (
+        "src/repro/kernels/selective_scan.py:32",
+        "src/repro_torch/kernels/csrc/selective_scan.cu"),
 }
 
 
@@ -435,6 +474,21 @@ def phase_build():
                              ("MUFU", "FMUL", "FADD", "FFMA")).items():
         say(f"[1] SASS {fn}: {c['all']} instructions, {c['MUFU']} MUFU, "
             f"{c['FMUL']} FMUL, {c['FADD']} FADD, {c['FFMA']} FFMA")
+    # K6's registers, stack frame and spills per instantiation (ptxas);
+    # the per-channel N = 64 ones (Mamba-2) are the new ones
+    lib = built[mods.index(sc)][0]
+    usage = resource_usage(lib)
+    spills = dict(re.findall(
+        r"Function properties for (\S+)\n\s*(\d+ bytes stack frame, \d+ "
+        r"bytes spill stores, \d+ bytes spill loads)",
+        _build.LOGS.get(lib, "")))
+    n64 = sorted(fn for fn in usage if "scan_pc_kernel" in fn
+                 and "Li64E" in fn)
+    check(len(n64) == 2, f"K6's per-channel N = 64 kernels are missing: "
+          f"{sorted(usage)}")
+    for fn in sorted(usage):
+        say(f"[1] K6 {fn}: {usage[fn]['REG']} registers, "
+            f"{spills.get(fn, 'no ptxas report (library reused)')}")
 
 
 def sass_counts(lib, opcodes):
@@ -454,6 +508,21 @@ def sass_counts(lib, opcodes):
         counts[name.strip()]["all"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/",
                                                      body))
     return counts
+
+
+def resource_usage(lib):
+    """Per kernel of a built library (``cuobjdump -res-usage``), its
+    REG / STACK / SHARED / LOCAL counts."""
+    from repro_torch.kernels import _build
+    tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    usage = {}
+    for name, line in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)",
+                                 out.stdout):
+        usage[name] = dict(re.findall(r"(\w+):(\d+)", line))
+    return usage
 
 
 def _streams(n, seed, dev, marginal, w_m):
@@ -670,18 +739,24 @@ def counted(fn):
     just after; returns (result, {kernel: launches})."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
     torch.cuda.synchronize()
     for f in _wrappers():
         f.launches = 0
     routes = flash_attention.route_launches
-    for r in routes:
-        routes[r] = 0
+    scan_routes = selective_scan.route_launches
+    for d in (routes, scan_routes):
+        for r in d:
+            d[r] = 0
     out = fn()
     torch.cuda.synchronize()
     cnt = {f.__name__: f.launches for f in _wrappers()}
-    # K5's two kernels: bf16 on the tensor cores, f32 on the FMA pipes
+    # K5's two kernels: bf16 on the tensor cores, f32 on the FMA pipes;
+    # K6's (D, N) decay (Mamba-1) and per-channel decay (Mamba-2) forms
     cnt["flash_attention"] = routes["bf16"]
     cnt["flash_attention_f32"] = routes["f32"]
+    cnt["selective_scan"] = scan_routes["dn"]
+    cnt["selective_scan_per_channel"] = scan_routes["per_channel"]
     return out, cnt
 
 
@@ -1836,16 +1911,18 @@ def _k5_bound(B, H, K, S, hd, window, dtype, rates, fp32_pipes=False):
     return bound_ms(nbytes, 3 * ops, rates, rates[3])
 
 
-def _k6_bound(B, S, D, N, dtype, rates):
-    """dt, x and y (B, S, D), B and C (B, S, N), A (D, N) and the final
-    state (B, D, N) moved once; per (b, t, d, n) 5 FLOPs on the f32 pipes.
-    The one exp per (b, t, d, n) is left out: the SFU alone would take
-    about as long as the bytes, but a share of the exps can run as
-    polynomial code on the f32 pipes beside it, so the two together stay
-    under the bytes."""
+def _k6_bound(B, S, D, N, dtype, rates, per_channel=False):
+    """dt, x and y (B, S, D), B and C (B, S, N), A (D, N), or (D,) in the
+    per-channel form, and the final state (B, D, N) moved once; per (b, t,
+    d, n) 5 FLOPs on the f32 pipes.  The (D, N) form's one exp per (b, t,
+    d, n) is left out: the SFU alone would take about as long as the
+    bytes, but a share of the exps can run as polynomial code on the f32
+    pipes beside it, so the two together stay under the bytes.  The
+    per-channel form takes one exp per (b, t, d)."""
     import torch
     es = 2 if dtype == torch.bfloat16 else 4
-    nbytes = 3 * es * B * S * D + 4 * (2 * B * S * N + D * N + B * D * N)
+    a = D if per_channel else D * N
+    nbytes = 3 * es * B * S * D + 4 * (2 * B * S * N + a + B * D * N)
     return bound_ms(nbytes, 5 * B * S * D * N, rates)
 
 
@@ -1890,7 +1967,8 @@ def phase_model_kernels(dev, rates, sfu, flush):
                                                     selective_scan_plain)
     g = torch.Generator(device=dev).manual_seed(10)
     err = {k: [0.0, 0] for k in ("flash_attention", "flash_attention_f32",
-                                 "selective_scan")}
+                                 "selective_scan",
+                                 "selective_scan_per_channel")}
     times = {}
     gr, fm = get_config("granite-3-2b"), get_config("falcon-mamba-7b")
     # (B, H, K, S, hd, window): granite's prefill, a ragged band with
@@ -1961,6 +2039,9 @@ def phase_model_kernels(dev, rates, sfu, flush):
                     time_ms(lambda: selective_scan_plain(d_t, x, b, c, a),
                             flush, reps=5, warm=1),
                     _k6_bound(*shape, dt, rates), None)
+    _k5_phase15_shapes(dev, g, rates, flush, err)
+    times["selective_scan_per_channel"] = _k6_per_channel(dev, g, rates,
+                                                          flush, err)
     for k, (ms, plain, (bd, by), lib) in times.items():
         say(f"[10] {k} at the path's shape: kernel {ms * 1e3:.1f} us, "
             f"plain {plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}), "
@@ -1970,6 +2051,82 @@ def phase_model_kernels(dev, rates, sfu, flush):
     say(f"[10] selective_scan: its {B * S * D * N:.3g} exps on the SFU "
         f"alone would take {B * S * D * N / sfu * 1e6:.2f} us")
     return err, times
+
+
+def _k5_phase15_shapes(dev, g, rates, flush, err):
+    """K5 bf16 vs its plain version at phase 15's prefill shapes, timed
+    beside the bound, the plain version and SDPA."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention)
+    for arch in PHASE15_ATTN:
+        c = get_config(arch)
+        shape = (SERVE_SLOTS, c.n_heads, c.n_kv_heads, SERVE_PROMPT,
+                 c.head_dim, 0)
+        B, H, K, S, hd, _ = shape
+        q = torch.randn(B, H, S, hd, generator=g, device=dev).bfloat16()
+        k = torch.randn(B, K, S, hd, generator=g, device=dev).bfloat16()
+        v = torch.randn(B, K, S, hd, generator=g, device=dev).bfloat16()
+        e, ok = _allclose_err(flash_attention(q, k, v),
+                              attention_plain(q, k, v), K5_BARS["bfloat16"])
+        err["flash_attention"][0] = max(err["flash_attention"][0], e)
+        check(ok, f"K5 differs from its plain version at {arch}'s {shape}")
+        ms = time_ms(lambda: flash_attention(q, k, v), flush)
+        plain = time_ms(lambda: attention_plain(q, k, v), flush)
+        bd, by = _k5_bound(*shape, torch.bfloat16, rates)
+        lib, backend = _sdpa_ms(q, k, v, flush)
+        say(f"[10] K5 bf16 at {arch}'s prefill {shape}: max abs err {e:.3g}"
+            f" (bar {K5_BARS['bfloat16']}); kernel {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}), "
+            f"{100 * bd / ms:.1f} % of the bound, SDPA {backend} "
+            f"{lib * 1e3:.1f} us")
+
+
+def _k6_per_channel(dev, g, rates, flush, err):
+    """K6's per-channel form (Mamba-2) vs its plain version at zamba2's
+    prefill shape, ragged shapes and 2048 steps, f32 and bf16; returns
+    (ms, plain ms, bound, None) at the path's shape in f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    z = get_config("zamba2-1.2b")
+    path = (SERVE_SLOTS, SERVE_PROMPT, z.d_inner, z.ssm_state)
+    out = None
+    for shape, (lo, hi) in ((path, (0.001, 0.1)),
+                            ((2, 37, 200, 64), (0.01, 0.11)),
+                            ((1, 45, 96, 16), (0.01, 0.11)),
+                            ((1, 2048, 130, 64), (0.004, 0.006))):
+        B, S, D, N = shape
+        for dt in (torch.float32, torch.bfloat16):
+            d_t = (torch.rand(B, S, D, generator=g, device=dev) * (hi - lo)
+                   + lo).to(dt)
+            x = torch.randn(B, S, D, generator=g, device=dev).to(dt)
+            b = torch.randn(B, S, N, generator=g, device=dev)
+            c = torch.randn(B, S, N, generator=g, device=dev)
+            a = -torch.exp(torch.randn(D, generator=g, device=dev) * 0.3)
+            y, h = selective_scan(d_t, x, b, c, a)
+            y_p, h_p = selective_scan_plain(d_t, x, b, c, a)
+            torch.cuda.synchronize()
+            bar = K6_BARS[str(dt)[6:]]
+            ey, oky = _allclose_err(y, y_p, bar)
+            eh, okh = _allclose_err(h, h_p, bar)
+            rec = err["selective_scan_per_channel"]
+            rec[0] = max(rec[0], ey, eh)
+            say(f"[10] K6 per-channel {shape} dt in [{lo}, {hi}] "
+                f"{str(dt)[6:]}: max abs err y {ey:.3g}, h_S {eh:.3g} (bar "
+                f"{bar}); bitwise: y {ulp_diff(y, y_p) == 0}, h_S "
+                f"{ulp_diff(h, h_p) == 0}")
+            check(oky and okh, f"K6's per-channel form differs from its "
+                  f"plain version at {shape} {dt}")
+            if shape == path and dt == torch.float32:
+                out = (time_ms(lambda: selective_scan(d_t, x, b, c, a),
+                               flush),
+                       time_ms(lambda: selective_scan_plain(d_t, x, b, c, a),
+                               flush, reps=5, warm=1),
+                       _k6_bound(*shape, dt, rates, per_channel=True), None)
+    return out
 
 
 def phase_serving(dev):
@@ -2024,7 +2181,8 @@ def phase_serving(dev):
             prompts = torch.as_tensor(np.random.default_rng(seed).integers(
                 2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
             (lk, caches, held), c = counted(
-                lambda: _held_prefill(kmodel, pr, prompts, cache))
+                lambda: _held_prefill(kmodel, pr, {"tokens": prompts},
+                                      cache))
             if p_dt == "f32":
                 # K5's f32 kernel: granite's prefill with f32 parameters
                 total["flash_attention_f32"] = (
@@ -2081,7 +2239,313 @@ def phase_serving(dev):
     return total
 
 
-def _held_prefill(model, params, prompts, cache):
+def phase_families(dev):
+    """Phase 15: moonshot-v1-16b-a3b (MoE) and zamba2-1.2b (Mamba-2 and
+    the tied attention block) served through ``launch.serve.serve`` at
+    full width and depth, qwen2-vl-72b (patch embeddings, M-RoPE) at full
+    width and 16 of 80 layers through ``Model.prefill`` /
+    ``decode_step``, and the three reduced with f32 parameters card ==
+    CPU.  Returns the launch counts."""
+    import torch
+    t0 = time.perf_counter()
+    total = {}
+    for part in ([lambda a=a: _serve_family(dev, a) for a in FAMILY_SERVE]
+                 + [lambda: _vlm_family(dev),
+                    lambda: _families_card_equal_cpu(dev)]):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, cnt = counted(part)
+        for k, v in cnt.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say(f"[15] peak device memory {peak:.2f} GiB; launches "
+            f"{ {k: v for k, v in cnt.items() if v} }")
+    check(total["flash_attention"] > 0
+          and total["selective_scan_per_channel"] > 0,
+          f"phase 15 did not launch K5 bf16 and K6 per-channel: {total}")
+    say(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _seeded_params(cfg, dev):
+    """bf16 parameters from seed 0 and a random head (the zero-init head
+    gives uniform logits); their count."""
+    import torch
+    from repro_torch.models.model import build_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = build_model(cfg).init(generator=gen, device=dev)
+    params["lm_head"] = (torch.randn(cfg.d_model, cfg.vocab, generator=gen,
+                                     device=dev)
+                         / math.sqrt(cfg.d_model)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    return params, sum(t.numel() for t in _leaves(params))
+
+
+def _routings(fn, pin=None):
+    """``fn()`` with every MoE router's top-k ids recorded, in call
+    order; returns (result, [top_e per call]).  With ``pin`` (such a
+    list) each router takes the pinned ids instead of its own choice and
+    weighs them with its own probabilities."""
+    import torch
+    from repro_torch.models import moe
+    rec, route = [], moe.route
+    pinned = iter(pin or ())
+
+    def recording(cfg, p, x):
+        probs, top_w, top_e = route(cfg, p, x)
+        if pin is not None:
+            top_e = next(pinned)
+            top_w = torch.gather(probs, -1, top_e)
+            top_w = top_w / torch.sum(top_w, -1, keepdim=True)
+        rec.append(top_e)
+        return probs, top_w, top_e
+
+    moe.route = recording
+    try:
+        return fn(), rec
+    finally:
+        moe.route = route
+
+
+def _serve_family(dev, arch):
+    """(a) / (b): serve 8 requests at full width and depth, then hold the
+    kernel route's prefill against the plain route's (and for zamba2 the
+    SSD route's against the scan's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.models.transformer import hybrid_groups
+    tag = "(a)" if arch == FAMILY_SERVE[0] else "(b)"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params, n_par = _seeded_params(cfg, dev)
+    say(f"[15] {tag} {arch}: {cfg.n_layers} layers, {n_par / 1e9:.3f} B "
+        f"parameters drawn in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    out, cnt = counted(lambda: serve(
+        cfg, requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+        max_new=SERVE_NEW, slots=SERVE_SLOTS, device=dev, params=params,
+        log=lambda m: None))
+    n_attn = (len(hybrid_groups(cfg)) if cfg.family == "hybrid"
+              else cfg.n_layers)
+    n_scan = cfg.n_layers if cfg.has_ssm else 0
+    want = {"flash_attention": n_attn * out["prefills"],
+            "selective_scan_per_channel": n_scan * out["prefills"]}
+    check(all(cnt[k] == v for k, v in want.items())
+          and sum(cnt.values()) == sum(want.values()),
+          f"{arch}: launches {cnt}, expected {want}")
+    check(out["requests"] == SERVE_REQUESTS and all(
+        len(r.tokens) == SERVE_NEW and 0 <= min(r.tokens)
+        and max(r.tokens) < cfg.vocab for r in out["results"]),
+        f"{arch}: wrong results")
+    check(len({t for r in out["results"] for t in r.tokens}) > 1,
+          f"{arch}: every generated token is the same")
+    pre = out["prefill_s"] / out["prefills"] * 1e3
+    dec = out["decode_s"] / out["decode_steps"] * 1e3
+    say(f"[15] {tag} {arch}: pod {out['pod']}, {out['tokens']} tokens, "
+        f"prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x{SERVE_PROMPT}, "
+        f"decode {dec:.2f} ms per step of {SERVE_SLOTS} tokens, "
+        f"{out['tok_per_s']:.1f} tok/s, {out['g_per_request']:.4f} "
+        f"gCO2/request; launches {want}")
+    cache = SERVE_PROMPT + SERVE_NEW + 8
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
+    batch = {"tokens": prompts}
+    kmodel = build_model(cfg)
+    pmodel = build_model(cfg, ModelFlags(use_kernel=False))
+    ((lk, _, held), ek) = _routings(
+        lambda: _held_prefill(kmodel, params, batch, cache))
+    lp, ep = _routings(lambda: pmodel.prefill(params, batch, cache)[0])
+    if cfg.is_moe:
+        # a bf16 ulp of K5 in a router's input flips near-ties between
+        # experts; the bar holds the plain route with the kernel route's
+        # expert choices, the free plain route's gap is printed
+        lp_free = lp
+        lp, _ = _routings(lambda: pmodel.prefill(params, batch, cache)[0],
+                          pin=ek)
+    torch.cuda.synchronize()
+    for name, (e_l, n_ok, n_held) in held.items():
+        check(n_ok == n_held, f"{arch}: {n_held - n_ok} of {n_held} prefill "
+              f"{name} launches differ from the plain version on their "
+              f"own inputs")
+        if n_held:
+            say(f"[15] {tag} {arch}: each of the {n_held} {name} launches "
+                f"of a prefill within its bar of the plain version on that "
+                f"layer's inputs (max abs err {e_l:.4g})")
+    scale = float(lp.abs().max())
+    e = float((lk - lp).abs().max())
+    bar = SERVE_BARS[arch]
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (
+        SERVE_SLOTS, cfg.vocab), f"{arch}: prefill logits not finite")
+    pinned = ""
+    if cfg.is_moe:
+        # a routing that differs between the routes: another top-k set
+        n = sum(int((torch.sort(a, -1).values != torch.sort(b, -1).values)
+                    .any(-1).sum()) for a, b in zip(ek, ep))
+        total_r = sum(a.shape[0] * a.shape[1] for a in ek)
+        ef = float((lk - lp_free).abs().max())
+        say(f"[15] {tag} {arch}: with each route choosing its own experts, "
+            f"{n} of {total_r} (layer, token) top-{cfg.top_k} sets differ "
+            f"between the routes ({100 * n / total_r:.3f} %) and the "
+            f"prefill logits by {ef:.4g} = {ef / scale:.3g} x max|logit|")
+        pinned = ", the plain route on the kernel route's experts"
+    say(f"[15] {tag} {arch}: prefill logits kernel vs plain route{pinned} "
+        f"max abs err {e:.4g} = {e / scale:.3g} x max|logit| {scale:.4g} "
+        f"(bar {bar})")
+    check(e <= bar * scale, f"{arch}: kernel-route prefill logits differ "
+          f"from the plain route by {e} (max|logit| {scale})")
+    lk, caches = kmodel.prefill(params, batch, cache)
+    _, dev_ms, prof_ms, summ = device_busy(
+        lambda: kmodel.prefill(params, batch, cache), top=5)
+    step = {"token": lk.argmax(-1),
+            "positions": torch.full((SERVE_SLOTS,), SERVE_PROMPT,
+                                    device=dev)}
+    _, dec_dev, dec_wall, dec_summ = device_busy(
+        lambda: kmodel.decode_step(params, caches, step), top=5)
+    say(f"[15] {tag} {arch}: profiled prefill: "
+        f"{busy_note(dev_ms, prof_ms)}; {summ}")
+    say(f"[15] {tag} {arch}: profiled decode step: "
+        f"{busy_note(dec_dev, dec_wall)}; {dec_summ}")
+    del caches
+    if cfg.has_ssm:
+        ls, _ = build_model(cfg, ModelFlags(ssm_algo="ssd")).prefill(
+            params, batch, cache)
+        es = float((ls - lk).abs().max())
+        say(f"[15] {tag} {arch}: SSD-route prefill logits vs the scan route "
+            f"max abs err {es:.4g} = {es / scale:.3g} x max|logit| (bar "
+            f"{bar})")
+        check(bool(torch.isfinite(ls).all()) and es <= bar * scale,
+              f"{arch}: SSD prefill logits differ from the scan route by "
+              f"{es}")
+    del params
+
+
+def _vlm_family(dev):
+    """(c): qwen2-vl-72b at full width, 16 of 80 layers: stub patch
+    embeddings with M-RoPE ids, prefill, 32 decode steps; the prefill
+    held kernel vs plain route, the last decode logits vs the training
+    forward's at the same position."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontend
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.model import ModelFlags, build_model
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    t0 = time.perf_counter()
+    params, n_par = _seeded_params(cfg, dev)
+    say(f"[15] (c) {VLM_ARCH}: {cfg.n_layers} of 80 layers, {n_par / 1e9:.3f}"
+        f" B parameters drawn in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    B, S = SERVE_SLOTS, SERVE_PROMPT + SERVE_NEW
+    embeds = frontend.fake_patch_embeddings(cfg, B, S, device=dev)
+    ids = frontend.mrope_position_ids(B, S, grid=VLM_GRID, device=dev)
+    batch = {"embeds": embeds[:, :SERVE_PROMPT],
+             "positions": ids[:, :SERVE_PROMPT]}
+    cache = S + 8
+    kmodel = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kmodel.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    pre = (time.perf_counter() - t0) * 1e3
+    lk, caches, held = _held_prefill(kmodel, params, batch, cache)
+    lp, _ = build_model(cfg, ModelFlags(use_kernel=False)).prefill(
+        params, batch, cache)
+    e_l, n_ok, n_held = held["flash_attention"]
+    check(n_held == cfg.n_layers and n_ok == n_held,
+          f"{VLM_ARCH}: {n_held - n_ok} of {n_held} prefill K5 launches "
+          f"differ from the plain version on their own inputs")
+    scale = float(lp.abs().max())
+    e = float((lk - lp).abs().max())
+    check(bool(torch.isfinite(lk).all()) and e <= SERVE_BARS[VLM_ARCH] * scale,
+          f"{VLM_ARCH}: kernel-route prefill logits differ from the plain "
+          f"route by {e} (max|logit| {scale})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SERVE_PROMPT, S):
+        logits, caches = kmodel.decode_step(params, caches, {
+            "embed": embeds[:, t],
+            "positions": torch.full((B,), t, dtype=torch.long, device=dev),
+            "rope_positions": ids[:, t]})
+    torch.cuda.synchronize()
+    dec = (time.perf_counter() - t0) * 1e3 / SERVE_NEW
+    with torch.no_grad():
+        x, pos = kmodel._inputs({"embeds": embeds, "positions": ids}, params)
+        h, _ = tr.stack_apply(cfg, params["stack"], x, pos, remat="none")
+        ref = kmodel._logits(params, h[:, -1:])[:, 0]
+    ed = float((logits - ref).abs().max())
+    rs = float(ref.abs().max())
+    check(bool(torch.isfinite(logits).all())
+          and ed <= SERVE_BARS[VLM_ARCH] * rs,
+          f"{VLM_ARCH}: the last decode logits differ from the forward's by "
+          f"{ed} (max|logit| {rs})")
+    say(f"[15] (c) {VLM_ARCH}: each of the {n_held} K5 launches of the "
+        f"prefill within its bar of the plain version on that layer's "
+        f"inputs (max abs err {e_l:.4g}); prefill logits kernel vs plain "
+        f"route max abs err {e:.4g} = {e / scale:.3g} x max|logit|; the "
+        f"logits after {SERVE_NEW} decode steps vs the forward's at "
+        f"position {S - 1}: {ed:.4g} = {ed / rs:.3g} x max|logit| {rs:.4g} "
+        f"(bar {SERVE_BARS[VLM_ARCH]}); prefill {pre:.1f} ms per batch of "
+        f"{B}x{SERVE_PROMPT}, decode {dec:.2f} ms per step of {B} tokens")
+    del params, caches
+
+
+def _families_card_equal_cpu(dev):
+    """(d): the reduced moonshot (capacity factor 16), zamba2 and
+    qwen2-vl with f32 parameters: prefill and decode steps on the card ==
+    on the CPU within ``SERVE_F32_BAR`` x max|logit|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontend
+    from repro_torch.models.model import build_model
+    B, S_pre, n_dec = FAMILY_PARITY_SHAPE
+    S = S_pre + n_dec
+    for arch, over in FAMILY_PARITY:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        model = build_model(cfg)
+        cpu = _tree_map(lambda t: t.float(), model.init(0, device="cpu"))
+        cpu["lm_head"] = torch.from_numpy(np.random.default_rng(1)
+                                          .standard_normal(
+            (cfg.d_model, cfg.vocab)).astype(np.float32)
+            / np.float32(math.sqrt(cfg.d_model)))
+        if cfg.input_mode == "embeddings":
+            full = {"embeds": frontend.fake_patch_embeddings(
+                        cfg, B, S, device="cpu").float(),
+                    "positions": frontend.mrope_position_ids(
+                        B, S, grid=4, device="cpu")}
+        else:
+            full = {"tokens": torch.from_numpy(np.random.default_rng(7)
+                                               .integers(0, cfg.vocab,
+                                                         (B, S)))}
+        gaps = []
+        for where in ("cpu", dev):
+            params = _tree_map(lambda t: t.to(where), cpu)
+            b = {k: v[:, :S_pre].to(where) for k, v in full.items()}
+            logits, caches = model.prefill(params, b, S)
+            out = [logits.cpu()]
+            for t in range(S_pre, S):
+                step = {"positions": torch.full((B,), t, dtype=torch.long,
+                                                device=where)}
+                if cfg.input_mode == "embeddings":
+                    step["embed"] = full["embeds"][:, t].to(where)
+                    step["rope_positions"] = full["positions"][:, t].to(where)
+                else:
+                    step["token"] = full["tokens"][:, t].to(where)
+                logits, caches = model.decode_step(params, caches, step)
+                out.append(logits.cpu())
+            gaps.append(torch.stack(out))
+        scale = float(gaps[0].abs().max())
+        e = float((gaps[1] - gaps[0]).abs().max())
+        say(f"[15] (d) reduced {arch}, f32: prefill + {n_dec} decode steps "
+            f"card vs CPU max abs err {e:.4g} = {e / scale:.3g} x "
+            f"max|logit| {scale:.4g} (bar {SERVE_F32_BAR})")
+        check(bool(torch.isfinite(gaps[1]).all())
+              and e <= SERVE_F32_BAR * scale,
+              f"reduced {arch}: card and CPU logits differ by {e}")
+
+
+def _held_prefill(model, params, batch, cache):
     """``model.prefill`` with each K5 / K6 launch held against the plain
     version on that layer's own inputs (the JAX suite's bar for the
     output's dtype); returns (logits, caches, {kernel: [max abs err,
@@ -2109,7 +2573,7 @@ def _held_prefill(model, params, prompts, cache):
                                            K5_BARS)
     ssm.selective_scan_op = holding(ops[1], "selective_scan", K6_BARS)
     try:
-        logits, caches = model.prefill(params, {"tokens": prompts}, cache)
+        logits, caches = model.prefill(params, batch, cache)
     finally:
         attention.flash_attention_op, ssm.selective_scan_op = ops
     return logits, caches, held
@@ -2398,7 +2862,8 @@ def main() -> int:
     n12 = phase_policies(dev)
     n13 = phase_traffic(dev, ens9)
     n14 = phase_training(dev, rates)
-    for part in (n3, n4, n5, n8, n9, n11, n12, n13, n14):
+    n15 = phase_families(dev)
+    for part in (n3, n4, n5, n8, n9, n11, n12, n13, n14, n15):
         for k, v in part.items():
             launches[k] += v
     for k in launches:

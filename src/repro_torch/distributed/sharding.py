@@ -62,21 +62,21 @@ def stack_trees(trees: list) -> Dict[str, Any]:
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
-# the largest block drawn from the generator at once: a stacked leaf is
-# drawn layer by layer above it, so the f32 draw never holds a whole
-# multi-GB leaf (falcon-mamba-7b's in_proj is 4.3e9 values)
+# the largest block drawn from the generator at once: a larger leaf is
+# drawn in flat blocks of this many values, so the f32 draw never holds a
+# whole multi-GB leaf (falcon-mamba-7b's in_proj is 4.3e9 values,
+# moonshot-v1-16b-a3b's expert weights 8.9e9 a leaf)
 _DRAW_BLOCK = 1 << 26
 
 
 def _normal(shape, std: float, gen: torch.Generator, dtype, device):
     out = torch.empty(shape, dtype=dtype, device=device)
-    if len(shape) > 1 and math.prod(shape) > _DRAW_BLOCK:
-        for i in range(shape[0]):
-            out[i] = _normal(shape[1:], std, gen, dtype, device)
-        return out
-    draw = torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device)
-    return out.copy_(draw.mul_(std))
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _DRAW_BLOCK):
+        draw = torch.randn(min(_DRAW_BLOCK, flat.numel() - i), generator=gen,
+                           dtype=torch.float32, device=device)
+        flat[i:i + draw.numel()] = draw.mul_(std)
+    return out
 
 
 def _init_one(p: Param, gen: torch.Generator,

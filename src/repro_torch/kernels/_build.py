@@ -27,6 +27,8 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # loaded libraries by (source, flags): a launch looks its library up here
 # without touching the file system
 _LIBS: Dict[Tuple[Path, Tuple[str, ...]], ctypes.CDLL] = {}
+# nvcc's output by library, for each library this process built
+LOGS: Dict[Path, str] = {}
 
 
 def nvcc() -> str:
@@ -77,6 +79,7 @@ def build_many(specs: Sequence[Tuple[Path, Sequence[str]]],
                                    f"{out.stem}:\n{log}")
             if verbose:
                 print(log, flush=True)
+            LOGS[out] = log
             os.replace(tmp, out)
             results.append((out, time.perf_counter() - t0))
     finally:

@@ -1,11 +1,15 @@
-// K6: the Mamba-1 selective scan (forward) for Hopper (sm_90a).
+// K6: the selective scan (forward) of Mamba-1 and Mamba-2 for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel _scan_kernel of
 // src/repro/kernels/selective_scan.py (called through selective_scan):
 //   h_t = exp(dt_t * A) (.) h_{t-1} + (dt_t * x_t) (x) B_t,   h_0 = 0
 //   y_t = sum_N h_t (.) C_t
 // with dt/x (B, S, D) in f32 or bf16, B/C (B, S, N) and A (D, N) in f32, y
-// (B, S, D) in x's dtype.  Unlike the TPU kernel, which keeps the last
+// (B, S, D) in x's dtype.  A may also be (D,), one decay per channel: the
+// per-channel form Mamba-2 takes (its per-head decay repeated over the
+// head's channels, the same for all N states; the TPU kernel takes it as
+// a (D, N) broadcast).  Unlike the TPU kernel, which keeps the last
 // state in its scratch and drops it, this kernel also writes the final
 // state h_S (B, D, N) in f32: prefill hands it to the decode cache.
 //
@@ -28,14 +32,38 @@
 // of later steps, which do not depend on the state, overlap the updates
 // of earlier ones.  The copies need D a multiple of 16 bytes of dt/x and
 // 16-byte aligned tensors; otherwise (vec = 0) the same kernel stages
-// element by element.  D and S may be ragged; N is 8 or 16.
+// element by element.  D and S may be ragged; N is 8 or 16 for a (D, N)
+// decay.
+//
+// Per-channel form (scan_pc_kernel, N 16 or 64).  A step takes one exp
+// for the channel, bitwise the value the (D, N) form takes N times over,
+// so h_S stays equal to the plain version's.  At N = 64 one thread per
+// channel holds 64 states and the 64 products of y's tree, with one warp
+// per SM sub-partition at zamba2's prefill; four lanes per channel in one
+// warp read B_t / C_t at four addresses per 16-byte load, four shared
+// memory wavefronts where a broadcast takes one.  Both ran slower than
+// this design on an H100 at that prefill.  Here a block of 64 channels
+// has G = 4 state groups of 64 threads: thread (j, channel) holds states
+// j, j + 4, ..., 16 at N = 64, so each warp is one group and its B_t /
+// C_t reads are broadcasts from a group-major copy in shared memory
+// (filled with 4-byte cp.async copies), and there are four times the
+// warps.  y's
+// halving tree keeps its order: the levels at offsets N/2 .. 4 pair
+// states of one thread; each group's partial goes to shared memory and,
+// once a chunk is done, the last two levels ((p0 + p2) + (p1 + p3)) run
+// with the store of the chunk's rows of y.  Bound at zamba2-1.2b's
+// prefill (B 4, S 512, D 4096, N 64, f32 dt/x/y): ~30 MB (dt, x, y
+// 8.4 MB each; B, C, A and h_S ~5.3 MB), ~9 us at 3.35 TB/s; its 5 FLOPs
+// per state-step are 2.7e9 on the f32 pipes, ~40 us at 67 TFLOP/s, so
+// the bound is the operations (and, with no FMA to fuse them, ~80 us of
+// issue on 132 SMs).
 //
 // Arithmetic.  The decay is expf(__fmul_rn(dt, a)), the function
 // torch.exp computes on the card; the recurrence rounds each product and
 // sum on its own (no FMA contraction), as PyTorch's elementwise ops do, so
 // the final state h_S equals the plain version's bit for bit.  y's sum
 // over N takes the halving tree that torch.sum's warp reduction takes
-// over a last axis of 16 or 8, each product rounded before it is added,
+// over a last axis of 8, 16 or 64, each product rounded before it is added,
 // so y equals the plain version's bit for bit too.  A faster exp
 // (ex2.approx of a pre-scaled argument) or a contracted update would drift
 // from the plain version by an ulp a step over long sequences.
@@ -99,7 +127,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Sum of p[0, M) by halving: p[i] += p[i + M / 2], then the same over the
 // first half, down to p[0]; each sum rounded on its own.  (torch.sum
 // over a last axis of 8 or 16 on the card: a warp reduction with
-// shuffle-down offsets 8, 4, 2, 1.)
+// shuffle-down offsets 8, 4, 2, 1; over 64, each of 32 lanes adds p[i]
+// and p[i + 32] first.)
 template <int W, int M>
 __device__ __forceinline__ void halve(float (&p)[M]) {
 #pragma unroll
@@ -260,27 +289,208 @@ int launch(const void* dt, const void* x, const void* bm, const void* cm,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Per-channel form (Mamba-2): a is (D,), G state groups per channel
+// ---------------------------------------------------------------------------
+
+constexpr int G = 4;  // state groups: group j holds states j, j + G, ...
+
+// One stage of the per-channel ring: dt and x as in Stage; B_t and C_t
+// group-major, row [tt][j] holding states j, j + G, ... of step tt.
+template <typename T, int N>
+struct StagePC {
+  T dt[TC][CPB];
+  T x[TC][CPB];
+  float4 b[TC][G][N / G / 4];
+  float4 c[TC][G][N / G / 4];
+};
+
+// 4-byte copy; src_bytes 0 fills with zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void load_chunk_pc(StagePC<T, N>& st,
+                                              const T* __restrict__ dt,
+                                              const T* __restrict__ x,
+                                              const float* __restrict__ bm,
+                                              const float* __restrict__ cm,
+                                              long long row0, int t0, int d0,
+                                              int S, int D, bool vec) {
+  constexpr int THREADS = CPB * G;
+  constexpr int E = 16 / sizeof(T);
+  constexpr int RC = CPB / E;
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < TC * RC / THREADS; ++it) {
+      const int i = threadIdx.x + it * THREADS;
+      const int tt = i / RC, cc = (i % RC) * E;
+      const bool ok = t0 + tt < S && d0 + cc < D;
+      const long long off = ok ? (row0 + t0 + tt) * D + d0 + cc : 0;
+      cp_async16(&st.dt[tt][cc], dt + off, ok ? 16 : 0);
+      cp_async16(&st.x[tt][cc], x + off, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TC * CPB; i += THREADS) {
+      const int tt = i / CPB, cc = i % CPB;
+      const bool ok = t0 + tt < S && d0 + cc < D;
+      const long long off = (row0 + t0 + tt) * D + d0 + cc;
+      store(&st.dt[tt][cc], ok ? to_f32(dt[off]) : 0.f);
+      store(&st.x[tt][cc], ok ? to_f32(x[off]) : 0.f);
+    }
+  }
+  // state n = j + G * q of step tt goes to row [tt][j], column q
+  float* b_s = &st.b[0][0][0].x;
+  float* c_s = &st.c[0][0][0].x;
+  for (int i = threadIdx.x; i < TC * N; i += THREADS) {
+    const int tt = i / N, n = i % N;
+    const bool ok = t0 + tt < S;
+    const long long off = ok ? (row0 + t0 + tt) * N + n : 0;
+    const int at = (tt * G + n % G) * (N / G) + n / G;
+    cp_async4(b_s + at, bm + off, ok ? 4 : 0);
+    cp_async4(c_s + at, cm + off, ok ? 4 : 0);
+  }
+}
+
+// Threads: channel cl = threadIdx.x % CPB (neighbouring lanes hold
+// neighbouring channels, so dt / x reads are rows), group j =
+// threadIdx.x / CPB (the same for a whole warp, so B_t / C_t reads are
+// broadcasts).
+template <typename T, int N>
+__global__ void __launch_bounds__(CPB * G)
+    scan_pc_kernel(const T* __restrict__ dt, const T* __restrict__ x,
+                   const float* __restrict__ bm, const float* __restrict__ cm,
+                   const float* __restrict__ a, T* __restrict__ y,
+                   float* __restrict__ h_last, int S, int D, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StagePC<T, N>* ring = reinterpret_cast<StagePC<T, N>*>(smem_raw);
+  // each group's partial of y's tree for a chunk: [tt][j][channel]
+  float* part = reinterpret_cast<float*>(ring + 2);
+  constexpr int M = N / G;  // states per thread
+  const int cl = threadIdx.x % CPB;
+  const int j = threadIdx.x / CPB;
+  const int d0 = blockIdx.x * CPB;
+  const int d = d0 + cl;
+  const int b = blockIdx.y;
+  const long long row0 = (long long)b * S;
+  const float av = d < D ? a[d] : 0.f;
+  float h[M];
+#pragma unroll
+  for (int q = 0; q < M; ++q) h[q] = 0.f;
+
+  const int nc = (S + TC - 1) / TC;
+  load_chunk_pc<T, N>(ring[0], dt, x, bm, cm, row0, 0, d0, S, D, vec);
+  cp_async_commit();
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = ci * TC;
+    cp_async_wait_all();
+    __syncthreads();  // chunk ci landed; chunk ci - 1's stage and the
+                      // partials are free
+    if (ci + 1 < nc)
+      load_chunk_pc<T, N>(ring[(ci + 1) & 1], dt, x, bm, cm, row0, t0 + TC,
+                          d0, S, D, vec);
+    cp_async_commit();
+    const StagePC<T, N>& st = ring[ci & 1];
+    const int tc = min(TC, S - t0);
+#pragma unroll 2
+    for (int tt = 0; tt < tc; ++tt) {
+      const float dtv = to_f32(st.dt[tt][cl]);
+      const float dx = __fmul_rn(dtv, to_f32(st.x[tt][cl]));
+      const float da = expf(__fmul_rn(dtv, av));
+      float hc[M];
+#pragma unroll
+      for (int q4 = 0; q4 < M / 4; ++q4) {
+        const float4 b4 = st.b[tt][j][q4], c4 = st.c[tt][j][q4];
+        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int q = 4 * q4 + r;
+          h[q] = __fadd_rn(__fmul_rn(da, h[q]), __fmul_rn(dx, bb[r]));
+          hc[q] = __fmul_rn(h[q], cc[r]);
+        }
+      }
+      // y's halving tree over N: offsets N/2 .. G pair states of this
+      // group (q and q + M/2, ...)
+      part[(tt * G + j) * CPB + cl] = tree_sum<M>(hc);
+    }
+    __syncthreads();
+    // the tree's last levels, offsets 2 and 1 over the groups: y =
+    // (p0 + p2) + (p1 + p3); then the chunk's rows of y
+    for (int i = threadIdx.x; i < tc * CPB; i += CPB * G) {
+      const int tt = i / CPB, c = i % CPB;
+      const float* p = part + tt * G * CPB + c;
+      const float yv = __fadd_rn(__fadd_rn(p[0], p[2 * CPB]),
+                                 __fadd_rn(p[CPB], p[3 * CPB]));
+      if (d0 + c < D) store(y + (row0 + t0 + tt) * D + d0 + c, yv);
+    }
+  }
+  if (d < D) {
+    float* hl = h_last + ((long long)b * D + d) * N + j;
+#pragma unroll
+    for (int q = 0; q < M; ++q) hl[G * q] = h[q];
+  }
+}
+
+template <typename T, int N>
+int launch_pc(const void* dt, const void* x, const void* bm, const void* cm,
+              const void* a, void* y, void* h_last, int B, int S, int D,
+              int vec, cudaStream_t stream) {
+  constexpr size_t smem =
+      2 * sizeof(StagePC<T, N>) + sizeof(float) * TC * G * CPB;
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_pc_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((D + CPB - 1) / CPB, B);
+  scan_pc_kernel<T, N><<<grid, CPB * G, smem, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x),
+      static_cast<const float*>(bm), static_cast<const float*>(cm),
+      static_cast<const float*>(a), static_cast<T*>(y),
+      static_cast<float*>(h_last), S, D, vec);
+  return (int)cudaGetLastError();
+}
+
+// the instantiated (N, form) pairs: (D, N) decays at N 8 and 16 (Mamba-1),
+// per-channel decays at N 16 and 64 (Mamba-2)
+template <typename T>
+int dispatch(const void* dt, const void* x, const void* bm, const void* cm,
+             const void* a, void* y, void* h_last, int B, int S, int D,
+             int N, int per_channel, int vec, cudaStream_t st) {
+  if (!per_channel && N == 8)
+    return launch<T, 8>(dt, x, bm, cm, a, y, h_last, B, S, D, vec, st);
+  if (!per_channel && N == 16)
+    return launch<T, 16>(dt, x, bm, cm, a, y, h_last, B, S, D, vec, st);
+  if (per_channel && N == 16)
+    return launch_pc<T, 16>(dt, x, bm, cm, a, y, h_last, B, S, D, vec, st);
+  if (per_channel && N == 64)
+    return launch_pc<T, 64>(dt, x, bm, cm, a, y, h_last, B, S, D, vec, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dt, x and y share it).  vec: 1 =
-// 16-byte cp.async copies, which need D * sizeof(dtype) % 16 == 0 and
+// dtype: 0 = float32, 1 = bfloat16 (dt, x and y share it).  per_channel:
+// 1 = a is (D,), one decay per channel; 0 = a is (D, N).  vec: 1 = 16-byte
+// cp.async copies of dt and x, which need D * sizeof(dtype) % 16 == 0 and
 // 16-byte aligned tensors; 0 = element-wise staging in the same kernel.
 extern "C" int selective_scan_launch(const void* dt, const void* x,
                                      const void* bm, const void* cm,
                                      const void* a, void* y, void* h_last,
                                      int dtype, int B, int S, int D, int N,
-                                     int vec, void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || D < 1 || (N != 8 && N != 16) ||
-      (dtype != 0 && dtype != 1) || (vec && D % (dtype == 0 ? 4 : 8)))
+                                     int per_channel, int vec, void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || D < 1 || (dtype != 0 && dtype != 1) ||
+      (vec && D % (dtype == 0 ? 4 : 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return N == 8 ? launch<float, 8>(dt, x, bm, cm, a, y, h_last, B, S, D,
-                                     vec, st)
-                  : launch<float, 16>(dt, x, bm, cm, a, y, h_last, B, S, D,
-                                      vec, st);
-  return N == 8 ? launch<__nv_bfloat16, 8>(dt, x, bm, cm, a, y, h_last, B, S,
-                                           D, vec, st)
-                : launch<__nv_bfloat16, 16>(dt, x, bm, cm, a, y, h_last, B,
-                                            S, D, vec, st);
+    return dispatch<float>(dt, x, bm, cm, a, y, h_last, B, S, D, N,
+                           per_channel, vec, st);
+  return dispatch<__nv_bfloat16>(dt, x, bm, cm, a, y, h_last, B, S, D, N,
+                                 per_channel, vec, st);
 }

@@ -1,16 +1,23 @@
-"""K6: the Mamba-1 selective scan for Hopper (twin of
+"""K6: the selective scan for Hopper (twin of
 ``repro.kernels.selective_scan``).
 
 ``selective_scan(dt, x, b, c, a)`` runs ``h_t = exp(dt_t·A) ⊙ h_{t-1} +
 (dt_t·x_t) ⊗ B_t`` from h₀ = 0 and returns ``y_t = Σ_N h_t ⊙ C_t`` (B, S,
 D) in x's dtype together with the final state h_S (B, D, N) in f32, which
 prefill hands to the decode cache.  dt/x (B, S, D) share a dtype (f32 or
-bf16); b/c (B, S, N) and a (D, N) are f32.  On CUDA tensors it launches
-the CUDA kernel ``csrc/selective_scan.cu`` (replaces ``_scan_kernel``;
-bound and design are noted there), built with ``nvcc`` at first use; on
-CPU tensors it runs the plain step-by-step loop ``selective_scan_plain``,
-the recurrence of ``repro.kernels.ref.selective_scan_ref``.  Any other
-device raises.  ``selective_scan.launches`` counts kernel launches.
+bf16); b/c (B, S, N) and a are f32.  a is (D, N), Mamba-1's decay per
+(channel, state), or (D,), the per-channel form Mamba-2 takes (its decay
+per head repeated over the head's channels, the same for every state):
+then exp(dt·a) is one value per (b, t, d), bitwise the value the (D, N)
+form computes N times over when a is broadcast.  On CUDA tensors it
+launches the CUDA kernel ``csrc/selective_scan.cu`` (replaces
+``_scan_kernel``; bound and design are noted there), built with ``nvcc``
+at first use; on CPU tensors it runs the plain step-by-step loop
+``selective_scan_plain``, the recurrence of
+``repro.kernels.ref.selective_scan_ref``.  Any other device raises.
+``selective_scan.launches`` counts kernel launches and
+``selective_scan.route_launches`` splits them by the decay's form
+(``"dn"``: (D, N); ``"per_channel"``: (D,)).
 """
 from __future__ import annotations
 
@@ -23,7 +30,10 @@ from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "selective_scan.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
-STATE_SIZES = (8, 16)          # the kernel's instantiated N
+# the kernel's instantiated N: for a (D, N) decay (Mamba-1) and for a
+# per-channel (D,) decay (Mamba-2: zamba2's 64, and 16 at reduced size)
+STATE_SIZES = (8, 16)
+PER_CHANNEL_STATE_SIZES = (16, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,14 +56,18 @@ def variant(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
 def selective_scan_plain(dt, x, b, c, a
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The recurrence step by step over S in plain torch: (y in x's dtype,
-    h_S f32)."""
+    h_S f32).  a (D, N), or (D,) for one decay per channel (its exp taken
+    once per (b, t, d) and broadcast over the N states)."""
     Bsz, S, D = x.shape
     dtf, xf, bf, cf = dt.float(), x.float(), b.float(), c.float()
-    h = torch.zeros((Bsz, D, a.shape[-1]), dtype=torch.float32,
+    h = torch.zeros((Bsz, D, b.shape[-1]), dtype=torch.float32,
                     device=x.device)
     ys = []
     for t in range(S):
-        da = torch.exp(dtf[:, t, :, None] * a)             # (B, D, N)
+        if a.dim() == 1:
+            da = torch.exp(dtf[:, t] * a)[..., None]       # (B, D, 1)
+        else:
+            da = torch.exp(dtf[:, t, :, None] * a)         # (B, D, N)
         dbx = (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         h = da * h + dbx
         ys.append(torch.sum(h * cf[:, t, None, :], dim=-1))
@@ -63,7 +77,7 @@ def selective_scan_plain(dt, x, b, c, a
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.selective_scan_launch.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.selective_scan_launch.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.selective_scan_launch.restype = i
 
 
@@ -72,14 +86,16 @@ def _check_args(dt, x, b, c, a) -> None:
         raise ValueError(f"dt/x must be (B, S, D); got {tuple(dt.shape)}, "
                          f"{tuple(x.shape)}")
     B, S, D = x.shape
-    N = a.shape[-1]
+    N = b.shape[-1]
     if (b.shape != (B, S, N) or c.shape != (B, S, N)
-            or a.shape != (D, N)):
-        raise ValueError(f"b/c must be ({B}, {S}, N) and a (D={D}, N); got "
-                         f"{tuple(b.shape)}, {tuple(c.shape)}, "
+            or a.shape not in ((D, N), (D,))):
+        raise ValueError(f"b/c must be ({B}, {S}, N) and a (D={D}, N) or "
+                         f"(D,); got {tuple(b.shape)}, {tuple(c.shape)}, "
                          f"{tuple(a.shape)}")
-    if N not in STATE_SIZES:
-        raise ValueError(f"state size N={N} is not one of {STATE_SIZES}")
+    sizes = PER_CHANNEL_STATE_SIZES if a.dim() == 1 else STATE_SIZES
+    if N not in sizes:
+        raise ValueError(f"state size N={N} is not one of {sizes} for a "
+                         f"of shape {tuple(a.shape)}")
     if (x.dtype not in _DTYPES or dt.dtype != x.dtype
             or {b.dtype, c.dtype, a.dtype} != {torch.float32}):
         raise ValueError("selective_scan takes dt/x of one dtype, f32 or "
@@ -99,7 +115,7 @@ def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
         return selective_scan_plain(dt, x, b, c, a)
     _check_args(dt, x, b, c, a)
     B, S, D = x.shape
-    N = a.shape[-1]
+    N = b.shape[-1]
     y = torch.empty_like(x)
     h_last = torch.empty((B, D, N), dtype=torch.float32, device=x.device)
     aligned = all(t.data_ptr() % 16 == 0
@@ -110,9 +126,12 @@ def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.check(lib.selective_scan_launch(
         dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), y.data_ptr(), h_last.data_ptr(), _DTYPES[x.dtype],
-        B, S, D, N, int(vec), stream), "selective_scan")
+        B, S, D, N, int(a.dim() == 1), int(vec), stream), "selective_scan")
     selective_scan.launches += 1
+    selective_scan.route_launches["per_channel" if a.dim() == 1
+                                  else "dn"] += 1
     return y, h_last
 
 
 selective_scan.launches = 0
+selective_scan.route_launches = {"dn": 0, "per_channel": 0}

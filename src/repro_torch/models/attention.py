@@ -9,8 +9,9 @@ matrix is live, and autograd differentiates it (K5 has no backward, as
 the Pallas kernel has no VJP).  Prefill computes the same function in one
 K5 launch per layer.  Sliding-window attention (h2o-danube) is a band
 mask in training and keeps a ring-buffer KV cache whose size is the
-window.  Decode is plain torch: one query row per sequence against the
-cache.
+window.  Positions are (B, S), or (B, S, 3) M-RoPE ids (qwen2-vl); K5
+sees q and k after the rotation either way.  Decode is plain torch: one
+query row per sequence against the cache.
 """
 from __future__ import annotations
 
@@ -167,16 +168,15 @@ def attention_decode(cfg: ArchConfig, p, x, cache: KVCache,
                      rope_positions: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, KVCache]:
     """x: (B, 1, D); positions: (B,) absolute position of the new token
-    (its cache slot).  Writes the new k/v into ``cache`` in place (the JAX
-    package returns an updated copy; in place saves a cache copy per layer
-    and step) and returns it."""
-    if rope_positions is not None:
-        raise NotImplementedError(
-            "M-RoPE decode positions are not ported yet: ROADMAP Queue 1 "
-            "item M6 (the frontend, M-RoPE and embeddings input)")
+    (its cache slot); ``rope_positions`` optionally carries the token's
+    M-RoPE ids (B, 3), which then turn q and k in place of ``positions``.
+    Writes the new k/v into ``cache`` in place (the JAX package returns an
+    updated copy; in place saves a cache copy per layer and step) and
+    returns it."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k_new, v_new = _project_qkv(cfg, p, x, positions[:, None])
+    rp = positions if rope_positions is None else rope_positions
+    q, k_new, v_new = _project_qkv(cfg, p, x, rp[:, None])
     ck, cv = cache
     cl = ck.shape[1]
     is_swa = cfg.attention == "swa"

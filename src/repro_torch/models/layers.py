@@ -1,5 +1,5 @@
-"""Shared layer primitives: norms, RoPE, MLP variants, embeddings (twin of
-``repro.models.layers``).
+"""Shared layer primitives: norms, RoPE / M-RoPE, MLP variants,
+embeddings (twin of ``repro.models.layers``).
 
 Params are declarative ``Param`` templates; forward functions take plain
 dicts of tensors.  Compute dtype follows the parameters (bf16 by default),
@@ -44,14 +44,22 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (..., S, n_heads, head_dim); positions: (..., S)."""
-    if positions.dim() != x.dim() - 2:
-        raise NotImplementedError(
-            "M-RoPE positions (..., S, 3) are not ported yet: ROADMAP "
-            "Queue 1 item M6 (the frontend, M-RoPE and embeddings input)")
+    """x: (..., S, n_heads, head_dim); positions: (..., S), or (..., S, 3)
+    for M-RoPE (temporal / height / width, qwen2-vl style): the first half
+    of the frequency channels turns by the temporal id, the next quarter
+    by the height id and the last quarter by the width id."""
     hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, x.device)
-    ang = positions[..., None].float() * inv          # (..., S, hd/2)
+    inv = rope_freqs(hd, theta, x.device)             # (hd/2,)
+    if positions.dim() == x.dim() - 2:                # plain RoPE
+        ang = positions[..., None].float() * inv      # (..., S, hd/2)
+    else:                                             # M-RoPE: (..., S, 3)
+        n = inv.shape[0]
+        s1, s2 = n // 2, (3 * n) // 4
+        sec = torch.zeros((n,), dtype=torch.long, device=x.device)
+        sec[s1:s2] = 1
+        sec[s2:] = 2
+        pos = torch.index_select(positions.float(), -1, sec)  # (..., S, n)
+        ang = pos * inv
     cos = torch.cos(ang)[..., None, :]                # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -1,18 +1,25 @@
-"""Model facade: template / init / loss / prefill / decode for the ported
-archs (twin of ``repro.models.model``).
+"""Model facade: template / init / loss / prefill / decode for every
+arch (twin of ``repro.models.model``).
 
 Batch conventions
 -----------------
-train:   {"tokens": (B, S) int, "labels": (B, S) int,
-          ["positions": (B, S) int]}
-prefill: {"tokens": (B, S) int, ["positions": (B, S) int]}
-decode:  {"token": (B,) int, "positions": (B,) int}
+train:   {"tokens": (B, S) int | "embeds": (B, S, D),
+          "labels": (B, S) int, ["positions": (B, S) or (B, S, 3) int]}
+prefill: {"tokens" | "embeds", ["positions"]}
+decode:  {"token": (B,) int | "embed": (B, D), "positions": (B,) int,
+          ["rope_positions": (B, 3) int]}
+
+An arch with ``input_mode="embeddings"`` (qwen2-vl) takes precomputed
+patch embeddings instead of tokens; an M-RoPE arch needs its (B, S, 3)
+positions in training and prefill, and in decode takes them as
+``rope_positions`` (default: the linear position three times over).
 
 Parameters are nested dicts of tensors with the JAX tree's names, shapes
 and dtypes (``Model.init`` draws them; ``convert.params_from_numpy`` brings
 in a JAX model's).  ``loss`` is the training forward, plain torch under
 autograd as the JAX package's is plain jnp; prefill runs the kernels K5 /
-K6.  Embeddings input is not ported yet.
+K6 (the SSD form of Mamba-2, ``ssm_algo="ssd"``, is plain torch on every
+route, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -36,8 +43,8 @@ from repro_torch.models.layers import (embed_lookup, embed_template, lm_head,
 class ModelFlags:
     """The JAX package's flags, with its defaults, shape the training
     forward: ``remat`` (none | full | dots), the attention and scan chunk
-    lengths, ``ssm_algo`` (``scan``; the Mamba-2 ``ssd`` path is not
-    ported) and ``loss_chunk`` (0 = the unchunked vocab loss).
+    lengths, ``ssm_algo`` (``scan`` or, for Mamba-2, ``ssd``) and
+    ``loss_chunk`` (0 = the unchunked vocab loss).
     ``use_kernel=False`` runs prefill's attention and scan through their
     plain torch versions on any device (the reference route the kernels
     are held against on the card); training never runs the kernels."""
@@ -51,15 +58,6 @@ class ModelFlags:
 
 class Model:
     def __init__(self, cfg: ArchConfig, flags: ModelFlags = ModelFlags()):
-        tr.check_supported(cfg)
-        if flags.ssm_algo != "scan":
-            raise NotImplementedError(
-                f"ssm_algo={flags.ssm_algo!r} is not ported yet: ROADMAP "
-                "Queue 1 item M5 (Mamba-2 and the zamba2 hybrid)")
-        if cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                "embeddings input is not ported yet: ROADMAP Queue 1 item "
-                "M6 (the frontend, M-RoPE and embeddings input)")
         self.cfg = cfg
         self.flags = flags
 
@@ -98,7 +96,7 @@ class Model:
         x, pos = self._inputs(batch, params)
         h, aux = tr.stack_apply(cfg, params["stack"], x, pos,
                                 remat=fl.remat, attn_chunk=fl.attn_chunk,
-                                ssm_chunk=fl.ssm_chunk)
+                                ssm_chunk=fl.ssm_chunk, ssm_algo=fl.ssm_algo)
         labels = batch["labels"]
         if fl.loss_chunk:
             c = fl.loss_chunk
@@ -128,10 +126,16 @@ class Model:
 
     # ------------------------------------------------------------------
     def _inputs(self, batch: Dict[str, torch.Tensor], params) -> Tuple:
-        x = embed_lookup(params["embed"], batch["tokens"])
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings":
+            x = batch["embeds"]
+        else:
+            x = embed_lookup(params["embed"], batch["tokens"])
         B, S = x.shape[:2]
         if "positions" in batch:
             pos = batch["positions"]
+        elif cfg.rope == "mrope":
+            raise ValueError("an M-RoPE arch needs explicit positions")
         else:
             pos = torch.arange(S, dtype=torch.int32,
                                device=x.device).expand(B, S)
@@ -147,10 +151,12 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: int):
         """Logits (B, V) f32 of the last prompt token and the caches."""
+        fl = self.flags
         x, pos = self._inputs(batch, params)
         h, caches = tr.stack_prefill(self.cfg, params["stack"], x, pos,
-                                     cache_len,
-                                     use_kernel=self.flags.use_kernel)
+                                     cache_len, use_kernel=fl.use_kernel,
+                                     ssm_algo=fl.ssm_algo,
+                                     ssm_chunk=fl.ssm_chunk)
         logits = self._logits(params, h[:, -1:])[:, 0]
         return logits, caches
 
@@ -158,9 +164,19 @@ class Model:
     def decode_step(self, params, caches, batch):
         """One token per row at its own position; the caches are updated
         in place and returned."""
-        x = embed_lookup(params["embed"], batch["token"][:, None])
-        h, caches = tr.stack_decode(self.cfg, params["stack"], caches, x,
-                                    batch["positions"])
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings":
+            x = batch["embed"][:, None]
+        else:
+            x = embed_lookup(params["embed"], batch["token"][:, None])
+        pos = batch["positions"]                     # (B,) linear slots
+        rope_pos = None
+        if cfg.rope == "mrope":
+            rope_pos = batch.get("rope_positions")
+            if rope_pos is None:
+                rope_pos = torch.stack([pos] * 3, dim=-1)
+        h, caches = tr.stack_decode(cfg, params["stack"], caches, x, pos,
+                                    rope_pos)
         logits = self._logits(params, h)[:, 0]
         return logits, caches
 

@@ -1,5 +1,5 @@
-"""Selective state-space blocks, the Mamba-1 half (falcon-mamba), twin of
-``repro.models.ssm``.
+"""Selective state-space blocks: Mamba-1 (falcon-mamba) and Mamba-2
+(zamba2), twin of ``repro.models.ssm``.
 
 Training runs the JAX package's own route, the **chunked selective
 scan**: the (B, S, d_inner, N) decay and input terms are built in f32,
@@ -10,7 +10,14 @@ and the state is carried from chunk to chunk; autograd differentiates it
 selective scan K6 once per layer instead: it streams the per-step terms
 through the chip and keeps the (d_inner, N) state on it, and also returns
 the final state for the decode cache.  Decode is the exact single-step
-recurrence in plain torch.  Mamba-2 (zamba2) is not ported yet.
+recurrence in plain torch.
+
+Mamba-2 has one decay per head, shared by the head's P channels and its N
+states: its prefill runs K6 in the per-channel form (A of shape
+(d_inner,), one exp per (b, t, channel)); training runs the same chunked
+scan over (B, S, d_inner, N) terms.  ``ssm_algo="ssd"`` runs the SSD
+chunk-matmul form instead (``mamba2_apply_ssd``, plain torch, prefill and
+training alike), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -196,3 +203,170 @@ def mamba1_step(cfg: ArchConfig, p, x_t: torch.Tensor,
     y = (y + p["D_skip"] * xc.float()).to(x_t.dtype)
     out = (y * F.silu(z)) @ p["out_proj"]
     return out, SSMCache(h, conv)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 / SSD (zamba2): scalar decay per head, state (heads, P, N)
+# ---------------------------------------------------------------------------
+
+
+def mamba2_template(cfg: ArchConfig) -> Dict[str, Param]:
+    D, di, N, W = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    nh = di // cfg.ssm_head_dim
+    return {
+        "in_proj": Param((D, 2 * di + 2 * N + nh), ("fsdp", "tp")),
+        "conv_w": Param((di, W), ("tp", None), init="fan_last", scale=0.5),
+        "conv_b": Param((di,), ("tp",), init="zeros"),
+        "A_log": Param((nh,), (None,), init="s4d", dtype=torch.float32),
+        "dt_bias": Param((nh,), (None,), init="dt", dtype=torch.float32),
+        "D_skip": Param((nh,), (None,), init="ones", dtype=torch.float32),
+        "norm_w": Param((di,), ("tp",), init="ones", dtype=torch.float32),
+        "out_proj": Param((di, D), ("tp", "fsdp")),
+    }
+
+
+def _mamba2_split(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    di, N = cfg.d_inner, cfg.ssm_state
+    nh = di // cfg.ssm_head_dim
+    z, x_in, Bm, Cm, dt = torch.split(zxbcdt, [di, di, N, N, nh], dim=-1)
+    return z, x_in, Bm.float(), Cm.float(), dt
+
+
+def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    y = y * F.silu(z.float())
+    scale = torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + eps)
+    return y * scale * w
+
+
+def _mamba2_head(cfg: ArchConfig, p, x):
+    """The projections and conv shared by both Mamba-2 routes: (z, x_in,
+    xc, Bm, Cm, dt (..., nh) f32 after softplus)."""
+    z, x_in, Bm, Cm, dt = _mamba2_split(cfg, x @ p["in_proj"])
+    xc = F.silu(causal_conv(x_in, p["conv_w"], p["conv_b"]))
+    dt = _softplus(dt.float() + p["dt_bias"])
+    return z, x_in, xc, Bm, Cm, dt
+
+
+def _mamba2_tail(cfg: ArchConfig, p, y, xc, z, x_in, h_last, S, dtype,
+                 return_state: bool):
+    """D skip, gated RMSNorm and the out projection; the decode cache."""
+    P, W = cfg.ssm_head_dim, cfg.ssm_conv
+    y = y + torch.repeat_interleave(p["D_skip"], P) * xc.float()
+    y = _gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps).to(dtype)
+    out = y @ p["out_proj"]
+    if return_state:
+        conv_tail = F.pad(x_in, (0, 0, max(W - 1 - S, 0), 0))[:, -(W - 1):]
+        return out, {"h": h_last, "conv": conv_tail}
+    return out
+
+
+def mamba2_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                 x: torch.Tensor, *, chunk: Optional[int] = None,
+                 return_state: bool = False, use_kernel: bool = True):
+    """Forward of one Mamba-2 block.  ``chunk=None`` runs the scan through
+    K6 in its per-channel form (prefill; ``use_kernel=False`` its plain
+    version): dt repeated over each head's P channels, the decay A one
+    value per channel.  An int runs the JAX package's chunked scan over
+    (B, S, d_inner, N) f32 terms, the training route."""
+    B, S, D = x.shape
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // P
+    z, x_in, xc, Bm, Cm, dt = _mamba2_head(cfg, p, x)
+    A = -torch.exp(p["A_log"])                                   # (nh,)
+    if chunk is None:
+        y, h_last = selective_scan_op(
+            torch.repeat_interleave(dt, P, dim=-1), xc.float(), Bm, Cm,
+            torch.repeat_interleave(A, P), use_kernel=use_kernel)
+    else:
+        dA = torch.exp(dt * A)                                   # (B,S,nh)
+        xh = xc.reshape(B, S, nh, P).float()
+        dBx = ((dt[..., None] * xh).reshape(B, S, di)[..., None]
+               * Bm[:, :, None, :])
+        dA_full = torch.repeat_interleave(dA, P, dim=-1)[..., None].expand(
+            B, S, di, N)
+        h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+        h_all, h_last = chunked_selective_scan(dA_full, dBx, h0, chunk=chunk)
+        y = torch.einsum("bsmn,bsn->bsm", h_all, Cm)
+    return _mamba2_tail(cfg, p, y, xc, z, x_in, h_last, S, x.dtype,
+                        return_state)
+
+
+def _ssd_chunk(h, al, Bq, Cq, dx):
+    """One SSD chunk: al (B, Q, nh) log-decays, Bq / Cq (B, Q, N), dx
+    (B, Q, nh, P), carry h (B, nh, P, N) -> (h_new, y (B, Q, nh, P))."""
+    Q = al.shape[1]
+    lc = torch.cumsum(al, dim=1)                             # (B,Q,nh)
+    # intra-chunk: masked decay "attention"
+    cb = torch.einsum("bqn,bsn->bqs", Cq, Bq)                # (B,Q,Q)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=al.device))
+    diff = lc[:, :, None, :] - lc[:, None, :, :]             # (B,Q,S,nh)
+    # clamp masked lanes before exp: exp(+big) in dead lanes would poison
+    # the backward pass with inf * 0 = NaN
+    diff = torch.where(mask[None, :, :, None], diff, -1e30)
+    m = cb[..., None] * torch.exp(diff)
+    y_intra = torch.einsum("bqsh,bshp->bqhp", m, dx)
+    # inter-chunk: incoming state read by C with the cumulative decay
+    y_inter = torch.einsum("bqn,bhpn->bqhp", Cq, h) * torch.exp(lc)[..., None]
+    # state update
+    w = torch.exp(lc[:, -1][:, None] - lc)[..., None] * dx   # (B,Q,nh,P)
+    h_new = (torch.exp(lc[:, -1])[..., None, None] * h
+             + torch.einsum("bqhp,bqn->bhpn", w, Bq))
+    return h_new, y_intra + y_inter
+
+
+def mamba2_apply_ssd(cfg: ArchConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, *, chunk: int = 128,
+                     return_state: bool = False):
+    """Mamba-2 through the SSD chunk-matmul form (the JAX package's
+    ``mamba2_apply_ssd``): the scalar decay per head lets each chunk of Q
+    tokens be two matmuls (intra-chunk masked decay M·X and the inter-chunk
+    state read) instead of (B, S, d_inner, N) scan terms.  Plain torch on
+    every route, prefill and training alike; each chunk runs under a
+    checkpoint, as the JAX body does."""
+    B, S, D = x.shape
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // P
+    z, x_in, xc, Bm, Cm, dt = _mamba2_head(cfg, p, x)
+    a_log = dt * -torch.exp(p["A_log"])                          # <= 0
+    dtx = dt[..., None] * xc.reshape(B, S, nh, P).float()        # (B,S,nh,P)
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+        dtx = F.pad(dtx, (0, 0, 0, 0, 0, pad))
+    h = torch.zeros((B, nh, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(a_log.shape[1] // Q):
+        sl = slice(i * Q, (i + 1) * Q)
+        h, yc = checkpoint(_ssd_chunk, h, a_log[:, sl], Bm[:, sl], Cm[:, sl],
+                           dtx[:, sl], use_reentrant=False)
+        ys.append(yc)
+    y = torch.cat(ys, dim=1).reshape(B, -1, di)[:, :S]
+    return _mamba2_tail(cfg, p, y, xc, z, x_in, h.reshape(B, di, N), S,
+                        x.dtype, return_state)
+
+
+mamba2_cache_template = mamba1_cache_template
+
+
+def mamba2_step(cfg: ArchConfig, p, x_t: torch.Tensor,
+                cache: SSMCache) -> Tuple[torch.Tensor, SSMCache]:
+    """x_t: (B, D) single token."""
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // P
+    z, x_in, Bm, Cm, dt = _mamba2_split(cfg, x_t @ p["in_proj"])
+    xc, conv = causal_conv_step(x_in, cache.conv, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc)
+    dt = _softplus(dt.float() + p["dt_bias"])                    # (B,nh)
+    dA = torch.exp(dt * -torch.exp(p["A_log"]))                  # (B,nh)
+    dBx = ((dt[..., None] * xc.reshape(-1, nh, P).float())
+           .reshape(-1, di)[..., None] * Bm[:, None, :])
+    dA_full = torch.repeat_interleave(dA, P, dim=-1)[..., None]
+    h = selective_scan_step(dA_full, dBx, cache.h)
+    y = torch.einsum("bmn,bn->bm", h, Cm)
+    y = y + torch.repeat_interleave(p["D_skip"], P) * xc.float()
+    y = _gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps).to(x_t.dtype)
+    return y @ p["out_proj"], SSMCache(h, conv)

@@ -12,7 +12,10 @@ equal to the CPU; K5
 (bf16 on the tensor cores, f32 on the FMA pipes) and K6 within the JAX
 suite's bars of their plain versions, edge cases included (S 1 and 2048,
 GQA groups, padded head dims, windows, large logits, long and short scan
-memory, element-wise staging); the training path (no kernel): train
+memory, element-wise staging), K5 at the moonshot, qwen2-vl and zamba2
+prefill shapes, K6's per-channel form (Mamba-2, N 16 and 64) and its
+(D, N) form bitwise, and one full-width moonshot MoE layer giving the
+same bits on two runs; the training path (no kernel): train
 steps of reduced granite, falcon and danube with f32 parameters on the
 card equal to the CPU, and the launcher's fault restart on the card equal
 to its clean run.  Skips without a GPU; run on the card with ``python -m
@@ -722,7 +725,11 @@ from repro_torch.kernels.selective_scan import (selective_scan,  # noqa: E402
 @pytest.mark.parametrize("B,H,K,S,hd,window", [
     (2, 4, 4, 256, 64, 0), (1, 8, 2, 128, 128, 0), (2, 4, 1, 256, 64, 0),
     (2, 4, 4, 256, 64, 128), (1, 2, 2, 384, 128, 0), (1, 4, 2, 512, 32, 256),
-    (1, 4, 2, 200, 64, 0), (2, 6, 3, 77, 120, 30), (4, 32, 8, 512, 64, 0)])
+    (1, 4, 2, 200, 64, 0), (2, 6, 3, 77, 120, 30), (4, 32, 8, 512, 64, 0),
+    # the prefill shapes of moonshot-v1-16b-a3b, qwen2-vl-72b (GQA 8:1)
+    # and zamba2-1.2b's tied block
+    (4, 16, 16, 512, 128, 0), (4, 64, 8, 512, 128, 0),
+    (4, 32, 32, 512, 64, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, H, K, S, hd, window,
                                               dtype):
@@ -871,6 +878,69 @@ def test_selective_scan_elementwise_staging(dev):
     y_p, h_p = selective_scan_plain(dt, x, b, c, a)
     torch.testing.assert_close(y, y_p, atol=2e-6, rtol=2e-6)
     torch.testing.assert_close(h, h_p, atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 37, 96, 16), (1, 45, 200, 8),
+                                     (4, 512, 8192, 16)])
+def test_selective_scan_dn_form_is_bitwise(dev, B, S, D, N):
+    """Mamba-1's (D, N) form in f32: y and h_S equal the plain version's
+    bit for bit (the per-channel form left it as it was)."""
+    g = torch.Generator(device=dev).manual_seed(B * S + N)
+    dt = torch.rand(B, S, D, generator=g, device=dev) * 0.1 + 0.01
+    x = torch.randn(B, S, D, generator=g, device=dev)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.randn(D, N, generator=g, device=dev) * 0.3)
+    n = selective_scan.route_launches["dn"]
+    y, h = selective_scan(dt, x, b, c, a)
+    assert selective_scan.route_launches["dn"] == n + 1
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    assert torch.equal(y, y_p) and torch.equal(h, h_p)
+
+
+# K6's per-channel form (Mamba-2: a (D,) decay): zamba2-1.2b's prefill
+# (B 4, S 512, D 4096, N 64), ragged D and S, N 16 (the reduced zamba2),
+# and 2048 steps with long and short memory
+@pytest.mark.parametrize("B,S,D,N,dt_lo,dt_hi", [
+    (4, 512, 4096, 64, 0.001, 0.1), (2, 37, 200, 64, 0.01, 0.11),
+    (1, 45, 96, 16, 0.01, 0.11), (1, 2048, 130, 64, 0.004, 0.006),
+    (2, 2048, 64, 64, 0.5, 1.5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_per_channel_matches_plain(dev, B, S, D, N, dt_lo,
+                                                  dt_hi, dtype):
+    g = torch.Generator(device=dev).manual_seed(S + D + N)
+    dt = torch.rand(B, S, D, generator=g, device=dev) * (dt_hi - dt_lo) \
+        + dt_lo
+    x = torch.randn(B, S, D, generator=g, device=dev)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.randn(D, generator=g, device=dev) * 0.3)
+    dt, x = dt.to(dtype), x.to(dtype)
+    n = selective_scan.route_launches["per_channel"]
+    y, h = selective_scan(dt, x, b, c, a)
+    assert selective_scan.route_launches["per_channel"] == n + 1
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    tol = 2e-6 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+
+
+def test_moe_combine_is_deterministic_on_the_card(dev):
+    """One moonshot-v1-16b-a3b MoE layer at full width (64 experts, top
+    6) on a 4 x 512 prefill in bf16: two runs give the same bits (the
+    combine adds each token's rows in a fixed order, no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_tree
+    from repro_torch.models import moe
+    cfg = get_config("moonshot-v1-16b-a3b")
+    p = init_tree(moe.moe_template(cfg), 0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.randn(4, 512, cfg.d_model, generator=g, device=dev)
+         * 0.3).to(torch.bfloat16)
+    a, aux_a = moe.moe_apply(cfg, p, x)
+    b, aux_b = moe.moe_apply(cfg, p, x)
+    assert torch.isfinite(a.float()).all()
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,31 @@
 """The port's model stack against the JAX model on the CPU.
 
-Configs equal the JAX ones field by field.  For the reduced granite-3-2b
-(dense GQA, K5 on prefill), falcon-mamba-7b (Mamba-1, K6 on prefill) and
-h2o-danube-3-4b (sliding window, the ring-buffer cache), the JAX model's
-parameters, with a seeded non-zero ``lm_head``, are carried into the port
-with ``params_from_numpy``; the port's prefill logits and five decode
-steps are held against the JAX model's full forward (``stack_apply``), as
-``tests/test_decode_consistency.py`` holds the JAX model's own prefill and
-decode: 2e-2 x max|logit| for attention, 8e-2 for the Mamba-1 scan in bf16
-(its bf16 rounding differs by scan order).  With float32 parameters on
+Configs equal the JAX ones field by field, and every config builds.  For
+the reduced granite-3-2b (dense GQA, K5 on prefill), falcon-mamba-7b
+(Mamba-1, K6 on prefill), h2o-danube-3-4b (sliding window, the ring-buffer
+cache), moonshot-v1-16b-a3b (MoE at capacity factor 16, so nothing is
+dropped) and phi3.5-moe-42b-a6.6b (MoE), zamba2-1.2b (Mamba-2 with the
+tied attention block; the scan and the SSD route), qwen2-vl-72b (patch
+embeddings and M-RoPE ids from the stub frontend) and musicgen-medium
+(GELU), the JAX model's parameters, with a seeded non-zero ``lm_head``,
+are carried into the port with ``params_from_numpy``; the port's prefill
+logits and five decode steps are held against the JAX model's full
+forward (``stack_apply``), as ``tests/test_decode_consistency.py`` holds
+the JAX model's own prefill and decode, at its bars: 2e-2 x max|logit|
+for attention, 8e-2 for the Mamba-1 scan and 4e-1 for zamba2 in bf16
+(their bf16 rounding differs by scan order).  With float32 parameters on
 both sides the bar is 1e-4 x max|logit|.
+
+In bf16 the two MoE cases run with the JAX forward's expert choices:
+across two implementations (or two attention routes of one) a bf16 ulp
+in a router's input flips a near-tie between experts, and a flipped
+token's output is another expert's (measured on this stream with the
+port's own choices: moonshot token 13 in layers 0, 1 and 3, max error
+1.48 against a bar of 0.084; phi3.5 7 routings).  The port's router then
+takes the JAX ids and weighs them with its own probabilities, so the
+check holds everything but the discontinuous choice; the f32 cases and
+``tests/test_torch_moe.py`` hold the choice itself (ids and drops equal
+the JAX dispatch's).
 """
 from __future__ import annotations
 
@@ -23,28 +39,41 @@ import pytest
 import torch
 
 from repro.configs import ARCHS as JAX_ARCHS
+from repro.models import frontend as jfrontend
 from repro.models import transformer as jtr
 from repro.models.model import ModelFlags as JaxFlags
 from repro.models.model import build_model as jax_build
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.distributed.sharding import tree_leaves
 from repro_torch.models import ssm as port_ssm
-from repro_torch.models.model import build_model
+from repro_torch.models import moe as port_moe
+from repro_torch.models.model import ModelFlags, build_model
 
 B, N_DEC = 2, 5
 CASES = {
-    # arch: (prompt length, bf16 bar; x max|logit|)
-    "granite-3-2b": (37, 2e-2),
-    "falcon-mamba-7b": (37, 8e-2),
-    "h2o-danube-3-4b": (70, 2e-2),   # past the reduced window of 64
+    # case: (arch, prompt length, bf16 bar x max|logit|, config overrides,
+    # ssm_algo)
+    "granite-3-2b": ("granite-3-2b", 37, 2e-2, {}, "scan"),
+    "falcon-mamba-7b": ("falcon-mamba-7b", 37, 8e-2, {}, "scan"),
+    # past the reduced window of 64
+    "h2o-danube-3-4b": ("h2o-danube-3-4b", 70, 2e-2, {}, "scan"),
+    "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", 37, 2e-2,
+                            {"capacity_factor": 16.0}, "scan"),
+    "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", 37, 2e-2,
+                             {"capacity_factor": 16.0}, "scan"),
+    "zamba2-1.2b": ("zamba2-1.2b", 37, 4e-1, {}, "scan"),
+    "zamba2-1.2b-ssd": ("zamba2-1.2b", 37, 4e-1, {}, "ssd"),
+    "qwen2-vl-72b": ("qwen2-vl-72b", 37, 2e-2, {}, "scan"),
+    "musicgen-medium": ("musicgen-medium", 37, 2e-2, {}, "scan"),
 }
 
 
-def jax_model_params(cfg, dtype=None, head_seed=1):
+def jax_model_params(cfg, dtype=None, head_seed=1, ssm_algo="scan"):
     """The JAX model and its parameters with a seeded non-zero lm_head
     (std 1/sqrt(d_model)), optionally cast to ``dtype``."""
-    model = jax_build(cfg, JaxFlags(attn_chunk=16, ssm_chunk=8))
+    model = jax_build(cfg, JaxFlags(attn_chunk=16, ssm_chunk=8,
+                                    ssm_algo=ssm_algo))
     params = model.init(jax.random.key(0))
     head = np.random.default_rng(head_seed).standard_normal(
         (cfg.d_model, cfg.vocab)) / math.sqrt(cfg.d_model)
@@ -68,14 +97,24 @@ def test_configs_equal_the_reference(name):
     assert port.reduced().param_count() == ref.reduced().param_count()
 
 
-@pytest.mark.parametrize("name", ["granite-3-2b", "falcon-mamba-7b",
-                                  "h2o-danube-3-4b", "llama3.2-3b",
-                                  "nemotron-4-340b", "musicgen-medium"])
+def _analytic_gap(cfg) -> int:
+    """What the analytic ``param_count`` (the same in both packages)
+    leaves out of the template: Mamba-1's ``conv_b`` (d_inner per layer);
+    for the hybrid the tied block's MLP and each Mamba-2 block's
+    ``D_skip`` (n_heads per layer), less the second norm it counts per
+    layer that the block does not have.  Every other family's count is
+    exact."""
+    if cfg.family == "hybrid":
+        nh = cfg.d_inner // cfg.ssm_head_dim
+        return (3 * cfg.d_model * cfg.d_ff
+                + cfg.n_layers * (nh - cfg.d_model))
+    return cfg.n_layers * cfg.d_inner if cfg.has_ssm else 0
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
 def test_template_matches_reference(name):
-    """Same names, shapes and dtypes as the JAX template, and at full size
-    the same parameter count (no allocation).  The analytic
-    ``param_count`` leaves out Mamba-1's ``conv_b`` (d_inner per layer) in
-    both packages; every other family's count is exact."""
+    """Same names, shapes, init recipes and dtypes as the JAX template,
+    and at full size the same parameter count (no allocation)."""
     from repro.distributed.sharding import Param as JaxParam
     is_leaf = lambda t: isinstance(t, JaxParam)  # noqa: E731
     full = get_config(name)
@@ -84,8 +123,7 @@ def test_template_matches_reference(name):
     jfull, _ = jax.tree.flatten(jax_build(JAX_ARCHS[name]).template(),
                                 is_leaf=is_leaf)
     assert n == sum(math.prod(p.shape) for p in jfull)
-    conv_b = full.n_layers * full.d_inner if full.has_ssm else 0
-    assert n == full.param_count() + conv_b
+    assert n == full.param_count() + _analytic_gap(full)
     cfg = full.reduced()
     jtpl = jax_build(JAX_ARCHS[name].reduced()).template()
     jl, _ = jax.tree.flatten(jtpl, is_leaf=is_leaf)
@@ -117,46 +155,110 @@ def test_init_is_seeded_and_follows_the_recipes():
         cfg.d_model)
 
 
-@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "zamba2-1.2b",
-                                  "qwen2-vl-72b"])
-def test_unported_families_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item M"):
-        build_model(get_config(name).reduced())
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_config_builds(name):
+    """Every config the JAX package serves builds in the port, full and
+    reduced (templates and cache templates, no allocation), and the
+    Mamba-2 SSD flag is accepted."""
+    for cfg in (get_config(name), get_config(name).reduced()):
+        for algo in ("scan", "ssd"):
+            model = build_model(cfg, ModelFlags(ssm_algo=algo))
+            assert tree_leaves(model.template())
+            assert tree_leaves(model.cache_template(2, 16))
 
 
-def _run_both(name, dtype):
-    S_pre, bar = CASES[name]
-    cfg = JAX_ARCHS[name].reduced()
-    jmodel, jparams = jax_model_params(cfg, dtype)
+def _jax_expert_ids(monkeypatch):
+    """Patch the JAX MoE block to record each call's top-k expert ids
+    (in call order, from inside the compiled forward); returns the list
+    they land in."""
+    ids = []
+    ref_apply = jtr.moe_mod.moe_apply
+
+    def recording(cfg, p, x):
+        probs = jax.nn.softmax(x.astype(jnp.float32) @ p["router"], axis=-1)
+        jax.debug.callback(lambda e: ids.append(np.asarray(e)),
+                           jax.lax.top_k(probs, cfg.top_k)[1], ordered=True)
+        return ref_apply(cfg, p, x)
+
+    monkeypatch.setattr(jtr.moe_mod, "moe_apply", recording)
+    return ids
+
+
+def _forced_route(monkeypatch, ids, S_pre):
+    """Make the port's router take the recorded JAX ids, layer by layer:
+    the prefill's S_pre tokens, then one token per decode step; the
+    weights are the port's own probabilities at those ids."""
+    L = len(ids)
+    calls = ([torch.from_numpy(e[:, :S_pre]).long() for e in ids]
+             + [torch.from_numpy(ids[l][:, t:t + 1]).long()
+                for t in range(S_pre, S_pre + N_DEC) for l in range(L)])
+    it = iter(calls)
+
+    def route(cfg, p, x):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        e = next(it)
+        w = torch.gather(probs, -1, e)
+        return probs, w / torch.sum(w, -1, keepdim=True), e
+
+    monkeypatch.setattr(port_moe, "route", route)
+
+
+def _run_both(name, dtype, monkeypatch=None):
+    """The port's prefill and 5 decode steps, and the JAX full forward's
+    logits at the same positions.  With ``monkeypatch`` an MoE model
+    takes the JAX forward's expert ids."""
+    arch, S_pre, bar, over, algo = CASES[name]
+    cfg = dataclasses.replace(JAX_ARCHS[arch].reduced(), **over)
+    jmodel, jparams = jax_model_params(cfg, dtype, ssm_algo=algo)
     S = S_pre + N_DEC
-    toks = np.random.default_rng(7).integers(0, cfg.vocab, (B, S))
+    if cfg.input_mode == "embeddings":
+        embeds = jfrontend.fake_patch_embeddings(cfg, B, S)
+        if dtype is not None:
+            embeds = embeds.astype(dtype)
+        ids = jfrontend.mrope_position_ids(B, S, grid=4)
+        batch = {"embeds": embeds, "positions": ids}
+    else:
+        batch = {"tokens": jnp.asarray(np.random.default_rng(7).integers(
+            0, cfg.vocab, (B, S)))}
 
-    def full_forward(params, tokens):
-        x, pos = jmodel._inputs({"tokens": tokens}, params)
+    def full_forward(params, batch):
+        x, pos = jmodel._inputs(batch, params)
         h, _ = jtr.stack_apply(cfg, params["stack"], x, pos, remat="none",
-                               attn_chunk=16, ssm_chunk=8)
+                               attn_chunk=16, ssm_chunk=8, ssm_algo=algo)
         return jmodel._logits(params, h)
 
-    ref = np.asarray(jax.jit(full_forward)(jparams, jnp.asarray(toks)))
-    pcfg = get_config(name).reduced()
-    pmodel = build_model(pcfg)
+    pin = monkeypatch is not None and cfg.is_moe
+    if pin:
+        ids = _jax_expert_ids(monkeypatch)
+    ref = np.asarray(jax.jit(full_forward)(jparams, batch))
+    if pin:
+        jax.effects_barrier()
+        assert len(ids) == cfg.n_layers
+        _forced_route(monkeypatch, ids, S_pre)
+    pcfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    pmodel = build_model(pcfg, ModelFlags(ssm_algo=algo, ssm_chunk=8))
     pparams = params_from_numpy(numpy_tree(jparams), pcfg, device="cpu")
+    pb = {k: tensor_from_numpy(np.asarray(v), "cpu") for k, v in batch.items()}
     got = []
     logits, caches = pmodel.prefill(
-        pparams, {"tokens": torch.from_numpy(toks[:, :S_pre])}, S)
+        pparams, {k: v[:, :S_pre] for k, v in pb.items()}, S)
     got.append(logits.numpy())
     for t in range(N_DEC):
-        logits, caches = pmodel.decode_step(pparams, caches, {
-            "token": torch.from_numpy(toks[:, S_pre + t]),
-            "positions": torch.full((B,), S_pre + t, dtype=torch.long)})
+        step = {"positions": torch.full((B,), S_pre + t, dtype=torch.long)}
+        if cfg.input_mode == "embeddings":
+            step["embed"] = pb["embeds"][:, S_pre + t]
+            step["rope_positions"] = pb["positions"][:, S_pre + t]
+        else:
+            step["token"] = pb["tokens"][:, S_pre + t]
+        logits, caches = pmodel.decode_step(pparams, caches, step)
         got.append(logits.numpy())
     want = ref[:, S_pre - 1:S_pre + N_DEC].transpose(1, 0, 2)
     return np.stack(got), want, bar
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_prefill_decode_match_reference_forward_bf16(name):
-    got, want, bar = _run_both(name, None)
+def test_prefill_decode_match_reference_forward_bf16(name, monkeypatch):
+    got, want, bar = _run_both(name, None, monkeypatch)
     scale = float(np.abs(want).max())
     assert scale > 1.0                               # a non-trivial head
     err = np.abs(got - want).max(axis=(1, 2))

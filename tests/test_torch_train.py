@@ -208,10 +208,8 @@ def test_remat_modes_bitwise_equal(name, remat):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unknown_remat_and_ssd_refuse():
+def test_unknown_remat_refuses():
     cfg = get_config("granite-3-2b").reduced()
-    with pytest.raises(NotImplementedError, match="item M5"):
-        build_model(cfg, ModelFlags(ssm_algo="ssd"))
     model = build_model(cfg, ModelFlags(remat="everything"))
     params = model.init(0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
