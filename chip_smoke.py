@@ -138,9 +138,27 @@ outputs against the port's CPU path and the paper headline:
      reduced moonshot (capacity factor 16), zamba2 and qwen2-vl with f32
      parameters, prefill and 5 decode steps card == CPU (1e-4); peak
      memory per part, K5 bf16 and K6 per-channel launched
+ 16. the roofline and dry-run layer: (a) ``EnergyModel.for_workload``
+     over the 40 (arch x shape) cells on the reference's TPU v5e row ==
+     ``BENCH_energy.json``'s 20 recorded cells (to 0.01 W), and the table
+     on the card's row; (b) the steps of phases 11 and 14 (granite-3-2b
+     prefill, decode and train step, falcon-mamba-7b prefill and decode)
+     counted on the card by ``launch.step_cost`` == the meta dry run
+     (``launch.dryrun.count_cell``) at the same shape, FLOPs and bytes,
+     K5/K6 through their formulas; (c) every cell phases 11, 14 and 15
+     time on the card's roofline row: the counted step time beside the
+     measured one, ``roofline_fraction`` and ``mfu`` (model FLOPs over
+     the dense bf16 peak x the measured time; the training cells' within
+     1 % of phase 14's share: both divide by the same measured time, so
+     this holds ``active_param_count`` against the tensor elements); what
+     the custom op adds to a K5/K6 call's host time; (d) the five
+     ``examples/torch`` scripts, each in its own process on the card, exit
+     0 (green_window_planner's scene 1 over a quarter of its year,
+     ``EXAMPLE_CALLS``)
 
-Launch counts are set to 0 just before each of phases 3-5, 8, 9, 11,
-12, 13, 14 and 15 (and each held prefill of phase 11, each part of phase
+The phases run in the order 0-16: phase 16's examples start after every
+phase that times anything and run beside phase 16 (a)-(c) only.  Launch counts are set to 0 just before each of phases 3-5, 8,
+9, 11, 12, 13, 14 and 15 (and each held prefill of phase 11, each part of phase
 15) and read just after; K5 counts its bf16 and f32 kernels apart, K6
 its (D, N) form (Mamba-1) and its per-channel form (Mamba-2).  The line
 before the last is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device":
@@ -172,13 +190,6 @@ ENS_SEEDS = (1, 2)
 # placement engines' k (shortlist 64 + 1), 128 the port's tile cap
 TOPK_CHECK = (1, 64, 65, 128)
 TOPK_TIME = (1, 64, 65)
-# device-memory rate (TB/s), f32 peak outside the tensor cores, dense bf16
-# and dense TF32 tensor-core peaks (TFLOP/s) by card name, from NVIDIA's
-# data sheets; first match wins
-CARDS = (("H100 NVL", 3.9, 60.0, 835.0, 418.0),
-         ("H100 PCIe", 2.0, 51.0, 756.0, 378.0),
-         ("H100", 3.35, 67.0, 989.0, 495.0),
-         ("H200", 4.8, 67.0, 989.0, 495.0))
 # clocks the timing loop spins the card for after each L2 flush (about
 # 0.5 ms at the H100's 1.98 GHz): room for the host to enqueue the timed
 # launches
@@ -323,14 +334,24 @@ def time_ms(fn, flush, reps=25, warm=3, clean=False) -> float:
     return statistics.median(times)
 
 
+def card_hw(name: str) -> str:
+    """The card's row of ``launch.mesh.HARDWARE`` (NVIDIA's data sheets;
+    the rows ``launch.mesh.CARDS`` matches by name, first match wins)."""
+    from repro_torch.launch.mesh import hardware_for
+    hw = hardware_for(name)
+    if hw is None:
+        say(f"[0] no rate table entry for {name!r}: using H100 SXM's")
+        hw = "h100-sxm"
+    return hw
+
+
 def card_rates(name: str):
     """(bytes/s, f32 FLOP/s, bf16 tensor FLOP/s, TF32 tensor FLOP/s) of
     the card."""
-    for key, *rates in CARDS:
-        if key in name:
-            return tuple(r * 1e12 for r in rates)
-    say(f"[0] no rate table entry for {name!r}: using H100 SXM's")
-    return tuple(r * 1e12 for r in CARDS[2][1:])
+    from repro_torch.launch.mesh import HARDWARE
+    h = HARDWARE[card_hw(name)]
+    return (h.hbm_bw, h.peak_flops_f32, h.peak_flops_bf16,
+            h.peak_flops_tf32)
 
 
 def device_busy(fn, top=0):
@@ -1889,21 +1910,17 @@ def _allclose_err(got, want, bar):
 
 
 def _k5_bound(B, H, K, S, hd, window, dtype, rates, fp32_pipes=False):
-    """q and o (B, H, S, hd), k and v (B, K, S, hd), each moved once; the
-    two products over the live (row, key) pairs on the tensor cores: at
-    the dense bf16 rate for bf16 inputs, and for f32 three times over at
-    the dense TF32 rate (3xTF32, the least tensor work that keeps f32
+    """``kernels.flash_attention.k5_cost``'s operations and bytes (q and
+    o (B, H, S, hd), k and v (B, K, S, hd), each moved once; the two
+    products over the live (row, key) pairs) on the tensor cores: at the
+    dense bf16 rate for bf16 inputs, and for f32 three times over at the
+    dense TF32 rate (3xTF32, the least tensor work that keeps f32
     accuracy).  ``fp32_pipes``: the f32 products once at the f32 rate
     outside the tensor cores instead (the route's FMA kernel), printed
     beside the bound."""
     import torch
-    es = 2 if dtype == torch.bfloat16 else 4
-    nbytes = es * S * hd * (2 * B * H + 2 * B * K)
-    if window > 0:
-        pairs = sum(min(r + 1, window) for r in range(S))
-    else:
-        pairs = S * (S + 1) // 2
-    ops = 4 * B * H * hd * pairs
+    from repro_torch.kernels.flash_attention import k5_cost
+    ops, nbytes = k5_cost(B, H, K, S, hd, window, dtype)
     if dtype == torch.bfloat16:
         return bound_ms(nbytes, ops, rates, rates[2])
     if fp32_pipes:
@@ -1912,18 +1929,17 @@ def _k5_bound(B, H, K, S, hd, window, dtype, rates, fp32_pipes=False):
 
 
 def _k6_bound(B, S, D, N, dtype, rates, per_channel=False):
-    """dt, x and y (B, S, D), B and C (B, S, N), A (D, N), or (D,) in the
+    """``kernels.selective_scan.k6_cost``'s operations and bytes (dt, x
+    and y (B, S, D), B and C (B, S, N), A (D, N), or (D,) in the
     per-channel form, and the final state (B, D, N) moved once; per (b, t,
-    d, n) 5 FLOPs on the f32 pipes.  The (D, N) form's one exp per (b, t,
-    d, n) is left out: the SFU alone would take about as long as the
+    d, n) 5 FLOPs) on the f32 pipes.  The (D, N) form's one exp per (b,
+    t, d, n) is left out: the SFU alone would take about as long as the
     bytes, but a share of the exps can run as polynomial code on the f32
     pipes beside it, so the two together stay under the bytes.  The
     per-channel form takes one exp per (b, t, d)."""
-    import torch
-    es = 2 if dtype == torch.bfloat16 else 4
-    a = D if per_channel else D * N
-    nbytes = 3 * es * B * S * D + 4 * (2 * B * S * N + a + B * D * N)
-    return bound_ms(nbytes, 5 * B * S * D * N, rates)
+    from repro_torch.kernels.selective_scan import k6_cost
+    ops, nbytes = k6_cost(B, S, D, N, dtype, per_channel)
+    return bound_ms(nbytes, ops, rates)
 
 
 def _sdpa_ms(q, k, v, flush):
@@ -2129,9 +2145,11 @@ def _k6_per_channel(dev, g, rates, flush, err):
     return out
 
 
-def phase_serving(dev):
+def phase_serving(dev, record):
     """Serve each full-width model through ``launch.serve.serve``; its
-    prefill logits through the kernels == through the plain versions."""
+    prefill logits through the kernels == through the plain versions.
+    ``record`` gets each model's prefill and decode cell for phase 16:
+    the measured ms and the step counted on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
@@ -2234,23 +2252,32 @@ def phase_serving(dev):
             f"{busy_note(dev_ms, prof_ms)}; {summ}")
         say(f"[11] {arch}: profiled decode step: "
             f"{busy_note(dec_dev, dec_wall)}; {dec_summ}")
-        del params, kmodel, pmodel, lk, caches
+        del lk, caches
+        c_pre, c_dec = _count_serving(kmodel, params, prompts, cache)
+        _roof_cell(record, f"{arch} prefill", cfg, kmodel, "prefill",
+                   SERVE_PROMPT, SERVE_SLOTS, pre, cache_len=cache,
+                   card=c_pre)
+        _roof_cell(record, f"{arch} decode", cfg, kmodel, "decode", cache,
+                   SERVE_SLOTS, dec, card=c_dec)
+        del params, kmodel, pmodel
         torch.cuda.empty_cache()
     return total
 
 
-def phase_families(dev):
+def phase_families(dev, record):
     """Phase 15: moonshot-v1-16b-a3b (MoE) and zamba2-1.2b (Mamba-2 and
     the tied attention block) served through ``launch.serve.serve`` at
     full width and depth, qwen2-vl-72b (patch embeddings, M-RoPE) at full
     width and 16 of 80 layers through ``Model.prefill`` /
     ``decode_step``, and the three reduced with f32 parameters card ==
-    CPU.  Returns the launch counts."""
+    CPU.  Returns the launch counts; ``record`` gets the measured
+    prefill and decode cells for phase 16."""
     import torch
     t0 = time.perf_counter()
     total = {}
-    for part in ([lambda a=a: _serve_family(dev, a) for a in FAMILY_SERVE]
-                 + [lambda: _vlm_family(dev),
+    for part in ([lambda a=a: _serve_family(dev, a, record)
+                  for a in FAMILY_SERVE]
+                 + [lambda: _vlm_family(dev, record),
                     lambda: _families_card_equal_cpu(dev)]):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2307,7 +2334,7 @@ def _routings(fn, pin=None):
         moe.route = route
 
 
-def _serve_family(dev, arch):
+def _serve_family(dev, arch, record):
     """(a) / (b): serve 8 requests at full width and depth, then hold the
     kernel route's prefill against the plain route's (and for zamba2 the
     SSD route's against the scan's)."""
@@ -2349,6 +2376,10 @@ def _serve_family(dev, arch):
         f"{out['tok_per_s']:.1f} tok/s, {out['g_per_request']:.4f} "
         f"gCO2/request; launches {want}")
     cache = SERVE_PROMPT + SERVE_NEW + 8
+    _roof_cell(record, f"{arch} prefill", cfg, build_model(cfg), "prefill",
+               SERVE_PROMPT, SERVE_SLOTS, pre, cache_len=cache)
+    _roof_cell(record, f"{arch} decode", cfg, build_model(cfg), "decode",
+               cache, SERVE_SLOTS, dec)
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
         2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
     batch = {"tokens": prompts}
@@ -2421,7 +2452,7 @@ def _serve_family(dev, arch):
     del params
 
 
-def _vlm_family(dev):
+def _vlm_family(dev, record):
     """(c): qwen2-vl-72b at full width, 16 of 80 layers: stub patch
     embeddings with M-RoPE ids, prefill, 32 decode steps; the prefill
     held kernel vs plain route, the last decode logits vs the training
@@ -2488,6 +2519,11 @@ def _vlm_family(dev):
         f"position {S - 1}: {ed:.4g} = {ed / rs:.3g} x max|logit| {rs:.4g} "
         f"(bar {SERVE_BARS[VLM_ARCH]}); prefill {pre:.1f} ms per batch of "
         f"{B}x{SERVE_PROMPT}, decode {dec:.2f} ms per step of {B} tokens")
+    name = f"{VLM_ARCH} ({VLM_LAYERS} layers)"
+    _roof_cell(record, f"{name} prefill", cfg, kmodel, "prefill",
+               SERVE_PROMPT, B, pre, cache_len=cache)
+    _roof_cell(record, f"{name} decode", cfg, kmodel, "decode", cache, B,
+               dec)
     del params, caches
 
 
@@ -2579,15 +2615,16 @@ def _held_prefill(model, params, batch, cache):
     return logits, caches, held
 
 
-def phase_training(dev, rates):
+def phase_training(dev, rates, record):
     """Phase 14: the training path through ``train_loop`` at full width,
     card == CPU at reduced size, the fault restart; returns the launch
-    counts (all 0: training runs no kernel)."""
+    counts (all 0: training runs no kernel).  ``record`` gets the two
+    full-width training cells for phase 16."""
     import torch
     t0 = time.perf_counter()
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the f32 card == CPU check needs them off")
-    (_, cnt) = counted(lambda: (_train_full(dev, rates),
+    (_, cnt) = counted(lambda: (_train_full(dev, rates, record),
                                 _train_card_equals_cpu(dev),
                                 _train_fault_restart(dev)))
     check(not any(cnt.values()),
@@ -2598,9 +2635,10 @@ def phase_training(dev, rates):
     return cnt
 
 
-def _train_full(dev, rates):
+def _train_full(dev, rates, record):
     """(a) granite-3-2b at full width and depth, (b) falcon-mamba-7b at
-    full width, 16 of 64 layers."""
+    full width, 16 of 64 layers; (a)'s step once more under the step-cost
+    counter for phase 16."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, PipelineState
@@ -2655,6 +2693,15 @@ def _train_full(dev, rates):
         say(f"[14] ({part}) {arch}: profiled step: "
             f"{busy_note(dev_ms, prof_ms)}; device ms of the profiled step "
             f"/ median ms of the unprofiled steps: {ratio}; {summ}")
+        card = None
+        if part == "a":
+            from repro_torch.launch.step_cost import count_step
+            _, card = count_step(lambda: step_fn(state, b), state.params,
+                                 state.opt, state.step, b)
+            torch.cuda.synchronize()
+        name = arch if layers == full.n_layers else f"{arch} ({layers} layers)"
+        _roof_cell(record, f"{name} train", cfg, model, "train", seq, batch,
+                   ms, card=card, share=mfu)
         del state, step_fn, b, model
         torch.cuda.empty_cache()
 
@@ -2815,6 +2862,236 @@ def _train_fault_restart(dev):
         f"both runs {wall:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the roofline and dry-run layer on the card
+# ---------------------------------------------------------------------------
+
+# the ported examples (examples/torch/), run on the card in phase 16 (d)
+EXAMPLES = ("quickstart", "carbon_aware_training", "green_window_planner",
+            "scenario_replay", "multicloud_serve")
+# examples run through their functions at a cut depth instead of as a
+# script: green_window_planner's scene 1 over a quarter of its simulated
+# year (the year alone took 490-592 s on the card, half the time limit)
+EXAMPLE_CALLS = {
+    "green_window_planner":
+        "ex.scene_migration(epochs=2190); ex.scene_deferral()"}
+
+
+def _roof_cell(record, key, cfg, model, kind, seq, batch, ms, *,
+               cache_len=None, card=None, share=None):
+    """One measured cell for phase 16: its config and model, its shape
+    (a decode step's ``seq`` is its cache length), the measured ms per
+    step, the ``Cost`` counted on the card (or None) and phase 14's
+    model-FLOP share (or None)."""
+    from repro_torch.configs.base import ShapeSpec
+    record[key] = dict(cfg=cfg, model=model, cache_len=cache_len, ms=ms,
+                       card=card, share=share,
+                       shape=ShapeSpec(key, kind, seq, batch))
+
+
+def _count_serving(model, params, prompts, cache):
+    """The card's prefill of ``prompts`` into ``cache``-long caches and one
+    decode step after it, each counted by ``launch.step_cost`` with int32
+    inputs (the dry run's batch dtypes)."""
+    import torch
+    from repro_torch.launch.step_cost import count_step
+    B, P = prompts.shape
+    batch = {"tokens": prompts.to(torch.int32)}
+    (lk, caches), pre = count_step(
+        lambda: model.prefill(params, batch, cache), params, batch)
+    step = {"token": lk.argmax(-1).to(torch.int32),
+            "positions": torch.full((B,), P, dtype=torch.int32,
+                                    device=prompts.device)}
+    _, dec = count_step(lambda: model.decode_step(params, caches, step),
+                        params, caches, step)
+    torch.cuda.synchronize()
+    return pre, dec
+
+
+def _start_examples():
+    """Each ported example on the card in its own process, its output to
+    a temporary file; a thread per process notes when it exits."""
+    import os
+    import tempfile
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for name in EXAMPLES:
+        log = tempfile.TemporaryFile(mode="w+")
+        t0 = time.perf_counter()
+        where = SRC.parent / "examples" / "torch"
+        cmd = ([str(where / f"{name}.py")] if name not in EXAMPLE_CALLS
+               else ["-c", f"import sys; sys.path.insert(0, {str(where)!r});"
+                           f" import {name} as ex; {EXAMPLE_CALLS[name]}"])
+        p = subprocess.Popen(
+            [sys.executable, *cmd], stdout=log, stderr=subprocess.STDOUT,
+            env=env, cwd=SRC.parent)
+        ended = {}
+        threading.Thread(target=lambda p=p, ended=ended: ended.setdefault(
+            "s", (p.wait(), time.perf_counter())[1]), daemon=True).start()
+        procs[name] = (p, log, t0, ended)
+    return procs
+
+
+def _phase16_calibration(hw):
+    """(a) ``for_workload`` over the 40 cells on the reference's TPU v5e
+    row, held against ``BENCH_energy.json``, and on the card's row."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.core.energy import DEFAULT_ENERGY
+    rec = json.loads((SRC.parent / "BENCH_energy.json").read_text())
+    want = rec["configs"][0]["calibration_chip_w"]
+    held = 0
+    for row in ("tpu-v5e", hw):
+        for arch in ARCHS:
+            ws = {s: DEFAULT_ENERGY.for_workload(
+                ARCHS[arch], SHAPES[s], hw=row).chip_power_w
+                for s in SHAPES}
+            if row == "tpu-v5e":
+                for s, w in ws.items():
+                    key = f"{arch}/{s}"
+                    if key in want:
+                        check(round(w, 2) == want[key],
+                              f"for_workload {key}: {w} W, "
+                              f"BENCH_energy.json {want[key]} W")
+                        held += 1
+            tag = ("the reference's TPU v5e calibration" if row == "tpu-v5e"
+                   else f"the port's H100 calibration ({row})")
+            say(f"[16] (a) {tag}, {arch}: "
+                + ", ".join(f"{s} {w:.2f}" for s, w in ws.items())
+                + " W/chip")
+    check(held == 20, f"{held} of BENCH_energy.json's 20 cells held")
+    say(f"[16] (a) for_workload == BENCH_energy.json configs[0]."
+        f"calibration_chip_w on all {held} cells (to 0.01 W)")
+
+
+def _phase16_counts(record, hw, card):
+    """(b) each step counted on the card == ``dryrun.count_cell`` on meta
+    at the same shape; (c) each measured cell on the roofline of the
+    card's row beside its measured time, ``roofline_fraction`` and
+    ``mfu``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HARDWARE
+    from repro_torch.launch.roofline import from_cost
+    peak = HARDWARE[hw].peak_flops_bf16
+    for key, e in record.items():
+        t0 = time.perf_counter()
+        _, _, meta = dryrun.count_cell(e["cfg"], e["shape"], e["model"],
+                                       cache_len=e["cache_len"])
+        c = meta.cost
+        if e["card"] is not None:
+            check((e["card"].flops, e["card"].bytes) == (c.flops, c.bytes),
+                  f"{key}: the card's step counts {e['card'].flops} FLOPs, "
+                  f"{e['card'].bytes} bytes; on meta {c.flops}, {c.bytes}")
+            k = {n: v[0] for n, v in meta.by_op.items()
+                 if n in ("flash_attention", "selective_scan")}
+            say(f"[16] (b) {key}: counted on the card == on meta: "
+                f"{c.flops:.6g} FLOPs, {c.bytes:.6g} bytes (K5/K6 by their "
+                f"formulas: {k or 'none'}; meta count "
+                f"{time.perf_counter() - t0:.1f} s)")
+        roof = from_cost(c, 1, hw)
+        mf = dryrun.model_flops(e["cfg"], e["shape"])
+        mfu = mf / (peak * e["ms"] / 1e3)
+        sh = e["shape"]
+        say(f"[16] (c) {key} ({sh.global_batch} x {sh.seq_len}): counted "
+            f"{c.flops:.4g} FLOPs, {c.bytes:.4g} bytes -> roofline step "
+            f"{roof.step_s * 1e3:.3f} ms ({roof.dominant}) on {hw}; "
+            f"measured {e['ms']:.2f} ms ({100 * roof.step_s * 1e3 / e['ms']:.2f}"
+            f" % of it); model FLOPs {mf:.4g} = {mf / c.flops:.3f} x counted;"
+            f" roofline_fraction {roof.roofline_fraction(mf):.4f}; mfu "
+            f"{mfu:.5f} on {card}")
+        if e["share"] is not None:
+            gap = mfu / e["share"] - 1
+            n_el = sum(t.numel() for t in _leaves(
+                dryrun.meta_tree(e["model"].template())))
+            cause = ("active_param_count == the tensor elements"
+                     if n_el == e["cfg"].active_param_count() else
+                     f"active_param_count {e['cfg'].active_param_count()} vs "
+                     f"{n_el} tensor elements (param_count's gaps, ROADMAP "
+                     f"Queue 3)")
+            # both shares divide by the same measured time: the gap is
+            # active_param_count's against the tensor elements, no more
+            check(abs(gap) <= 0.01, f"{key}: mfu {mfu} vs phase 14's share "
+                  f"{e['share']} ({cause})")
+            say(f"[16] (c) {key}: mfu {mfu:.6f} vs phase 14's model-FLOP "
+                f"share {e['share']:.6f} (same measured time, so this holds "
+                f"the parameter count): {100 * gap:+.4f} % ({cause})")
+
+
+def _phase16_host_cost(dev):
+    """What the custom op adds to a launch's host time: K5 and K6 at tiny
+    shapes (the host is the bottleneck there), through the op and through
+    the bare launch, 2,000 calls each."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    q = torch.randn(1, 2, 64, 64, device=dev).to(torch.bfloat16)
+    scan = [torch.rand(1, 8, 64, device=dev) * 0.1,
+            torch.randn(1, 8, 64, device=dev),
+            torch.randn(1, 8, 16, device=dev),
+            torch.randn(1, 8, 16, device=dev),
+            -torch.rand(64, 16, device=dev)]
+    for name, op, bare in (
+            ("flash_attention", lambda: fa.flash_attention(q, q, q),
+             lambda: fa.launch(q, q, q)),
+            ("selective_scan", lambda: ss.selective_scan(*scan),
+             lambda: ss.launch(*scan))):
+        us = {}
+        for tag, fn in (("op", op), ("bare", bare), ("op2", op),
+                        ("bare2", bare)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            torch.cuda.synchronize()
+            us[tag] = (time.perf_counter() - t0) / 2000 * 1e6
+        o, b = min(us["op"], us["op2"]), min(us["bare"], us["bare2"])
+        say(f"[16] {name}: host time per call through the custom op "
+            f"{o:.1f} us, the bare launch {b:.1f} us: the op adds "
+            f"{o - b:.1f} us (op, bare, op, bare: "
+            f"{', '.join(f'{v:.1f}' for v in us.values())} us)")
+
+
+def _finish_examples(procs, deadline_s=900.0):
+    """(d) every example exited 0 (each waited for at most ``deadline_s``
+    from its start)."""
+    for name, (p, log, t0, ended) in procs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, deadline_s
+                                    - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        log.seek(0)
+        tail = log.read()[-1500:]
+        check(rc == 0, f"example {name} exited {rc}: {tail}")
+        last = [ln for ln in tail.splitlines() if ln.strip()][-1]
+        took = ended.get("s", time.perf_counter()) - t0
+        how = f" ({EXAMPLE_CALLS[name]})" if name in EXAMPLE_CALLS else ""
+        say(f"[16] (d) examples/torch/{name}.py{how} on the card: exit 0 "
+            f"after {took:.1f} s; last line: {last[:120]}")
+
+
+def _stop_examples(procs):
+    for p, log, _, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def phase_roofline(name, record, examples):
+    """Phase 16: (a) the energy calibration, (b) counts card == meta, (c)
+    the measured cells on the roofline with ``mfu``, (d) the examples
+    (``examples``: started just before, each in its own process) exit
+    0."""
+    t0 = time.perf_counter()
+    hw = card_hw(name)
+    _phase16_calibration(hw)
+    _phase16_counts(record, hw, _smi("name,power.limit"))
+    _finish_examples(examples)
+    say(f"[16] (a)-(d) took {time.perf_counter() - t0:.1f} s")
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2858,11 +3135,22 @@ def main() -> int:
     phase_scenario_c(dev)
     n8 = phase_batched_ranking(dev)
     n9, ens9 = phase_ensemble(dev)
-    n11 = phase_serving(dev)
+    record = {}
+    n11 = phase_serving(dev, record)
     n12 = phase_policies(dev)
     n13 = phase_traffic(dev, ens9)
-    n14 = phase_training(dev, rates)
-    n15 = phase_families(dev)
+    n14 = phase_training(dev, rates, record)
+    n15 = phase_families(dev, record)
+    _phase16_host_cost(dev)
+    # the examples start after every timed phase: they share the card and
+    # the host with phase 16 (a)-(c) only, which time nothing
+    examples = _start_examples()
+    say(f"[16] (d) {len(examples)} examples started on the card, each in "
+        f"its own process, after the timed phases")
+    try:
+        phase_roofline(name, record, examples)
+    finally:
+        _stop_examples(examples)
     for part in (n3, n4, n5, n8, n9, n11, n12, n13, n14, n15):
         for k, v in part.items():
             launches[k] += v

@@ -4,8 +4,10 @@
 Host instances hold python floats (exact f64, the host loop's accounting
 values); :meth:`EnergyModel.device` returns a twin whose leaves are f32
 0-d tensors on a device, the values the reference lowers to f32 for its
-traced placement path.  ``for_workload``/``workload_roofline`` (the
-roofline calibration) are not ported yet: ROADMAP Queue 1 item 11.
+traced placement path.  ``for_workload`` calibrates chip watts to a
+model config's analytic roofline (``workload_roofline``), on the
+reference's TPU v5e constants unless ``hw=`` names another row of
+``launch.mesh.HARDWARE``.
 """
 from __future__ import annotations
 
@@ -111,11 +113,65 @@ class EnergyModel:
             chips_per_host=self.chips_per_host,
         )
 
-    def for_workload(self, arch, shape, chips=8, floor=0.3):
-        raise NotImplementedError(
-            "EnergyModel.for_workload needs the roofline layer, which is "
-            "not ported yet (ROADMAP Queue 1 item 11)")
+    # ---- workload calibration ----
+
+    def for_workload(self, arch, shape, chips=8, floor=0.3, *,
+                     hw="tpu-v5e"):
+        """Calibrate dynamic chip power to a model config's roofline util.
+
+        Derives an analytic roofline step time from ``arch`` (a
+        ``configs.base.ArchConfig``) and ``shape`` (a ``ShapeSpec``) on
+        the ``hw`` row of ``launch.mesh.HARDWARE``; the compute fraction
+        of the step scales chip watts between ``floor`` (fully
+        memory/IO-bound) and 1.0 (compute-bound)."""
+        r = workload_roofline(arch, shape, chips=chips, hw=hw)
+        util = r.compute_s / r.step_s if r.step_s > 0 else 1.0
+        scale = floor + (1.0 - floor) * min(1.0, util)
+        return dataclasses.replace(self,
+                                   chip_power_w=self.chip_power_w * scale)
 
 
 #: Canonical default — reproduces all historical constants exactly.
 DEFAULT_ENERGY = EnergyModel()
+
+
+def workload_roofline(arch, shape, chips=8, *, hw="tpu-v5e"):
+    """Analytic roofline for one step of ``arch`` at ``shape``: matmul
+    FLOPs on active params + attention FLOPs, weight-pass HBM bytes, no
+    compile or count.  The arithmetic is the reference's, in its order.
+    The import lives inside the function, as in the reference (core ->
+    launch)."""
+    from repro_torch.launch.roofline import Roofline
+
+    p_active = arch.active_param_count()
+    tokens = shape.tokens
+    train = shape.kind == "train"
+    fb_mult = 3.0 if train else 1.0  # fwd + bwd ≈ 2x fwd
+
+    # Matmul FLOPs: 2 * P_active per token per pass.
+    flops = 2.0 * p_active * tokens * fb_mult
+    # Attention FLOPs: 4 * L * d_attn * s_eff per token (QK^T + AV),
+    # honoring sliding-window attention via the effective context length.
+    if arch.has_attention:
+        d_attn = arch.n_heads * arch.head_dim
+        s_eff = float(
+            min(shape.seq_len, arch.window)
+            if arch.attention == "swa"
+            else shape.seq_len
+        )
+        flops += 4.0 * arch.n_layers * d_attn * s_eff * tokens * fb_mult
+
+    # HBM traffic: one weight pass per step (bf16), times seq_len passes
+    # for token-by-token decode.
+    weight_bytes = 2.0 * p_active
+    passes = float(shape.seq_len) if shape.kind == "decode" else 1.0
+    bytes_per_dev = weight_bytes * passes / chips
+
+    return Roofline(
+        flops_per_device=flops / chips,
+        bytes_per_device=bytes_per_dev,
+        collective_bytes_per_device=0.0,
+        per_kind={},
+        chips=chips,
+        hw=hw,
+    )

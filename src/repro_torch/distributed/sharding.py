@@ -1,14 +1,18 @@
-"""Declarative parameters and their initialisation (twin of the
-``Param`` / ``_init_one`` / ``init_tree`` part of
-``repro.distributed.sharding``).
+"""Declarative parameters, their initialisation and the logical-axis
+sharding rules (twin of the ``Param`` / ``_init_one`` / ``init_tree`` /
+``Rules`` part of ``repro.distributed.sharding``).
 
 A ``Param`` carries a shape, the logical axis names the JAX package shards
-by, an init recipe and a dtype.  On one card every sharding rule is the
-identity, so the logical axes are kept only as documentation of the layout;
-the mesh rules and ``constrain`` come with the launch layer (ROADMAP
-Queue 1 item 5).  ``init_tree`` draws every leaf from one
-``torch.Generator`` on the target device, leaf by leaf in sorted key order,
-so the same seed gives the same parameters on the same device.
+by, an init recipe and a dtype.  ``Rules`` maps each logical name to its
+prioritized candidate mesh axes, as pure data: the same table as the
+reference's (``DEFAULT_RULES``, ``with_overrides``, ``candidates``).  On
+one device every candidate resolves to replication, so the rules and the
+logical axes change nothing in a one-card step; ``resolve_spec``,
+``tree_specs``, ``ensemble_mesh`` and ``constrain`` need a mesh of more
+than one device and wait for ROADMAP Queue 1 item 1(b).  ``init_tree``
+draws every leaf from one ``torch.Generator`` on the target device, leaf
+by leaf in sorted key order, so the same seed gives the same parameters
+on the same device.
 """
 from __future__ import annotations
 
@@ -39,6 +43,47 @@ class Param:
         """Add a leading (unsharded) layer-stack dimension."""
         return dataclasses.replace(
             self, shape=(n, *self.shape), axes=(None, *self.axes))
+
+
+# logical axis -> candidate mesh-axis tuples, first fit wins.
+# () means "replicate" and always fits.  The reference's table.
+DEFAULT_RULES: Dict[str, Tuple[Tuple[str, ...], ...]] = {
+    # data-parallel / fsdp family ("fsdp" excludes the "pod" axis: params
+    # and optimizer state shard within a pod and replicate across pods)
+    "batch":   (("pod", "data"), ("data",), ()),
+    "fsdp":    (("data",), ()),
+    # tensor-parallel family
+    "tp":      (("model",), ()),
+    "vocab":   (("model",), ("data",), ()),   # embedding rows
+    "experts": (("model",), ()),
+    # activations
+    "seq":     ((),),                          # train-time sequence (replicated)
+    "sp_seq":  (("model",), ()),               # sequence-parallel residual stream
+    "kv_seq":  (("model",), ("data",), ()),    # decode KV-cache sequence dim
+    "kv_heads": (("model",), ()),
+    "heads":   (("model",), ()),
+    "d_model": ((),),
+    "ssm_inner": (("model",), ()),
+    "state":   ((),),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    table: Dict[str, Tuple[Tuple[str, ...], ...]] = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_RULES))
+
+    def with_overrides(self, **kw) -> "Rules":
+        t = dict(self.table)
+        t.update(kw)
+        return Rules(t)
+
+    def candidates(self, name: str):
+        if name is None:
+            return ((),)
+        cands = self.table.get(name, ((),))
+        # Always allow full replication as terminal fallback.
+        return tuple(cands) + ((),) if () not in cands else tuple(cands)
 
 
 def tree_map(fn: Callable, tree, *rest):

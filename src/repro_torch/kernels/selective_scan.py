@@ -14,10 +14,17 @@ launches the CUDA kernel ``csrc/selective_scan.cu`` (replaces
 ``_scan_kernel``; bound and design are noted there), built with ``nvcc``
 at first use; on CPU tensors it runs the plain step-by-step loop
 ``selective_scan_plain``, the recurrence of
-``repro.kernels.ref.selective_scan_ref``.  Any other device raises.
+``repro.kernels.ref.selective_scan_ref``.  Meta tensors get the outputs'
+shapes; any other device raises.
 ``selective_scan.launches`` counts kernel launches and
 ``selective_scan.route_launches`` splits them by the decay's form
 (``"dn"``: (D, N); ``"per_channel"``: (D,)).
+
+The public call goes through the custom op
+``torch.ops.repro_torch.selective_scan``, so a ``TorchDispatchMode`` (the
+step-cost counter, ``FlopCounterMode``) sees one op whose FLOPs and bytes
+are ``k6_cost``'s, and meta tensors get the outputs' shapes with no
+launch (the dry run).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -35,6 +43,25 @@ NVCC_FLAGS = _build.BASE_FLAGS
 STATE_SIZES = (8, 16)
 PER_CHANNEL_STATE_SIZES = (16, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def k6_cost(B: int, S: int, D: int, N: int, dtype: torch.dtype,
+            per_channel: bool = False):
+    """(FLOPs, bytes) of one call: 5 FLOPs per (b, t, d, n) (the decay
+    product, the input product, the state update and y's product and
+    sum; the exps are not counted); dt, x and y (B, S, D) in ``dtype``,
+    B and C (B, S, N), A (D, N), or (D,) in the per-channel form, and the
+    final state (B, D, N) in f32, each moved once."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    a = D if per_channel else D * N
+    nbytes = 3 * es * B * S * D + 4 * (2 * B * S * N + a + B * D * N)
+    return 5 * B * S * D * N, nbytes
+
+
+def selective_scan_cost(dt, x, b, c, a):
+    """``k6_cost`` of a call on these tensors."""
+    B, S, D = x.shape
+    return k6_cost(B, S, D, b.shape[-1], x.dtype, a.dim() == 1)
 
 
 def variant(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
@@ -81,7 +108,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.selective_scan_launch.restype = i
 
 
-def _check_args(dt, x, b, c, a) -> None:
+def _check_shapes(dt, x, b, c, a) -> None:
+    """What the kernel refuses besides the device: shapes, dtypes, state
+    sizes (the meta route checks these too)."""
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(f"dt/x must be (B, S, D); got {tuple(dt.shape)}, "
                          f"{tuple(x.shape)}")
@@ -101,18 +130,19 @@ def _check_args(dt, x, b, c, a) -> None:
         raise ValueError("selective_scan takes dt/x of one dtype, f32 or "
                          "bf16, and f32 b/c/a; got "
                          f"{[t.dtype for t in (dt, x, b, c, a)]}")
+
+
+def _check_args(dt, x, b, c, a) -> None:
+    _check_shapes(dt, x, b, c, a)
     for t in (dt, x, b, c, a):
         if t.device.type != "cuda" or not t.is_contiguous():
             raise ValueError("selective_scan's kernel takes contiguous "
                              f"CUDA tensors; got one on {t.device}")
 
 
-def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, D) in x's dtype, h_S (B, D, N) f32).  CPU tensors: the
-    plain version; CUDA tensors: the kernel (built at first use, or the
-    call raises)."""
-    if x.device.type == "cpu":
-        return selective_scan_plain(dt, x, b, c, a)
+def launch(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on CUDA tensors, without the custom op's
+    dispatch (``selective_scan`` calls it through the op)."""
     _check_args(dt, x, b, c, a)
     B, S, D = x.shape
     N = b.shape[-1]
@@ -131,6 +161,35 @@ def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
     selective_scan.route_launches["per_channel" if a.dim() == 1
                                   else "dn"] += 1
     return y, h_last
+
+
+@torch.library.custom_op("repro_torch::selective_scan", mutates_args=())
+def _selective_scan_op(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return selective_scan_plain(dt, x, b, c, a)
+    return launch(dt, x, b, c, a)
+
+
+@_selective_scan_op.register_fake
+def _(dt, x, b, c, a):
+    _check_shapes(dt, x, b, c, a)
+    B, S, D = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((B, D, b.shape[-1]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan, get_raw=True)
+def _(dt, x, b, c, a, *, out_val=None):
+    return selective_scan_cost(dt, x, b, c, a)[0]
+
+
+def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, D) in x's dtype, h_S (B, D, N) f32).  CPU tensors: the
+    plain version; CUDA tensors: the kernel (built at first use, or the
+    call raises); meta tensors: the outputs' shapes."""
+    return torch.ops.repro_torch.selective_scan(dt, x, b, c, a)
 
 
 selective_scan.launches = 0

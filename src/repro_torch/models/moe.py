@@ -107,8 +107,11 @@ def moe_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     probs, top_w, top_e = route(cfg, p, x)
     top_w = top_w.to(x.dtype)
 
-    # switch load-balance loss over all tokens
-    frac = torch.mean(F.one_hot(top_e[..., 0], E).float(), dim=(0, 1))
+    # switch load-balance loss over all tokens; the one-hot as a compare
+    # (F.one_hot checks its input's range on the host: a read-back per
+    # layer on the card, and another op sequence there than on meta)
+    onehot = top_e[..., 0, None] == torch.arange(E, device=x.device)
+    frac = torch.mean(onehot.float(), dim=(0, 1))
     aux = E * torch.sum(frac * torch.mean(probs, dim=(0, 1)))
 
     order, slot = _dispatch(cfg, top_e, C)

@@ -141,9 +141,10 @@ def test_scan_plain_ragged_matches_oracle(case):
 
 
 def test_wrappers_use_plain_versions_only_on_the_cpu():
-    """CPU tensors run the plain version and count no launch; tensors on
-    any other device go to the kernel's launcher, which checks its
-    arguments before building anything and refuses a non-CUDA device."""
+    """CPU tensors run the plain version and count no launch; meta tensors
+    get the outputs' shapes (the dry run) and count no launch; the
+    kernel's launcher checks its arguments before building anything and
+    refuses a non-CUDA device."""
     (_, (q, k, v)) = _qkv((1, 2, 1, 8, 16, 0, jnp.float32), 1)
     (_, sc) = _scan_inputs(1, 8, 16, 8, jnp.float32, 1)
     n5, n6 = flash_attention.launches, selective_scan.launches
@@ -151,10 +152,15 @@ def test_wrappers_use_plain_versions_only_on_the_cpu():
     selective_scan(*sc)
     assert (flash_attention.launches, selective_scan.launches) == (n5, n6)
     meta = [t.to("meta") for t in (q, k, v)]
+    o = flash_attention(*meta)
+    assert o.device.type == "meta" and o.shape == q.shape
+    y, h = selective_scan(*[t.to("meta") for t in sc])
+    assert (y.device.type, tuple(y.shape), tuple(h.shape), h.dtype) == (
+        "meta", tuple(sc[1].shape), (1, 16, 8), torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(*meta)
+        fa_mod._check_args(*meta)
     with pytest.raises(ValueError, match="CUDA"):
-        selective_scan(*[t.to("meta") for t in sc])
+        sc_mod._check_args(*[t.to("meta") for t in sc])
     assert (flash_attention.launches, selective_scan.launches) == (n5, n6)
 
 
@@ -228,7 +234,7 @@ def test_k5_bound_at_granites_prefill(dtype, fp32_pipes, want_us, want_by):
     its causal products at the dense TF32 rate (3xTF32), with the FMAs'
     bound on the f32 pipes beside it."""
     cs = _chip_smoke()
-    rates = tuple(r * 1e12 for r in cs.CARDS[2][1:])
+    rates = cs.card_rates("NVIDIA H100 80GB HBM3")
     ms, by = cs._k5_bound(4, 32, 8, 512, 64, 0, dtype, rates,
                           fp32_pipes=fp32_pipes)
     es = 2 if dtype == torch.bfloat16 else 4

@@ -62,8 +62,14 @@ def test_energy_model_matches_reference(kw):
               "w_marginal", "chip_power_w", "host_power_w"):
         assert getattr(da, f).dtype == torch.float32
         assert bits(getattr(da, f)) == bits(getattr(db, f)), f
-    with pytest.raises(NotImplementedError, match="item 11"):
-        a.for_workload(None, None)
+    from repro import configs as rconfigs
+    from repro_torch import configs as pconfigs
+    for arch, shape in (("granite-3-2b", "train_4k"),
+                        ("falcon-mamba-7b", "decode_32k"),
+                        ("moonshot-v1-16b-a3b", "prefill_32k")):
+        ga = a.for_workload(pconfigs.ARCHS[arch], pconfigs.SHAPES[shape])
+        gb = b.for_workload(rconfigs.ARCHS[arch], rconfigs.SHAPES[shape])
+        assert convert.energy_from_numpy(gb) == ga, (arch, shape)
 
 
 @pytest.mark.parametrize("n", [3, 64, 1000])

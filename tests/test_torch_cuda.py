@@ -18,8 +18,11 @@ prefill shapes, K6's per-channel form (Mamba-2, N 16 and 64) and its
 same bits on two runs; the training path (no kernel): train
 steps of reduced granite, falcon and danube with f32 parameters on the
 card equal to the CPU, and the launcher's fault restart on the card equal
-to its clean run.  Skips without a GPU; run on the card with ``python -m
-pytest -q -m cuda tests/test_torch_cuda.py``."""
+to its clean run; K5/K6's custom ops equal to their bare launches bit
+for bit, and reduced prefill and decode steps counted on the card
+(``launch.step_cost``) equal to the meta dry run.  Skips without a GPU;
+run on the card with ``python -m pytest -q -m cuda
+tests/test_torch_cuda.py``."""
 import dataclasses
 
 import numpy as np
@@ -1009,3 +1012,66 @@ def test_train_loop_fault_restart_on_the_card(dev, tmp_path):
     assert faulty.restarts == 1 and faulty.steps_done == 8
     assert faulty.final_state.params["embed"].device.type == "cuda"
     assert faulty.losses[-1] == pytest.approx(clean.losses[-1], rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' custom ops and the step-cost counter on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_equal_the_bare_launches_bitwise(dev, dtype):
+    """``flash_attention`` / ``selective_scan`` go through their custom ops;
+    the outputs are the bare launches' bit for bit, one launch each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(2, 8, 96, 64, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 2, 96, 64, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 2, 96, 64, generator=g, device=dev).to(dtype)
+    n = fa.flash_attention.launches
+    assert torch.equal(fa.flash_attention(q, k, v, window=40),
+                       fa.launch(q, k, v, 40))
+    assert fa.flash_attention.launches == n + 2
+    dt = (torch.rand(2, 50, 96, generator=g, device=dev) * 0.1).to(dtype)
+    x = torch.randn(2, 50, 96, generator=g, device=dev).to(dtype)
+    b, c = (torch.randn(2, 50, 16, generator=g, device=dev)
+            for _ in range(2))
+    a = -torch.rand(96, 16, generator=g, device=dev)
+    n = ss.selective_scan.launches
+    for got, want in zip(ss.selective_scan(dt, x, b, c, a),
+                         ss.launch(dt, x, b, c, a)):
+        assert torch.equal(got, want)
+    assert ss.selective_scan.launches == n + 2
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",
+                                  "moonshot-v1-16b-a3b", "zamba2-1.2b"])
+def test_step_counts_on_the_card_equal_meta(dev, arch):
+    """A reduced prefill and decode step counted on the card (through K5
+    / K6's custom ops) == ``dryrun.count_cell`` on meta at the same
+    shape: FLOPs and bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.step_cost import count_step
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    B, P, cache = 2, 24, 40
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab, (B, P)), dtype=torch.int32, device=dev)}
+    (lk, caches), pre = count_step(
+        lambda: model.prefill(params, batch, cache), params, batch)
+    step = {"token": lk.argmax(-1).to(torch.int32),
+            "positions": torch.full((B,), P, dtype=torch.int32, device=dev)}
+    _, dec = count_step(lambda: model.decode_step(params, caches, step),
+                        params, caches, step)
+    _, _, mp = dryrun.count_cell(cfg, ShapeSpec("p", "prefill", P, B), model,
+                                 cache_len=cache)
+    _, _, md = dryrun.count_cell(cfg, ShapeSpec("d", "decode", cache, B),
+                                 model)
+    assert (pre.flops, pre.bytes) == (mp.cost.flops, mp.cost.bytes)
+    assert (dec.flops, dec.bytes) == (md.cost.flops, md.cost.bytes)
+    assert {"flash_attention", "selective_scan"} & set(mp.by_op)
