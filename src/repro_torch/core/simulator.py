@@ -47,8 +47,10 @@ epoch for all lanes (the scan is its one-lane case), and
 ``sweep_policies`` drives a (policy x seed) grid through it.  Placements
 and counters match the host loop exactly, emissions to f32 tolerance.
 
-Not ported yet (raises ``NotImplementedError``): the ensemble's sharding
-over more than one device (ROADMAP Queue 1 item 1).
+``shard=True`` splits the ensemble's lanes over the ranks of the default
+process group (one process per rank).  Not ported yet (raises
+``NotImplementedError``): ``shard="en"``'s node split over more than one
+rank (ROADMAP Queue 1 slice (C)).
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import forecast, telemetry
@@ -1793,10 +1796,40 @@ def _scan_result(run: _ScanRun, carry, ys, host_syncs: int) -> SimResult:
         host_syncs=host_syncs, **req_kw)
 
 
-def _run_bucket(members, pad_plan: bool) -> list:
+def _world_size() -> int:
+    """Ranks of the default process group (1 without one)."""
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _lane_split(n_lanes: int) -> Tuple[int, int]:
+    """(ranks the lanes split over, this rank): the largest divisor of
+    the lane count that is <= the world size, as the reference's
+    ``_shard_over_e`` takes it over devices."""
+    world = _world_size()
+    nd = max(d for d in range(1, world + 1) if n_lanes % d == 0)
+    return nd, (dist.get_rank() if nd > 1 else 0)
+
+
+def _run_bucket(members, pad_plan: bool, shard: bool = False) -> list:
     """One bucket of prepared runs as ONE batched trajectory; results in
-    member order."""
+    member order.  ``shard``: this rank runs its contiguous block of the
+    lanes, at the buffer sizes of the whole bucket, and every rank gets
+    every lane's result (``all_gather_object``)."""
     dims, jp, nmax = _shared_dims(members, pad_plan)
+    nd, rank = _lane_split(len(members)) if shard else (1, 0)
+    if nd > 1:
+        per = len(members) // nd
+        mine = (_run_lanes(members[rank * per:(rank + 1) * per], dims, jp,
+                           nmax) if rank < nd else [])
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, mine)
+        return [r for part in parts[:nd] for r in part]
+    return _run_lanes(members, dims, jp, nmax)
+
+
+def _run_lanes(members, dims: _Dims, jp: int, nmax: int) -> list:
+    """Lanes at the given shared buffer sizes as ONE batched trajectory."""
     cache: dict = {}
     built = [_build_arrs(m, dims, jp, nmax, cache) for m in members]
     stacked = {k: torch.stack([b[k] for b in built]) for k in built[0]}
@@ -1854,11 +1887,16 @@ def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
     lane axis and buffer sizes are the member-wise maxima.  Each epoch's
     placement is one ``place_lifecycle_batched`` call for all lanes:
     ``use_kernel=True`` lanes run one K4 launch per placement round.
-    ``shard`` (``True``/``"e"``: lanes over devices; ``"en"``: lanes, then
-    the node axis) on one device runs the unsharded program, as the
-    reference's one-device mesh does; over several devices it is not
-    ported."""
-    _check_shard(shard, [spec[0].device for spec in runs])
+    ``shard=True`` (or ``"e"``) splits each bucket's lanes over the ranks
+    of the default process group: the largest divisor of the bucket's
+    lane count that is <= the world size, each rank a contiguous block
+    of lanes at the whole bucket's buffer sizes.  Every rank calls with
+    the same ``runs`` and gets the whole result list in input order.
+    Without a process group, or in a world of one, it is the unsharded
+    program, as the reference's one-device mesh is.  ``"en"`` (lanes,
+    then the fleet's node axis) over more than one rank is not ported
+    (ROADMAP Queue 1 slice (C))."""
+    _check_shard(shard)
     preps = [_prepare_scan_run(spec[0], spec[1], spec[2], spec[3],
                                spec[4] if len(spec) > 4 else None, pad_plan)
              for spec in runs]
@@ -1868,24 +1906,20 @@ def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
     results: list = [None] * len(preps)
     for idxs in buckets.values():
         for i, r in zip(idxs, _run_bucket([preps[i] for i in idxs],
-                                          pad_plan)):
+                                          pad_plan, bool(shard))):
             results[i] = r
     return results
 
 
-def _device_count(dev: torch.device) -> int:
-    """Devices a sharded ensemble on ``dev``'s type would spread over."""
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
-
-
-def _check_shard(shard, devices) -> None:
-    """Validate ``shard``: on one device every form is the unsharded
-    program; sharding over several devices is not ported."""
-    if shard and any(_device_count(torch.device(d)) > 1 for d in devices):
+def _check_shard(shard) -> None:
+    """Validate ``shard``: ``"en"``'s node split over more than one rank
+    is not ported; every other form runs (the unsharded program in a
+    world of one)."""
+    if shard == "en" and _world_size() > 1:
         raise NotImplementedError(
-            f"shard={shard!r} over more than one device — the ('e', 'n') "
-            "device mesh — is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 1)")
+            "shard='en' over more than one rank — the ('e', 'n') mesh's "
+            "node split, with its cross-shard top-k merge — is not ported "
+            "to repro_torch yet (ROADMAP Queue 1 slice (C))")
 
 
 # ---------------------------------------------------------------------------
@@ -1962,7 +1996,7 @@ def sweep_policies(cfg: SimConfig, policies, *, n: int = 1024,
     if ensemble:
         rs = simulate_fleet_ensemble(runs, pad_plan=True, shard=shard)
     else:
-        _check_shard(shard, [r[0].device for r in runs])
+        _check_shard(shard)
         rs = [simulate_fleet_scan(f, t, ri, c, jobs=j, pad_plan=True)
               for f, t, ri, c, j in runs]
     records = []

@@ -21,8 +21,8 @@ in-place AdamW state, the decode caches).  ``temp_bytes_per_device`` is
 null: no compiler plans a torch step's temporaries.
 
 One device only: ``--all`` runs the one-card cells, and ``--multi-pod``
-(or ``run_cell(chips=...)`` above 1) raises, since meshes wait for
-ROADMAP Queue 1 item 1(b).
+(or ``run_cell(chips=...)`` above 1) raises: the dry run of a mesh is
+ROADMAP Queue 1 item 1(b), slice (C).
 
     python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--mode optimized] [--jobs 4]
@@ -56,9 +56,10 @@ from repro_torch.train.optimizer import AdamWConfig, opt_template
 from repro_torch.train.train_step import TrainState, make_train_step
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-_MESHES = ("item 1(b): the dry run of more than one device needs the mesh "
-           "half of distributed/sharding.py and launch/mesh.py's builders "
-           "(ROADMAP Queue 1 item 1(b))")
+_MESHES = ("item 1(b), slice (C): the dry run of more than one device "
+           "needs tree_sds, the activation constraints and collective "
+           "bytes in launch/step_cost.py (ROADMAP Queue 1 item 1(b), "
+           "slice (C))")
 
 
 # ---------------------------------------------------------------------------

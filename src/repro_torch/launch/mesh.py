@@ -1,5 +1,11 @@
-"""Hardware constants of the roofline report (the constants half of
-``repro.launch.mesh``).
+"""Mesh construction and the hardware constants of the roofline report
+(twin of ``repro.launch.mesh``).
+
+``make_production_mesh`` gives the reference's (16, 16) pod and (2, 16,
+16) multi-pod shapes with its axis names, as a ``MeshShape``: no machine
+here has 256 ranks.  ``make_host_mesh`` builds a ``DeviceMesh`` over the
+ranks of the default process group (one process and one device per
+rank), dropping a size-1 ``pod`` axis as the reference does.
 
 The TPU v5e constants (``PEAK_FLOPS_BF16``, ``HBM_BW``, ``ICI_BW``,
 ``CHIPS_PER_POD``) are the reference's, kept as the parity default of
@@ -7,14 +13,57 @@ The TPU v5e constants (``PEAK_FLOPS_BF16``, ``HBM_BW``, ``ICI_BW``,
 device, selected by name: ``"tpu-v5e"`` and the NVIDIA H100 / H200 rows
 the port runs on.  ``CARDS`` maps a CUDA device name
 (``torch.cuda.get_device_name``) to its row, first match wins.
-
-The mesh builders (``make_production_mesh``, ``make_host_mesh``) need
-more than one device and wait for ROADMAP Queue 1 item 1(b).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import MeshShape
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """(16,16)=256 chips per pod; (2,16,16)=512 chips across 2 pods."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def host_mesh_shape(data: int = 1, model: int = 1,
+                    pod: int = 1) -> MeshShape:
+    """The axes ``make_host_mesh`` builds: ``pod`` only when above 1."""
+    names, sizes = [], []
+    for n, a in ((pod, "pod"), (data, "data"), (model, "model")):
+        if n > 1 or a != "pod":
+            names.append(a)
+            sizes.append(n)
+    return MeshShape(tuple(names), tuple(sizes))
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1, *,
+                   device: DeviceLike = None):
+    """A ``DeviceMesh`` over the first ``pod * data * model`` ranks of the
+    default process group, on the ranks' device type (the card unless
+    ``device`` says otherwise).  Every rank of the world calls it (the
+    mesh's groups are made collectively); ranks past the mesh hold no
+    coordinate in it.  Raises ``ValueError`` naming the ranks it needs
+    when the world is smaller."""
+    shape = host_mesh_shape(data, model, pod)
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    if shape.size > world:
+        raise ValueError(
+            f"a {dict(zip(shape.names, shape.sizes))} mesh needs "
+            f"{shape.size} ranks; the world has {world} (start one process "
+            "per rank with torch.distributed.init_process_group)")
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = torch.arange(shape.size).reshape(shape.sizes)
+    return DeviceMesh(resolve_device(device).type, ranks,
+                      mesh_dim_names=shape.names)
+
 
 # Hardware constants (TPU v5e, per chip) — the reference's.
 PEAK_FLOPS_BF16 = 197e12        # FLOP/s

@@ -10,9 +10,9 @@ per-device result shapes of every all-gather / all-reduce /
 reduce-scatter / all-to-all / collective-permute, an all-reduce counted 2×
 (reduce-scatter + all-gather phases of a ring), ``-start`` async variants
 counted once (``-done`` twins skipped).  Nothing in the port calls it: a
-torch step has no HLO text, and one device has no collectives.  It is the
-reference's parser, kept beside its tests for the multi-device slice
-(ROADMAP Queue 1 item 1(b)).
+torch step has no HLO text.  It is the reference's parser, kept beside
+its tests for the dry run of a mesh (ROADMAP Queue 1 item 1(b), slice
+(C)).
 
 The reference builds a ``Roofline`` with ``from_compiled``, which reads
 XLA's compiled text and ``cost_analysis``.  A torch step is never

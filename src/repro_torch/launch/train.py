@@ -3,15 +3,24 @@
 
 1. MAIZX ranks the available pods (Eq. 1 over a 64-pod synthetic fleet)
    and places the job on the best one;
-2. the loop runs train steps on one device, checkpointing every
-   ``ckpt_every`` steps (atomic, with the data-pipeline state in the
-   manifest, in the JAX package's format);
-3. a ``FailureInjector`` / real ``NodeFailure`` triggers a restart: the
-   step is rebuilt and the latest checkpoint restored, and the data order
-   resumes from the pipeline state it carries.
+2. the loop runs train steps, checkpointing every ``ckpt_every`` steps
+   (atomic, with the data-pipeline state in the manifest, in the JAX
+   package's format);
+3. a ``FailureInjector`` / real ``NodeFailure`` triggers an elastic
+   restart: the mesh is rebuilt on the surviving ranks, the latest
+   checkpoint restored onto it, and the data order resumes from the
+   pipeline state it carries.
 
-On one device there is no mesh to shrink; ``data_mesh`` / ``model_mesh``
-above 1 wait for ROADMAP Queue 1 item 1(b).
+``data_mesh`` / ``model_mesh`` above 1 train on a ``("data", "model")``
+``DeviceMesh`` over the first ranks of the default process group (one
+process per rank; every rank calls ``train_loop`` with the same
+arguments): the parameters, the AdamW moments and the batch
+(``("batch", None)``) are laid out by ``tree_shardings`` with
+``Rules()``, and the step runs on DTensors.  After a failure the mesh
+shrinks to ``max(1, data_mesh // 2)`` on the data axis over the first
+ranks; the ranks left out wait, and every rank returns the same
+``TrainRun`` (``final_state`` is None on the ranks left out).  A mesh of
+one rank trains on plain tensors on rank 0.
 
 ``python -m repro_torch.launch.train --arch granite-3-2b --steps 30
 [--full] [--device cpu]`` trains the reduced config (``--full``: the
@@ -25,17 +34,21 @@ import time
 from typing import Any, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.fleet import synthetic_fleet
 from repro_torch.data.pipeline import DataConfig, PipelineState, device_batch
+from repro_torch.distributed.sharding import (Param, Rules, distribute_tree,
+                                              local_tree, tree_shardings)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import ModelFlags, build_model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import (FailureInjector, HealthMonitor,
                                                NodeFailure)
-from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.optimizer import AdamWConfig, opt_template
 from repro_torch.train.train_step import TrainState, make_train_step
 
 
@@ -72,13 +85,14 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
                maizx_place: bool = False, seed: int = 0,
                device: DeviceLike = None, log=print) -> TrainRun:
     """Train ``arch`` (a config name, or a config as is) for ``steps``
-    steps on ``device`` (the card unless told otherwise) from parameters
-    drawn with ``seed``; ``reduced`` takes the config's reduced form."""
+    steps on ``device`` (the card unless told otherwise; with a mesh, each
+    rank's device) from parameters drawn with ``seed``; ``reduced`` takes
+    the config's reduced form."""
     dev = resolve_device(device)
-    if data_mesh > 1 or model_mesh > 1:
-        raise NotImplementedError(
-            f"data_mesh={data_mesh}, model_mesh={model_mesh}: more than "
-            "one device is ROADMAP Queue 1 item 1(b)")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank:
+        log = _quiet        # one rank speaks
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
@@ -106,20 +120,31 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
     step_s: list = []
     restarts = 0
     pstate = PipelineState(seed, 0)
-    state = TrainState.create(model.init(seed, device=dev))
+    mesh = _mesh(data_mesh, model_mesh, dev)
+    member = rank < data_mesh * model_mesh
+    # every rank draws the same parameters from the seed, then keeps its
+    # shards: no traffic, and the same model as one device's
+    tpl = _state_template(model)
+    state = None
+    if member:
+        state = _place(_to_tree(TrainState.create(
+            model.init(seed, device=dev))), tpl, mesh)
+    batch_sh = _shardings(_batch_template(batch, seq), mesh)
     start = 0
 
-    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-        state, start, pstate = _restore(ckpt_dir, state, dev)
+    if member and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        state, start, pstate = _restore(ckpt_dir, tpl, mesh, dev)
         log(f"[ckpt] resumed from step {start}")
 
     s = start
-    while s < steps:
+    while member and s < steps:
         try:
             t0 = time.monotonic()
             injector.check(s)
             time.sleep(injector.straggle_s(s))
             pstate, b = device_batch(dcfg, pstate, dev)
+            if batch_sh is not None:
+                b = distribute_tree(b, batch_sh, src_rank=None)
             state, metrics = step_fn(state, b)
             loss = float(metrics["loss"])
             losses.append(loss)
@@ -134,29 +159,103 @@ def train_loop(arch: Union[str, ArchConfig], *, steps: int, batch: int,
                           extra={"pipeline": pstate.as_dict()})
         except NodeFailure as e:
             restarts += 1
-            log(f"[fault] {e}; restart from the latest checkpoint")
+            log(f"[fault] {e}; elastic restart on the surviving mesh")
             # consume the failure BEFORE restore resets s, or the replayed
             # step re-raises forever
             injector.schedule.pop(s, None)
+            resume = ckpt_dir and ckpt.latest_step(ckpt_dir) is not None
+            if not resume:
+                # no checkpoint: carry the live state over (every rank of
+                # the old mesh takes part in the gather)
+                state = _gather(state)
+            # elastic restart: shrink the data axis if possible
+            data_mesh = max(1, data_mesh // 2)
+            mesh = _mesh(data_mesh, model_mesh, dev)
+            batch_sh = _shardings(_batch_template(batch, seq), mesh)
             _, step_fn = make_step(cfg, seq=seq, steps=steps, lr=lr,
                                    microbatches=microbatches)
-            if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-                state, s, pstate = _restore(ckpt_dir, state, dev)
+            member = rank < data_mesh * model_mesh
+            if not member:
+                break
+            if resume:
+                state, s, pstate = _restore(ckpt_dir, tpl, mesh, dev)
+            else:
+                state = _place(state, tpl, mesh)
 
-    return TrainRun(losses=losses, steps_done=s, restarts=restarts,
-                    migrations=0, final_state=state, grad_norms=gnorms,
-                    step_s=step_s)
+    run = TrainRun(losses=losses, steps_done=s, restarts=restarts,
+                   migrations=0, final_state=state if member else None,
+                   grad_norms=gnorms, step_s=step_s)
+    if world > 1:
+        # the ranks left out by a shrink take rank 0's record
+        box = [None if rank else {k: getattr(run, k) for k in (
+            "losses", "steps_done", "restarts", "migrations", "grad_norms",
+            "step_s")}]
+        dist.broadcast_object_list(box, src=0)
+        for k, v in box[0].items():
+            setattr(run, k, v)
+    return run
+
+
+def _quiet(*_args, **_kw) -> None:
+    return None
 
 
 def _to_tree(state: TrainState):
     return {"params": state.params, "opt": state.opt, "step": state.step}
 
 
-def _restore(ckpt_dir: str, state: TrainState, dev: torch.device):
-    tree, step, extra = ckpt.restore(ckpt_dir, _to_tree(state), device=dev)
-    st = TrainState(params=tree["params"], opt=tree["opt"],
-                    step=tree["step"])
-    return st, step, PipelineState.from_dict(extra["pipeline"])
+def _from_tree(tree) -> TrainState:
+    return TrainState(params=tree["params"], opt=tree["opt"],
+                      step=tree["step"])
+
+
+def _mesh(data: int, model: int, dev: torch.device):
+    """The training mesh over the first ranks, or None for one rank (the
+    one-device path; rank 0 runs it)."""
+    if data * model == 1:
+        return None
+    return make_host_mesh(data=data, model=model, device=dev)
+
+
+def _state_template(model) -> dict:
+    tpl = model.template()
+    return {"params": tpl, "opt": opt_template(tpl), "step": None}
+
+
+def _batch_template(batch: int, seq: int) -> dict:
+    return {k: Param((batch, seq), ("batch", None), dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def _shardings(tpl, mesh):
+    """``tree_shardings`` of a template on ``mesh`` (the ``step`` leaf, a
+    ``None`` in the template, stays a plain tensor on every rank); None
+    without a mesh."""
+    if mesh is None:
+        return None
+    return {k: None if v is None else tree_shardings(v, mesh, Rules())
+            for k, v in tpl.items()}
+
+
+def _place(tree, tpl, mesh) -> TrainState:
+    """A state tree of full tensors laid out on ``mesh`` (every rank holds
+    the same values)."""
+    sh = _shardings(tpl, mesh)
+    if sh is not None:
+        tree = {k: tree[k] if sh[k] is None
+                else distribute_tree(tree[k], sh[k], src_rank=None)
+                for k in tree}
+    return _from_tree(tree)
+
+
+def _gather(state: TrainState):
+    return local_tree(_to_tree(state))
+
+
+def _restore(ckpt_dir: str, tpl, mesh, dev: torch.device):
+    tree, step, extra = ckpt.restore(ckpt_dir, tpl, _shardings(tpl, mesh),
+                                     device=dev)
+    return _from_tree(tree), step, PipelineState.from_dict(extra["pipeline"])
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:

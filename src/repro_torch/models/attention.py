@@ -15,6 +15,7 @@ query row per sequence against the cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Param
+from repro_torch.distributed.sharding import Param, is_dtensor, local_rows
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.layers import apply_rope
 
@@ -75,6 +76,13 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions q_offset..q_offset+S-1 and key positions 0..T-1.  The last
     chunk is padded; each chunk runs under a checkpoint, so backward
     recomputes its scores.  Returns (B, S, K, G, hd)."""
+    if is_dtensor(q):
+        # on a mesh, each rank attends its own rows (the products flatten
+        # (batch, head) into one bmm dim, which DTensor cannot always
+        # place); heads are replicated there
+        return local_rows(functools.partial(
+            attention_core, window=window, q_offset=q_offset, chunk=chunk),
+            q, k, v)
     B, S, K, G, hd = q.shape
     H = K * G
     T = k.shape[1]

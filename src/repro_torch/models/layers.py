@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Param
+from repro_torch.distributed.sharding import Param, gather_last
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -129,7 +129,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     in f32."""
     logits = logits.float()
     lz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = gather_last(logits, labels)
     nll = lz - gold
     if mask is None:
         return torch.mean(nll)

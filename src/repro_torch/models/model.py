@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Param, init_tree
+from repro_torch.distributed.sharding import Param, gather_last, init_tree
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import (embed_lookup, embed_template, lm_head,
                                        rmsnorm, rmsnorm_template,
@@ -109,7 +109,7 @@ class Model:
             def body(hc, lc, mc):
                 logits = self._logits(params, hc)
                 lz = torch.logsumexp(logits, dim=-1)
-                gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+                gold = gather_last(logits, lc)
                 return torch.sum((lz - gold) * mc), torch.sum(mc)
 
             tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -13,9 +13,8 @@ Pieces (all simulation-testable on CPU, designed for the 1000+-node fleet):
   migration-cost model so jobs only move when the carbon win over the
   remaining runtime exceeds the checkpoint/restore + warmup cost.
 
-The restart itself (restore the latest checkpoint after a ``NodeFailure``)
-lives in ``launch/train.py`` and runs on one device; restoring onto a
-different mesh waits for ROADMAP Queue 1 item 1(b).
+The restart itself (restore the latest checkpoint after a ``NodeFailure``
+onto the surviving, smaller mesh) lives in ``launch/train.py``.
 """
 from __future__ import annotations
 

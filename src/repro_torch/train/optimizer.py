@@ -55,8 +55,9 @@ def opt_template(param_template) -> Dict[str, Any]:
 
 def init_opt(params) -> Dict[str, Any]:
     def z():
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        # zeros_like: a DTensor parameter's moments take its placements
+        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
     return {"mu": z(), "nu": z()}
 
 

@@ -332,12 +332,21 @@ def test_launcher_without_a_card_raises(monkeypatch):
 
 
 def test_meshes_and_compressed_sync_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 1\\(b\\)"):
-        launch.train_loop("granite-3-2b", steps=1, batch=2, seq=8,
-                          data_mesh=2, device="cpu")
+    """The compressed pod syncs need a mesh with a "pod" axis, as the
+    reference asserts (``train_step.py:96``); an unknown sync is named."""
     model = build_model(get_config("granite-3-2b").reduced())
-    for sync in ("int8", "int16"):
-        with pytest.raises(NotImplementedError, match="item 1\\(b\\)"):
+    for sync in ("int8", "int16", "fp32"):
+        with pytest.raises(ValueError, match="'pod' axis"):
             make_train_step(model, AdamWConfig(), grad_sync=sync)
+    with pytest.raises(ValueError, match="one of"):
+        make_train_step(model, AdamWConfig(), grad_sync="int4")
     state = TrainState.create(model.init(0, device="cpu"))
     assert state.step.dtype == torch.int32 and int(state.step) == 0
+
+
+def test_data_mesh_above_the_world_raises():
+    """A (2, 1) mesh in a world of one rank (no process group) names the
+    ranks it needs (``launch.mesh.make_host_mesh``)."""
+    with pytest.raises(ValueError, match="needs 2 ranks; the world has 1"):
+        launch.train_loop("granite-3-2b", steps=1, batch=2, seq=8,
+                          data_mesh=2, device="cpu")

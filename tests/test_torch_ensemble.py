@@ -233,21 +233,31 @@ def test_sweep_policies_and_pareto_frontier_match_reference():
 
 @pytest.mark.parametrize("what", ["shard", "shard_en", "blind"])
 def test_unported_ensemble_options_raise(what, monkeypatch):
-    """Sharding over more than one device (ROADMAP Queue 1 item 1) and the
-    host-only comparators refuse.  A second device is faked by the device
-    count the check reads."""
+    """``shard="en"``'s node split over more than one rank (ROADMAP Queue
+    1 slice (C)) and the host-only comparators refuse; a world of two
+    ranks is faked by the world size the check reads.  ``shard=True``
+    without a process group is the unsharded program: it refuses
+    nothing and equals the plain ensemble bit for bit (its split over
+    ranks runs in ``tests/test_torch_multirank.py``)."""
     cp = S.SimConfig(**dict(BASE, epochs=4))
     f, t, r = S.synthetic_lifecycle_fleet(16, cp, device="cpu")
-    kw, err, match = {}, NotImplementedError, "ROADMAP Queue 1 item 1"
-    if what.startswith("shard"):
-        kw = dict(shard=True if what == "shard" else "en")
-        monkeypatch.setattr(S, "_device_count", lambda dev: 2)
+    if what == "shard":
+        assert not torch.distributed.is_initialized()
+        plain = S.simulate_fleet_ensemble([(f, t, r, cp)])
+        for a, b in zip(plain, S.simulate_fleet_ensemble([(f, t, r, cp)],
+                                                         shard=True)):
+            assert_same(b, a, emissions_rel=0)
+        return
+    kw, err, match = {}, NotImplementedError, "ROADMAP Queue 1 slice \\(C\\)"
+    if what == "shard_en":
+        kw = dict(shard="en")
+        monkeypatch.setattr(S, "_world_size", lambda: 2)
     else:
         cp, err, match = dataclasses.replace(cp, engine="blind"), \
             ValueError, "scanned core"
     with pytest.raises(err, match=match):
         S.simulate_fleet_ensemble([(f, t, r, cp)], **kw)
-    if what.startswith("shard"):
+    if what == "shard_en":
         with pytest.raises(err, match=match):
             S.sweep_policies(cp, {"r": PolicyConfig()}, n=16, device="cpu",
                              **kw)
