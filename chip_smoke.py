@@ -59,7 +59,10 @@ outputs against the port's CPU path and the paper headline:
      inputs (flash first; the backend is printed); K5 bf16 at phase 15's
      prefill shapes (moonshot, qwen2-vl, zamba2's tied block) and K6's
      per-channel form (Mamba-2) at zamba2's prefill (B 4, S 512, D 4096,
-     N 64), ragged and at S 2048, timed the same way
+     N 64), ragged and at S 2048, timed the same way; K5 at
+     nemotron-4-340b's head dim 192 with its 12:1 grouping (B 2, H 24,
+     K 2, S 512 and 333), bf16 and f32, within the same bars, timed the
+     same way
  11. serving at full width and depth: ``launch.serve.serve`` places the
      replica with ``place_jobs`` on a 64-pod fleet and serves 8 requests
      (2 batches of 4 slots, prompt 512, 32 new tokens, greedy) with
@@ -154,7 +157,13 @@ outputs against the port's CPU path and the paper headline:
      the custom op adds to a K5/K6 call's host time; (d) the five
      ``examples/torch`` scripts, each in its own process on the card, exit
      0 (green_window_planner's scene 1 over a quarter of its year,
-     ``EXAMPLE_CALLS``)
+     ``EXAMPLE_CALLS``); (e) the dry run of the production meshes on
+     meta (``P16_MESH_CELLS``: granite-3-2b train_4k on (16, 16),
+     llama3.2-3b train_4k int8 on (2, 16, 16), nemotron-4-340b
+     prefill_32k on (16, 16) through K5's meta form), each through the
+     dry-run CLI in its own process, all side by side within
+     ``P16_MESH_BUDGET_S``: status ok, collective bytes per device > 0,
+     each cell's terms printed
  17. more than one rank: worlds of 2 and 4 spawned ranks that share the
      one card over gloo (NCCL refuses two ranks on one device), every
      rank's tensors on cuda:0 (``distributed.ranks.run_ranks``): (a) the
@@ -169,13 +178,23 @@ outputs against the port's CPU path and the paper headline:
      lanes (digests, counters, emissions), K4's launches per rank;
      (d) ``train_loop(data_mesh=2)`` with a failure at step 9: one
      restart onto data=1, the final loss within the reference's 5e-3 of
-     phase 14 (d)'s clean run; at most ``P17_BUDGET_S`` seconds
+     phase 14 (d)'s clean run; (e) ``shard="en"`` at phase 9's
+     configuration with K4 on node shards: one lane on 2 ranks (mesh (e
+     1, n 2)) and two on 4 ((e 2, n 2)), each lane == the same lanes run
+     in one process here (digests, counters bitwise; emissions within
+     the ensemble's rel 1e-4), ms per epoch and K4 launches per rank;
+     (f) (b)'s (data 2, model 2) step with the rules of the optimized
+     llama3.2-3b train cell (the sequence split over ``model``) under
+     ``activation_sharding``: the constraints issue at least one
+     redistribute each step, the collective plan differs from (b)'s,
+     losses within 5e-3 of one rank, collective bytes per rank-step
+     beside (b)'s; at most ``P17_BUDGET_S`` seconds
 
 The phases run in the order 0-17: phase 16's examples start after every
 phase that times anything and run beside phase 16 (a)-(c) only.  Launch counts are set to 0 just before each of phases 3-5, 8,
 9, 11, 12, 13, 14 and 15 (and each held prefill of phase 11, each part of phase
-15) and read just after; the ranks of phase 17 (c) count their own K4
-launches and report them; K5 counts its bf16 and f32 kernels apart, K6
+15) and read just after; the ranks of phase 17 (c) and (e) count their
+own K4 launches and report them; K5 counts its bf16 and f32 kernels apart, K6
 its (D, N) form (Mamba-1) and its per-channel form (Mamba-2).  The line
 before the last is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero before that line.  Needs one
@@ -502,10 +521,20 @@ def phase_build():
             f"{c['FFMA']} FFMA")
     mma = [c for fn, c in counts.items() if "flash_mma_kernel" in fn]
     fma = [c for fn, c in counts.items() if "flash_fma_kernel" in fn]
-    check(len(mma) == 2 and all(c["HMMA"] > 0 for c in mma),
-          f"K5's bf16 kernels show no HMMA: {counts}")
-    check(len(fma) == 2 and all(c["HMMA"] == 0 < c["FFMA"] for c in fma),
+    check(len(mma) == 3 and all(c["HMMA"] > 0 for c in mma),
+          f"K5's bf16 kernels (hd 64, 128, 192) show no HMMA: {counts}")
+    check(len(fma) == 3 and all(c["HMMA"] == 0 < c["FFMA"] for c in fma),
           f"K5's f32 kernels are not FMA kernels: {counts}")
+    # K5's registers, stack frame and spills per instantiation (ptxas):
+    # the hd 192 ones hold 24 accumulator tiles a thread
+    lib5 = built[mods.index(fa)][0]
+    spills5 = dict(re.findall(
+        r"Function properties for (\S+)\n\s*(\d+ bytes stack frame, \d+ "
+        r"bytes spill stores, \d+ bytes spill loads)",
+        _build.LOGS.get(lib5, "")))
+    for fn, u in sorted(resource_usage(lib5).items()):
+        say(f"[1] K5 {fn}: {u['REG']} registers, "
+            f"{spills5.get(fn, 'no ptxas report (library reused)')}")
     # K6: its instructions against its exps (one MUFU.EX2 per expf)
     for fn, c in sass_counts(built[mods.index(sc)][0],
                              ("MUFU", "FMUL", "FADD", "FFMA")).items():
@@ -2072,6 +2101,7 @@ def phase_model_kernels(dev, rates, sfu, flush):
                             flush, reps=5, warm=1),
                     _k6_bound(*shape, dt, rates), None)
     _k5_phase15_shapes(dev, g, rates, flush, err)
+    _k5_hd192(dev, g, rates, flush, err)
     times["selective_scan_per_channel"] = _k6_per_channel(dev, g, rates,
                                                           flush, err)
     for k, (ms, plain, (bd, by), lib) in times.items():
@@ -2083,6 +2113,51 @@ def phase_model_kernels(dev, rates, sfu, flush):
     say(f"[10] selective_scan: its {B * S * D * N:.3g} exps on the SFU "
         f"alone would take {B * S * D * N / sfu * 1e6:.2f} us")
     return err, times
+
+
+def _k5_hd192(dev, g, rates, flush, err):
+    """K5 at nemotron-4-340b's head dim 192 with its 12:1 grouping (96
+    heads over 8 kv heads, cut to 24 over 2), at S 512 and a ragged S,
+    bf16 and f32, held to the bars of hd 64/128 and timed beside the
+    bound, the plain version and SDPA."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_plain,
+                                                     flash_attention,
+                                                     variant)
+    nm = get_config("nemotron-4-340b")
+    G = nm.n_heads // nm.n_kv_heads
+    for S in (512, 333):
+        shape = (2, 2 * G, 2, S, nm.head_dim, 0)
+        B, H, K, _, hd, win = shape
+        for dt in (torch.bfloat16, torch.float32):
+            name = ("flash_attention" if dt == torch.bfloat16
+                    else "flash_attention_f32")
+            q = torch.randn(B, H, S, hd, generator=g, device=dev).to(dt)
+            k = torch.randn(B, K, S, hd, generator=g, device=dev).to(dt)
+            v = torch.randn(B, K, S, hd, generator=g, device=dev).to(dt)
+            got = flash_attention(q, k, v, window=win)
+            want = attention_plain(q, k, v, window=win)
+            torch.cuda.synchronize()
+            bar = K5_BARS[str(dt)[6:]]
+            e, ok = _allclose_err(got, want, bar)
+            err[name][0] = max(err[name][0], e)
+            check(ok, f"K5 at hd 192 differs from its plain version at "
+                  f"{shape} {dt}")
+            line = (f"[10] K5 hd 192 {shape} {str(dt)[6:]} "
+                    f"({variant(dt, hd)}): max abs err {e:.3g} (bar {bar})")
+            if S == 512:
+                ms = time_ms(lambda: flash_attention(q, k, v), flush)
+                plain = time_ms(lambda: attention_plain(q, k, v), flush)
+                bd, by = _k5_bound(*shape, dt, rates)
+                lib, backend = _sdpa_ms(q, k, v, flush)
+                line += (f"; kernel {ms * 1e3:.1f} us, plain "
+                         f"{plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us "
+                         f"({by}), {100 * bd / ms:.1f} % of the bound, SDPA "
+                         + (f"{lib * 1e3:.1f} us ({backend})"
+                            if lib is not None else "none"))
+            say(line)
+            del got, want
 
 
 def _k5_phase15_shapes(dev, g, rates, flush, err):
@@ -3101,13 +3176,87 @@ def phase_roofline(name, record, examples):
     """Phase 16: (a) the energy calibration, (b) counts card == meta, (c)
     the measured cells on the roofline with ``mfu``, (d) the examples
     (``examples``: started just before, each in its own process) exit
-    0."""
+    0, (e) the dry run of the production meshes on meta."""
+    import tempfile
     t0 = time.perf_counter()
     hw = card_hw(name)
-    _phase16_calibration(hw)
-    _phase16_counts(record, hw, _smi("name,power.limit"))
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_cells, t_mesh = _start_mesh_dryruns(tmp)
+        try:
+            _phase16_calibration(hw)
+            _phase16_counts(record, hw, _smi("name,power.limit"))
+            _finish_mesh_dryruns(mesh_cells, t_mesh)
+        finally:
+            for p, _, _ in mesh_cells:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     _finish_examples(examples)
-    say(f"[16] (a)-(d) took {time.perf_counter() - t0:.1f} s")
+    say(f"[16] (a)-(e) took {time.perf_counter() - t0:.1f} s")
+
+
+# (e): (arch, shape, mode, chips) of the mesh dry run's cells on meta
+P16_MESH_CELLS = (("granite-3-2b", "train_4k", "baseline", 256),
+                  ("llama3.2-3b", "train_4k", "int8", 512),
+                  ("nemotron-4-340b", "prefill_32k", "baseline", 256))
+P16_MESH_BUDGET_S = 120.0
+
+
+def _start_mesh_dryruns(tmp):
+    """(e) each cell of ``P16_MESH_CELLS`` through the dry-run CLI, in
+    its own process, all started together: [(process, cell, result
+    path)] and their start on the host clock."""
+    import os
+    out, t0 = [], time.perf_counter()
+    for arch, shape, mode, chips in P16_MESH_CELLS:
+        path = Path(tmp) / f"{arch}__{shape}__{chips}__{mode}.json"
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mode", mode, "--chips", str(chips),
+             "--out", str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))
+        out.append((p, (arch, shape, mode, chips), path))
+    return out, t0
+
+
+def _finish_mesh_dryruns(cells, t0):
+    """(e) every cell ends within the budget (from their start) with
+    ``status: ok`` on its mesh, collective bytes > 0, nemotron's prefill
+    through K5's meta form; prints each cell's terms."""
+    for p, (arch, shape, mode, chips), path in cells:
+        try:
+            log = p.communicate(timeout=max(
+                P16_MESH_BUDGET_S - (time.perf_counter() - t0), 1.0))[0]
+        except subprocess.TimeoutExpired:
+            check(False, f"(e) the {arch} {shape} dry run on {chips} chips "
+                  f"outlived the {P16_MESH_BUDGET_S:.0f} s budget")
+        check(p.returncode == 0 and path.exists(),
+              f"(e) the {arch} {shape} {mode} dry run on {chips} chips "
+              f"failed:\n{log.decode()[-2000:]}")
+        r = json.loads(path.read_text())
+        rf, mem = r["roofline"], r["memory"]
+        check(r["status"] == "ok" and r["chips"] == chips
+              and rf["collective_bytes_per_device"] > 0,
+              f"(e) {arch} {shape}: {r['status']}, chips {r['chips']}, "
+              f"collective bytes {rf['collective_bytes_per_device']}")
+        if shape.startswith("prefill"):
+            check(r["prefill_route"] == "kernels",
+                  f"(e) {arch} prefill route {r['prefill_route']}")
+        kinds = {k: f"{v / 1e9:.4g} GB"
+                 for k, v in rf["collective_per_kind"].items()}
+        say(f"[16] (e) {arch} {shape} {mode} on {chips} fake ranks (meta): "
+            f"{rf['dominant']}-bound, roofline step {rf['step_s']:.4g} s "
+            f"(compute {rf['compute_s']:.4g}, memory {rf['memory_s']:.4g}, "
+            f"collective {rf['collective_s']:.4g} s at {rf['hw']}'s link), "
+            f"collective bytes per device {kinds}, argument bytes per "
+            f"device {mem['argument_bytes_per_device'] / 1e9:.4g} GB, "
+            f"count_s {r['count_s']}"
+            + (f", prefill route {r['prefill_route']}"
+               if r["prefill_route"] else ""))
+    say(f"[16] (e) {len(cells)} mesh cells, run side by side, took "
+        f"{time.perf_counter() - t0:.1f} s (budget "
+        f"{P16_MESH_BUDGET_S:.0f} s)")
 
 
 def _tree_map(fn, tree):
@@ -3192,10 +3341,10 @@ def p17_syncs(rank, world, dev):
     return out
 
 
-def _p17_state(model, mesh, dev, seed=0):
+def _p17_state(model, mesh, dev, seed=0, rules=None):
     """The drawn state (every rank draws the same values from ``seed``,
-    the head from ``seed + 1``) laid out on ``mesh`` (plain on one
-    rank)."""
+    the head from ``seed + 1``) laid out on ``mesh`` by ``rules`` (the
+    default rules when None; plain on one rank)."""
     import torch
     from repro_torch.distributed import sharding as sh
     from repro_torch.train.train_step import TrainState
@@ -3207,14 +3356,23 @@ def _p17_state(model, mesh, dev, seed=0):
                          * 0.02).to(head.dtype)
     if mesh is not None:
         params = sh.distribute_tree(
-            params, sh.tree_shardings(model.template(), mesh), src_rank=None)
+            params, sh.tree_shardings(model.template(), mesh,
+                                      rules or sh.Rules()), src_rank=None)
     return TrainState.create(params)
 
 
-def p17_train(rank, world, dev, shape, sync, ckpt_dir=None):
+def p17_train(rank, world, dev, shape, sync, ckpt_dir=None,
+              constrain=False):
     """(b) P17_TRAIN's steps on a ``make_host_mesh(*shape)`` mesh (shape
     (1, 1, 1): rank 0 alone, plain tensors); per-rank ms/step, peak
-    memory, collective bytes per step and the gloo route's share."""
+    memory, collective bytes per step (payloads, and the reference's
+    weighted result bytes) and the gloo route's share.  ``constrain``
+    (f): the state laid out by, and the steps run under
+    ``activation_sharding`` with, the rules of the optimized llama3.2-3b
+    train cell (``launch.settings``: the sequence split over ``model``,
+    the weights whole over it); ``moved`` the redistributes the
+    constraints issued per step."""
+    import contextlib
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, PipelineState, host_batch
@@ -3236,15 +3394,26 @@ def p17_train(rank, world, dev, shape, sync, ckpt_dir=None):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    state = _p17_state(model, mesh, dev)
+    rules, ctx = sh.Rules(), contextlib.nullcontext()
+    if constrain:
+        from repro_torch.configs import get_shape
+        from repro_torch.launch.settings import cell_settings
+        st = cell_settings(get_config("llama3.2-3b"), get_shape("train_4k"),
+                           "optimized")
+        check(st.constrain_acts and st.rules != sh.Rules(),
+              "(f) the optimized llama3.2-3b cell sets no rules of its own "
+              "or no activation constraints")
+        rules, ctx = st.rules, sh.activation_sharding(mesh, st.rules)
+    state = _p17_state(model, mesh, dev, rules=rules)
     step = make_train_step(model, AdamWConfig(), grad_sync=sync,
                            mesh=mesh if sync != "auto" else None)
     dcfg = DataConfig(cfg, batch, seq, task="copy")
     bsh = None if mesh is None else sh.tree_shardings(
         {k: sh.Param((batch, seq), ("batch", None), dtype=torch.int32)
-         for k in ("tokens", "labels")}, mesh)
+         for k in ("tokens", "labels")}, mesh, rules)
     ps, out = PipelineState(0, 0), dict(losses=[], gnorms=[], ms=[],
-                                        bytes=[], eager=[], calls=[])
+                                        bytes=[], eager=[], calls=[],
+                                        weighted=[], moved=[])
     for _ in range(steps):
         ps, b = host_batch(dcfg, ps)
         b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
@@ -3252,7 +3421,7 @@ def p17_train(rank, world, dev, shape, sync, ckpt_dir=None):
             b = sh.distribute_tree(b, bsh, src_rank=None)
         _sync(dev)
         t0 = time.perf_counter()
-        with CL.counting() as log:
+        with CL.counting() as log, ctx:
             state, met = step(state, b)
             loss, gn = float(met["loss"]), float(met["grad_norm"])
         _sync(dev)
@@ -3260,8 +3429,10 @@ def p17_train(rank, world, dev, shape, sync, ckpt_dir=None):
         out["losses"].append(loss)
         out["gnorms"].append(gn)
         out["bytes"].append(log.total_bytes)
+        out["weighted"].append(log.weighted_bytes)
         out["eager"].append(log.eager_bytes)
         out["calls"].append(sum(log.calls.values()))
+        out["moved"].append(getattr(ctx, "moved", 0) - sum(out["moved"]))
     out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                        if dev.type == "cuda" else float("nan"))
     out["params"] = sum(p.numel() for p in sh.tree_leaves(state.params))
@@ -3325,6 +3496,27 @@ def p17_ensemble(rank, world, dev):
     ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
     k4 = mr.maiz_topk_b.launches
     return dict(ms=ms, k4=k4, lanes=[_p17_lane(r) for r in lanes])
+
+
+def p17_ensemble_en(rank, world, dev, lanes):
+    """(e) the first ``lanes`` of phase 9's lanes with ``shard="en"``:
+    the ("e", "n") mesh of the world, each lane block's placement engine
+    split over its n ranks by nodes, K4 on each rank's node shard; ms per
+    epoch and K4 launches on this rank, every lane's digest, counters and
+    emissions."""
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels import maizx_rank as mr
+    cfg, grid = _p9_grid()
+    specs = [spec for _, _, spec in _grid_runs(S, cfg, grid, SIM_N,
+                                               ENS_SEEDS, dev)][:lanes]
+    _sync(dev)
+    mr.maiz_topk_b.launches = 0
+    t0 = time.perf_counter()
+    out = S.simulate_fleet_ensemble(specs, shard="en")
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
+    return dict(ms=ms, k4=mr.maiz_topk_b.launches,
+                lanes=[_p17_lane(r) for r in out])
 
 
 def _sync(dev):
@@ -3398,9 +3590,13 @@ def phase_multirank(dev, ens9, clean, kind="cuda"):
                                       ckpt_dir=f"{tmp}/ckpt22")),
               ("pod_int8", "p17_train", dict(shape=(2, 1, 2),
                                             sync="int8")),
-              ("restore", "p17_restore", dict(ckpt_dir=f"{tmp}/ckpt22"))]
+              ("restore", "p17_restore", dict(ckpt_dir=f"{tmp}/ckpt22")),
+              ("22_opt", "p17_train", dict(shape=(2, 2, 1), sync="auto",
+                                          constrain=True)),
+              ("en2", "p17_ensemble_en", dict(lanes=2))]
         w2 = [("sync", "p17_syncs", {}), ("ens", "p17_ensemble", {}),
-              ("loop", "p17_loop", dict(ckpt_dir=f"{tmp}/loop"))]
+              ("loop", "p17_loop", dict(ckpt_dir=f"{tmp}/loop")),
+              ("en1", "p17_ensemble_en", dict(lanes=1))]
         t0 = time.perf_counter()
         r2 = run_ranks(p17_world, 2, kind, w2, timeout=P17_BUDGET_S)
         t2 = time.perf_counter() - t0
@@ -3518,11 +3714,94 @@ def phase_multirank(dev, ens9, clean, kind="cuda"):
         f"loss {loop[0]['losses'][-1]:.6f} vs phase 14 (d)'s clean "
         f"{clean} (rel {rel:.3g}; bar {P17_LOSS_BAR} absolute), "
         f"{loop[0]['s']:.1f} s")
+    k4 += _p17_en(dev, r2, r4)
+    _p17_constrained(r4)
     took = time.perf_counter() - t_all
     say(f"[17] phase 17 took {took:.1f} s (4-rank world {t4:.1f} s, "
         f"2-rank world {t2:.1f} s; budget {P17_BUDGET_S:.0f} s)")
     check(took <= P17_BUDGET_S, f"phase 17 took {took:.1f} s")
     return {"maiz_topk_b": k4}
+
+
+def _p17_en(dev, r2, r4):
+    """(e) ``shard="en"``: one lane over 2 ranks (mesh (e 1, n 2)) and two
+    over 4 ((e 2, n 2)), each lane == the same lanes run in one process
+    here (placements, start epochs and counters bitwise, emissions within
+    the ensemble's rel 1e-4: a row of one lane against the two lanes
+    batched); returns the ranks' K4 launches."""
+    from repro_torch.core import simulator as S
+    cfg, grid = _p9_grid()
+    specs = [spec for _, _, spec in _grid_runs(S, cfg, grid, SIM_N,
+                                               ENS_SEEDS, dev)]
+    k4 = 0
+    for world, res, key, lanes, mesh in ((2, r2, "en1", 1, (1, 2)),
+                                         (4, r4, "en2", 2, (2, 2))):
+        _sync(dev)
+        t0 = time.perf_counter()
+        want = [_p17_lane(r) for r in
+                S.simulate_fleet_ensemble(specs[:lanes])]
+        _sync(dev)
+        one_ms = (time.perf_counter() - t0) * 1e3 / cfg.epochs
+        rel = 0.0
+        for rank, r in enumerate(res):
+            got = r[key]["lanes"]
+            check(len(got) == lanes, f"(e) {key}: lane count")
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(a["digest"] == b["digest"] and a["start"] == b["start"]
+                      and a["counters"] == b["counters"],
+                      f"(e) rank {rank} lane {i} of {key}: placements or "
+                      "counters != the lane run in one process")
+                rel = max(rel, abs(a["emissions"] / b["emissions"] - 1))
+            check(r[key]["k4"] > 0, f"(e) rank {rank} launched no K4")
+        # the ensemble's contract: emissions to f32 accumulation (a lane
+        # block of one lane against the lanes batched in one process)
+        check(rel <= 1e-4, f"(e) {key}: emissions rel {rel:.3g}")
+        k4 += sum(r[key]["k4"] for r in res)
+        say(f"[17] (e) shard='en', {lanes} lane(s) x n={SIM_N} on {world} "
+            f"ranks, mesh (e {mesh[0]}, n {mesh[1]}): K4 on "
+            f"{SIM_N // mesh[1]}-node shards; every lane == the lanes run "
+            f"in one process (digests {[w['digest'] for w in want]}, "
+            f"counters bitwise, emissions rel {rel:.3g}, bar 1e-4) on every "
+            f"rank; K4 launches per "
+            f"rank {[r[key]['k4'] for r in res]}, ms/epoch per rank "
+            f"{[round(r[key]['ms'], 1) for r in res]} (one process "
+            f"{one_ms:.1f}; every node reduction a gloo round trip "
+            "through host memory)")
+    return k4
+
+
+def _p17_constrained(r4):
+    """(f) the (data 2, model 2) granite step with the optimized
+    llama3.2-3b cell's rules under activation_sharding: every step's
+    constraints issue a redistribute on every rank, the collective plan
+    differs from (b)'s, losses within the reference's 5e-3 of one rank;
+    collective bytes per rank-step beside (b)'s."""
+    one, auto = r4[0]["one"], r4[0]["22"]
+    runs = [r["22_opt"] for r in r4]
+    for rank, r in enumerate(runs):
+        check(r["losses"] == runs[0]["losses"],
+              "(f) ranks disagree on the loss")
+        check(min(r["moved"]) > 0,
+              f"(f) rank {rank}: a step whose constraints moved nothing "
+              f"({r['moved']} redistributes per step)")
+    check((runs[0]["calls"][-1], runs[0]["weighted"][-1])
+          != (auto["calls"][-1], auto["weighted"][-1]),
+          "(f) the constrained step's collectives are (b)'s")
+    for a, b in zip(runs[0]["losses"], one["losses"]):
+        check(abs(a - b) < P17_LOSS_BAR and math.isfinite(a),
+              f"(f) loss {runs[0]['losses']} vs one rank {one['losses']}")
+    say(f"[17] (f) (data 2, model 2) with the optimized llama3.2-3b "
+        f"cell's sequence-parallel rules under activation_sharding: "
+        f"{runs[0]['moved']} redistributes issued by the constraints per "
+        f"step; losses {runs[0]['losses']} vs one rank "
+        f"{one['losses']} (bar {P17_LOSS_BAR}); per rank-step collective "
+        f"payload bytes {runs[0]['bytes'][-1] / 1e9:.4g} GB, the "
+        f"reference's weighted result bytes "
+        f"{runs[0]['weighted'][-1] / 1e9:.4g} GB, in "
+        f"{runs[0]['calls'][-1]} calls, {runs[0]['ms'][-1]:.1f} ms/step; "
+        f"(b)'s auto plan {auto['bytes'][-1] / 1e9:.4g} GB payload, "
+        f"{auto['weighted'][-1] / 1e9:.4g} GB weighted, "
+        f"{auto['calls'][-1]} calls")
 
 
 def main() -> int:

@@ -34,7 +34,12 @@ each sweep reads back its masked argmin and the K+1 candidates.
 ensemble lanes together: an inner walk over events with O(L·K) shortlist
 work per step, and one batched O(L·N) sweep per round for the lanes that
 stalled.  Its loop tests read one flag back from the device each
-(``HostSyncs`` counts them).
+(``HostSyncs`` counts them).  With a ``NodeSplit`` it runs on this
+rank's slice of the node axis (the reference's ``("e", "n")`` mesh,
+``simulate_fleet_ensemble(shard="en")``): the sweep (K4 with
+``use_kernel``) scores the rank's nodes only, and every reduction over
+nodes is a collective of the n-axis group with the reference's tie rule
+(see ``NodeSplit``).
 """
 from __future__ import annotations
 
@@ -64,10 +69,15 @@ class PlacementResult:
     n_sweeps: int           # full O(N) decision sweeps performed
 
 
-def _lo_rcp(t: torch.Tensor):
+def _minmax(t: torch.Tensor):
+    return t.min(), t.max()
+
+
+def _lo_rcp(t: torch.Tensor, minmax=_minmax):
     """(lo, 1/span, hi); a degenerate span (<= 1e-12) gives rcp 0 so an
-    information-free term contributes exactly 0."""
-    lo, hi = t.min(), t.max()
+    information-free term contributes exactly 0.  ``minmax`` takes the
+    node axis's min and max (over every rank's nodes under a split)."""
+    lo, hi = minmax(t)
     span = hi - lo
     rcp = torch.where(span > 1e-12,
                       torch.reciprocal(torch.clamp_min(span, 1e-12)), 0.0)
@@ -76,12 +86,14 @@ def _lo_rcp(t: torch.Tensor):
 
 def frozen_ctx(fleet: Fleet, weights: RankWeights = RankWeights(),
                horizon_h: float = 1.0,
-               energy: Optional[EnergyModel] = None
+               energy: Optional[EnergyModel] = None, minmax=_minmax
                ) -> Dict[str, torch.Tensor]:
     """One-time per-placement context: the cap-independent Eq. 1 pieces,
     op for op ``repro.core.placement.frozen_ctx``.  All divisions happen
     here; ``lohi`` is the (4, 2) (or (5, 2)) matrix the rank kernel
-    consumes for the same normalization."""
+    consumes for the same normalization.  ``minmax`` as in ``_lo_rcp``:
+    on a node slice the per-node pieces are the slice's, and every
+    normalizer is the whole fleet's."""
     pk = fleet.power_kw * horizon_h
     a_now = pk * fleet.pue * fleet.ci_now
     a_fc = pk * fleet.pue * fleet.ci_forecast
@@ -91,7 +103,7 @@ def frozen_ctx(fleet: Fleet, weights: RankWeights = RankWeights(),
     sched = fleet.sched_term
 
     def mm(x):
-        lo, rcp, _ = _lo_rcp(x)
+        lo, rcp, _ = _lo_rcp(x, minmax)
         return (x - lo) * rcp
 
     static = (weights.w3 * (1.0 - mm(eff)) + weights.w4 * mm(sched))
@@ -106,12 +118,11 @@ def frozen_ctx(fleet: Fleet, weights: RankWeights = RankWeights(),
     cap0 = fleet.capacity.to(torch.float32)
     factor0 = idle_f + dyn_f * (1.0 - cap0 * inv_total)
     cfp0, fcfp0 = a_now * factor0, a_fc * factor0
-    lo_now, rcp_now, hi_now = _lo_rcp(cfp0)
-    lo_fc, rcp_fc, hi_fc = _lo_rcp(fcfp0)
+    lo_now, rcp_now, hi_now = _lo_rcp(cfp0, minmax)
+    lo_fc, rcp_fc, hi_fc = _lo_rcp(fcfp0, minmax)
     lohi = torch.stack([
         torch.stack([lo_now, hi_now]), torch.stack([lo_fc, hi_fc]),
-        torch.stack([eff.min(), eff.max()]),
-        torch.stack([sched.min(), sched.max()])])
+        torch.stack(minmax(eff)), torch.stack(minmax(sched))])
     ctx = dict(a_now=a_now, a_fc=a_fc, inv_total=inv_total, static=static,
                idle_f=idle_f, dyn_f=dyn_f,
                lo_now=lo_now, rcp_now=rcp_now, lo_fc=lo_fc, rcp_fc=rcp_fc,
@@ -125,7 +136,7 @@ def frozen_ctx(fleet: Fleet, weights: RankWeights = RankWeights(),
         m_dyn = a_now * inv_total * dyn_f
         m_wake = a_now * idle_f + emb_h
         mcfp0 = m_dyn + torch.where(cap0 == ct_f, m_wake, 0.0)
-        lo_m, rcp_m, hi_m = _lo_rcp(mcfp0)
+        lo_m, rcp_m, hi_m = _lo_rcp(mcfp0, minmax)
         ctx.update(m_dyn=m_dyn, m_wake=m_wake, ct_f=ct_f,
                    emb_h=torch.as_tensor(emb_h, dtype=torch.float32,
                                          device=fleet.device),
@@ -422,19 +433,177 @@ class HostSyncs:
         return bool(x.any())
 
 
+class WholeAxis:
+    """The node axis on one rank: every reduction and gather is local
+    (the engine's own ops; ``NodeSplit`` is the split form)."""
+    off = 0
+    minmax = staticmethod(_minmax)
+
+    def n_total(self, n_local: int) -> int:
+        """The whole axis' node count from this rank's."""
+        return n_local
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def local_ids(self, idx: torch.Tensor) -> torch.Tensor:
+        """Node ids (L, k) as this rank's positions, any id it does not
+        hold (the drop sentinel N included) as its own sentinel."""
+        return idx
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def amax(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(1)
+
+    def amin(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amin(1)
+
+    def min_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise min of ``x`` over the ranks of the split."""
+        return x
+
+    def argmin(self, masked: torch.Tensor):
+        """(per lane the first index of the min, the min)."""
+        best = torch.argmin(masked, dim=1)
+        return best, masked.gather(1, best[:, None])[:, 0]
+
+    def take(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """x (L, N) at node ids idx (L, k), every id < N."""
+        return x.gather(1, idx)
+
+    def add_at(self, x: torch.Tensor, idx: torch.Tensor,
+               val: torch.Tensor) -> None:
+        """x[l, idx[l, j]] += val[l, j] in place (ids < N)."""
+        x.scatter_add_(1, idx, val)
+
+    def rescore(self, cap_b, b, ctx, w: RankWeights) -> torch.Tensor:
+        return _one_score_b(cap_b, b, ctx, w)
+
+    def merge(self, cand_s, cand_i, k: int):
+        return cand_s, cand_i
+
+
+class NodeSplit(WholeAxis):
+    """This rank's contiguous slice [off, off + n) of an N-node axis split
+    ``nn`` ways over ``group`` (the ensemble mesh's n-axis ranks, in node
+    order), and the reductions over nodes written as its collectives.
+    Each keeps the one-rank result bit for bit: min and max all-reduce
+    exactly; an argmin gathers each rank's (value, global index) and takes
+    the first least value, the lower index on ties as the one-rank argmin
+    does; a value at a node id (a gather, the O(1) rescore) is computed by
+    the owning rank and copied from it; a scatter into a node buffer is
+    applied by the owner only; top-k candidates carry global ids and are
+    merged in (score, node index) order.  Every collective is a host
+    round trip on gloo."""
+
+    def __init__(self, group, n_nodes: int):
+        import torch.distributed as dist
+        self.dist, self.group = dist, group
+        self.nn = dist.get_world_size(group)
+        if n_nodes % self.nn:
+            raise ValueError(f"{n_nodes} nodes do not split {self.nn} ways")
+        self.n = n_nodes // self.nn
+        self.off = dist.get_rank(group) * self.n
+
+    def n_total(self, n_local: int) -> int:
+        return self.nn * n_local
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x[:, self.off:self.off + self.n]
+
+    def local_ids(self, idx: torch.Tensor) -> torch.Tensor:
+        own, _ = self._owned(idx)
+        return torch.where(own, idx - self.off, self.n)
+
+    def _stack(self, x: torch.Tensor) -> torch.Tensor:
+        """(nn, *x.shape): every rank's x, in rank order."""
+        y = x.to(torch.uint8) if x.dtype == torch.bool else x
+        out = y.new_empty((self.nn,) + tuple(y.shape))
+        self.dist.all_gather_into_tensor(out, y.contiguous()[None],
+                                         group=self.group)
+        return out.to(x.dtype)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """(L, N) from every rank's (L, n) slice."""
+        st = self._stack(x)
+        return st.permute(1, 0, 2).reshape(x.shape[0], -1)
+
+    def minmax(self, t: torch.Tensor):
+        both = torch.stack([t.min(), -t.max()])
+        self.dist.all_reduce(both, op=self.dist.ReduceOp.MIN,
+                             group=self.group)
+        return both[0], -both[1]
+
+    def amax(self, x: torch.Tensor) -> torch.Tensor:
+        m = x.amax(1)
+        self.dist.all_reduce(m, op=self.dist.ReduceOp.MAX, group=self.group)
+        return m
+
+    def amin(self, x: torch.Tensor) -> torch.Tensor:
+        return self.min_all(x.amin(1))
+
+    def min_all(self, x: torch.Tensor) -> torch.Tensor:
+        m = x.contiguous().clone()
+        self.dist.all_reduce(m, op=self.dist.ReduceOp.MIN, group=self.group)
+        return m
+
+    def argmin(self, masked: torch.Tensor):
+        best, val = WholeAxis.argmin(self, masked)
+        vals, ids = self._stack(val), self._stack(best + self.off)
+        r = torch.argmin(vals, dim=0)[None]
+        return ids.gather(0, r)[0], vals.gather(0, r)[0]
+
+    def _owned(self, idx: torch.Tensor):
+        own = (idx >= self.off) & (idx < self.off + self.n)
+        return own, torch.where(own, idx - self.off, 0)
+
+    def _from_owner(self, v: torch.Tensor, idx: torch.Tensor):
+        return self._stack(v).gather(0, (idx // self.n)[None])[0]
+
+    def take(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        _, loc = self._owned(idx)
+        return self._from_owner(x.gather(1, loc), idx)
+
+    def add_at(self, x, idx, val) -> None:
+        own, loc = self._owned(idx)
+        x.scatter_add_(1, loc, torch.where(own, val, 0).to(x.dtype))
+
+    def rescore(self, cap_b, b, ctx, w: RankWeights) -> torch.Tensor:
+        # b may be the padding id N where the result is unused
+        b = b.clamp(0, self.nn * self.n - 1)
+        _, loc = self._owned(b)
+        return self._from_owner(_one_score_b(cap_b, loc, ctx, w), b)
+
+    def merge(self, cand_s, cand_i, k: int):
+        """The first k of every rank's candidates in (score, node index)
+        order: in rank order the candidates' positions follow their node
+        ids on equal scores, so ``lex_head``'s (value, position) order is
+        the (score, index) order."""
+        from repro_torch.kernels.ops import lex_head
+        L = cand_s.shape[0]
+        s = self._stack(cand_s).permute(1, 0, 2).reshape(L, -1)
+        i = self._stack(cand_i + self.off).permute(1, 0, 2).reshape(L, -1)
+        top_s, pos = lex_head(s, min(k, s.shape[1]))
+        return top_s, i.gather(1, pos)
+
+
 def _lane(fleet: Fleet, l: int) -> Fleet:
     return Fleet(**{f: getattr(fleet, f)[l] for f in FIELDS})
 
 
 def stacked_ctx(fleet: Fleet, weights: RankWeights, horizon_h: float,
-                energy) -> Dict[str, object]:
+                energy, minmax=_minmax) -> Dict[str, object]:
     """The (L, ...) frozen context: each lane's sequential ``frozen_ctx``,
     stacked (bitwise that lane's context by construction).  Per-lane
     scalars become (L, 1) columns that broadcast against (L, N) rows;
-    python-float constants stay as they are."""
+    python-float constants stay as they are.  ``minmax`` as in
+    ``frozen_ctx``."""
     L = fleet.capacity.shape[0]
     ems = energy if isinstance(energy, (list, tuple)) else [energy] * L
-    per = [frozen_ctx(_lane(fleet, l), weights, horizon_h, energy=ems[l])
+    per = [frozen_ctx(_lane(fleet, l), weights, horizon_h, energy=ems[l],
+                      minmax=minmax)
            for l in range(L)]
     ctx = {}
     for k, v in per[0].items():
@@ -509,7 +678,8 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
                             n_events: Optional[torch.Tensor] = None,
                             energy: Union[None, EnergyModel,
                                           Sequence[EnergyModel]] = None,
-                            syncs: Optional[HostSyncs] = None
+                            syncs: Optional[HostSyncs] = None,
+                            split: Optional[NodeSplit] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Arrival-only lifecycle placement over a leading lane axis — the
@@ -531,11 +701,21 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
     from it on that lane's current capacity.  The walk reads only the
     shortlist's capacity mirror ``slcap`` and the round's ``cap_max``;
     its placements reach ``cap`` as one scatter per round.  The sweep
-    scores every lane each round and is applied where ``need`` is set."""
+    scores every lane each round and is applied where ``need`` is set.
+
+    ``split``: this rank runs its ``NodeSplit`` slice of the node axis:
+    the fleet's leaves and ``capacity`` are this rank's (L, n) slices,
+    and so is the capacity returned; node ids (``node``, the shortlist)
+    are global, and the results are the same on every rank of the
+    split's group."""
     if engine not in ("shortlist", "full"):
         raise ValueError(f"unknown batched engine: {engine!r}")
     syncs = HostSyncs() if syncs is None else syncs
-    L, N = fleet.capacity.shape
+    ax = WholeAxis() if split is None else split
+    L, n = fleet.capacity.shape
+    N = ax.n_total(n)
+    if capacity is None:
+        capacity = fleet.capacity
     E = demands.shape[1]
     dev = fleet.capacity.device
     K = min(max(shortlist, 1), N)
@@ -544,9 +724,8 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
     inf = torch.tensor(torch.inf, device=dev)
     lanes = torch.arange(L, device=dev)
     karange = torch.arange(K, device=dev)
-    ctx = stacked_ctx(fleet, weights, horizon_h, energy)
-    cap = (fleet.capacity if capacity is None else capacity).to(
-        torch.int32).clone()
+    ctx = stacked_ctx(fleet, weights, horizon_h, energy, ax.minmax)
+    cap = capacity.to(torch.int32).clone()
     healthy = fleet.healthy
     demands = demands.to(torch.int64)
     n_ev = torch.full((L,), E, device=dev) if n_events is None \
@@ -555,7 +734,7 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
     sweeps = torch.zeros(L, dtype=torch.int64, device=dev)
 
     def hmax(c):
-        return torch.where(healthy, c, 0).amax(1)
+        return ax.amax(torch.where(healthy, c, 0))
 
     def ev_demand(ptr):
         p = ptr.clamp(max=E - 1)
@@ -565,8 +744,8 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
         """Each lane's masked argmin over ``scores`` on its current
         capacity: (best node, whether it is feasible)."""
         masked = torch.where((cap >= d[:, None]) & healthy, scores, inf)
-        best = torch.argmin(masked, dim=1)
-        return best, torch.isfinite(masked.gather(1, best[:, None])[:, 0])
+        best, m = ax.argmin(masked)
+        return best, torch.isfinite(m)
 
     if engine == "full":
         # the O(L·N) oracle: every live arrival is one batched rescore
@@ -577,15 +756,15 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
             live = (e < n_ev) & (d > 0)
             best, ok = land(_ctx_scores(cap, ctx, weights), d)
             ok = live & ok
-            cap.scatter_add_(1, best[:, None],
-                             torch.where(ok, -d, 0).to(torch.int32)[:, None])
+            ax.add_at(cap, best[:, None],
+                      torch.where(ok, -d, 0).to(torch.int32)[:, None])
             out[:, e] = torch.where(ok, best, out[:, e])
             sweeps += live.to(torch.int64)
         return out, cap, sweeps
 
     sweep_topk = _batched_sweep(fleet, ctx, weights, horizon_h, use_kernel,
                                 k_cand)
-    slcap = cap.gather(1, torch.full((L, K), N - 1, device=dev))
+    slcap = ax.take(cap, torch.full((L, K), N - 1, device=dev))
     sl_s = torch.full((L, K), torch.inf, device=dev)
     sl_i = torch.full((L, K), N, dtype=torch.int64, device=dev)
     bound_s = torch.full((L,), torch.inf, device=dev)
@@ -598,7 +777,7 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
     seg = torch.arange(E, device=dev)[None, :]
 
     while syncs.any((ptr < n_ev) | need):
-        slh = healthy.gather(1, sl_i.clamp(max=N - 1))
+        slh = ax.take(healthy, sl_i.clamp(max=N - 1))
         # ---- inner walk: O(K) per lane per event, stalls on a sweep ----
         while syncs.any((ptr < n_ev) & ~need):
             act = (ptr < n_ev) & ~need
@@ -616,7 +795,7 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
             place_sl = is_arr & use_sl
             stall = is_arr & ~use_sl & ~dead
             cap_b = slcap.gather(1, kbest[:, None])[:, 0] - d
-            new_s = _one_score_b(cap_b, bnode, ctx, weights)
+            new_s = ax.rescore(cap_b, bnode, ctx, weights)
             hit = place_sl[:, None] & (karange[None, :] == kbest[:, None])
             sl_s = torch.where(hit, new_s[:, None], sl_s)
             slcap = torch.where(hit, slcap - d[:, None].to(slcap.dtype),
@@ -627,16 +806,16 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
         # the walk's placements (events [ptr0, ptr) that landed) reach the
         # full capacity as one scatter-add
         newly = (seg >= ptr0[:, None]) & (seg < ptr[:, None]) & (out >= 0)
-        cap.scatter_add_(1, out.clamp(0, N - 1),
-                         torch.where(newly, -demands, 0).to(torch.int32))
+        ax.add_at(cap, out.clamp(0, N - 1),
+                  torch.where(newly, -demands, 0).to(torch.int32))
         # ---- round boundary: one sweep for every lane, applied where a
         # lane stalled (at that lane's current capacity) -----------------
         scores, cand_s, cand_i = sweep_topk(cap)
+        cand_s, cand_i = ax.merge(cand_s, cand_i.to(torch.int64), k_cand)
         p, d = ev_demand(ptr)
         best, ok = land(scores, d)
-        cap_b = cap.gather(1, best[:, None])[:, 0] - d
-        new_s = _one_score_b(cap_b, best, ctx, weights)
-        cand_i = cand_i.to(torch.int64)
+        cap_b = ax.take(cap, best[:, None])[:, 0] - d
+        new_s = ax.rescore(cap_b, best, ctx, weights)
         sl_s2, sl_i2 = cand_s[:, :K], cand_i[:, :K]
         if full_cover:
             bound_s2 = torch.full((L,), torch.inf, device=dev)
@@ -648,9 +827,9 @@ def place_lifecycle_batched(fleet: Fleet, demands: torch.Tensor,
         cm2 = hmax(cap)                  # pre-placement, as in land_from
         out[lanes, p] = torch.where(need, torch.where(ok, best, -1),
                                     out[lanes, p])
-        cap.scatter_add_(1, best[:, None], torch.where(
+        ax.add_at(cap, best[:, None], torch.where(
             need & ok, -d, 0).to(torch.int32)[:, None])
-        slcap2 = cap.gather(1, sl_i2)
+        slcap2 = ax.take(cap, sl_i2)
         col = need[:, None]
         slcap = torch.where(col, slcap2, slcap)
         sl_s = torch.where(col, sl_s2, sl_s)

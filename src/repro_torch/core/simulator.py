@@ -48,9 +48,10 @@ epoch for all lanes (the scan is its one-lane case), and
 and counters match the host loop exactly, emissions to f32 tolerance.
 
 ``shard=True`` splits the ensemble's lanes over the ranks of the default
-process group (one process per rank).  Not ported yet (raises
-``NotImplementedError``): ``shard="en"``'s node split over more than one
-rank (ROADMAP Queue 1 slice (C)).
+process group (one process per rank); ``shard="en"`` factors the ranks
+into the reference's ``("e", "n")`` ensemble mesh and splits each lane
+group's node buffers, its (L, N) carries and its placement engine over
+its n-axis ranks by nodes (``placement.NodeSplit``).
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ from repro_torch.core.energy import DEFAULT_ENERGY, EnergyModel
 from repro_torch.core.faults import (FaultConfig, FaultPlan, fault_graph_key,
                                      plan_faults)
 from repro_torch.core.fleet import Fleet, fleet_tensors
-from repro_torch.core.placement import (HostSyncs, place_lifecycle_batched,
+from repro_torch.core.placement import (HostSyncs, WholeAxis,
+                                        place_lifecycle_batched,
                                         place_lifecycle_full_rerank,
                                         place_lifecycle_shortlist)
 from repro_torch.core.policy import Policy, PolicyConfig
@@ -1239,7 +1241,8 @@ def _lane_energy(arrs, l: int) -> EnergyModel:
         w_marginal=arrs["en_wmarg"][l], dyn_frac=arrs["en_dyn"][l])
 
 
-def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
+def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs,
+                split=None):
     """The whole trajectory of L stacked lanes: a Python loop over epochs,
     each ``epoch_pre`` (releases, evictions + migration policy, the
     compacted arrival stream) -> the batched placement engine ->
@@ -1258,11 +1261,26 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
     the best feasible rate per chip demand runs a cummax of free capacity
     along each region's static pue order plus a searchsorted.  Decisions
     read the observed CI (``traces``); emissions and migration cost read
-    the true CI (``traces_true`` under faults, the same tensor without)."""
+    the true CI (``traces_true`` under faults, the same tensor without).
+
+    ``split``: a ``placement.NodeSplit``: ``arrs``' node-axis buffers
+    (``_NODE_AXIS_KEYS``, ``f_elig``, the migration's pue order) are
+    this rank's slices (``_node_shard``), and so are the (L, n) carries
+    (capacity, job counts), from epoch to epoch and through the placement
+    engine (K4 with ``use_kernel`` on this rank's nodes).  Node ids stay
+    global: a value at a node id is the owner's (``take``), a scatter
+    into a node buffer is applied by the owner (``local_ids``), the
+    least current rate and each region's best feasible pue per chip
+    demand are min all-reduces, and the epoch's emissions sum the
+    gathered (L, N) node values in the one-process order, so every lane
+    is the one-process lane bit for bit.  The final capacity and job
+    counts come back whole."""
     (engine, shortlist, use_kernel, weights, horizon_h, history_h,
      use_forecast, defer_window) = statics
     T, S = dims.epochs, dims.slots
-    L, N = arrs["capacity"].shape
+    ax = WholeAxis() if split is None else split
+    L, n_loc = arrs["capacity"].shape
+    N = ax.n_total(n_loc)
     dev = arrs["capacity"].device
     budget = min(dims.budget, S)    # can't migrate more than can be active
     m_evict, d_cap, a_max = dims.m_evict, dims.d_cap, dims.a_max
@@ -1298,6 +1316,15 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         return torch.where(hit, g.to(torch.float64)[:, :, None],
                            0.0).sum(1)
 
+    def take(x, idx, valid, fill):
+        """``_take`` of a node buffer at global node ids."""
+        return torch.where(valid, ax.take(x, idx.clamp(0, N - 1)), fill)
+
+    def scatter_nodes(buf, idx, src):
+        """``_scatter_drop(add=True)`` into a node buffer at global node
+        ids (N the drop sentinel), applied by the owner."""
+        return _scatter_drop(buf, ax.local_ids(idx), src, add=True)
+
     def epoch_pre(st, t):
         cap, njobs, slot_jid, slot_node, slot_end, defer_ids, mig_cost, \
             overflow = st[:8]
@@ -1322,14 +1349,14 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         rel_node = _take(slot_node, rel_idx, rel_valid, -1)
         rel_jid = _take(slot_jid, rel_idx, rel_valid, -1)
         rel_chips = _take(chips_d, rel_jid.clamp(min=0), rel_valid, 0)
-        njobs = _scatter_drop(njobs, torch.where(rel_valid, rel_node, N),
-                              -1, add=True)
+        njobs = scatter_nodes(njobs, torch.where(rel_valid, rel_node, N),
+                              -1)
         slot_jid = torch.where(rel_mask, -1, slot_jid)
         overflow = overflow + (completed_t - rel_cap).clamp(min=0)
 
         # ---- 2. forced evictions + migration policy ----------------------
         occupied = slot_jid >= 0
-        node_healthy = _take(healthy, slot_node, occupied, False)
+        node_healthy = take(healthy, slot_node, occupied, False)
         stay_mask = occupied & node_healthy
         seg_slot, seg_ok = [], []
         evictions_t = migrations_t = failed_t = torch.zeros(L, **i64)
@@ -1347,28 +1374,33 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             # best achievable CFP rate per chip demand: within a region the
             # first prefix (in pue order) whose free-capacity cummax covers
             # the demand holds the region's least feasible rate
+            # (on a node split each rank walks its own nodes' order, and
+            # the least pue of every (region, demand) is a min over ranks)
             perm, pue_sorted = arrs["mig_perm"], arrs["mig_pue"]
             nmax = perm.shape[2]
             flat = perm.reshape(L, -1)
-            capg = _take(torch.where(healthy, cap, -1), flat, flat < N,
+            capg = _take(torch.where(healthy, cap, -1), flat, flat < n_loc,
                          -1).reshape(perm.shape)
             cmax = torch.cummax(capg, dim=2).values.contiguous()
             idx = torch.searchsorted(
                 cmax, cr.expand(cmax.shape[:2] + cr.shape).contiguous())
             ok = idx < nmax
             pb = pue_sorted.gather(2, idx.clamp(0, nmax - 1))
+            if split is not None:
+                pb = ax.min_all(torch.where(ok, pb, inf))
+                ok = torch.isfinite(pb)
             best_ge = torch.where(ok, pb * ci_col_r[:, :, None],
                                   inf).amin(1)                   # (L, C+1)
             s_chips = _take(chips_d, slot_jid.clamp(min=0), stay_mask, 0)
             br = best_ge.gather(1, s_chips.clamp(0, chips_max))
-            rate_cur = _take(rate, slot_node, stay_mask, inf)
+            rate_cur = take(rate, slot_node, stay_mask, inf)
             remaining = (slot_end - t).clamp(min=0).to(torch.float32)
             chips_f = s_chips.to(torch.float32)
             la_kw = {}
             if planner:
                 la_node = arrs["la_ci"][:, t].gather(1, ridx) * pue
                 la_kw = dict(
-                    src_la=_take(la_node, slot_node, stay_mask, 0.0),
+                    src_la=take(la_node, slot_node, stay_mask, 0.0),
                     dst_la=arrs["la_dst"][:, t, None],
                     gw_min=arrs["gw_min"][:, t, None])
             gain = policylib.migration_gain(
@@ -1422,7 +1454,7 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             # mover's tenant
             mc_vec = torch.where(
                 mig_ok, arrs["en_ckpt"][:, None] * mchip.to(torch.float32)
-                * pue.gather(1, mnode) * ci_true.gather(1, mnode), 0.0)
+                * ax.take(pue, mnode) * ax.take(ci_true, mnode), 0.0)
             mig_cost_t = mc_vec.sum(1)
             if n_ten > 0:
                 mid.update(mc_vec=mc_vec,
@@ -1435,8 +1467,8 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             mov_jid = _take(slot_jid, mov_slot, mov_ok, -1)
             mov_old = _take(slot_node, mov_slot, mov_ok, -1)
             mov_chips = _take(chips_d, mov_jid.clamp(min=0), mov_ok, 0)
-            njobs = _scatter_drop(njobs, torch.where(mov_ok, mov_old, N),
-                                  -1, add=True)
+            njobs = scatter_nodes(njobs, torch.where(mov_ok, mov_old, N),
+                                  -1)
         else:
             mov_slot = mov_jid = mov_old = mov_chips = empty
             mov_ok = empty.to(torch.bool)
@@ -1444,10 +1476,10 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         # ---- 3. release credits, the compacted arrival stream -----------
         strag = arrs["straggler"] + dims.consolidate \
             * (njobs == 0).to(torch.float32)
-        cap_start = _scatter_drop(
-            cap, torch.where(rel_valid, rel_node, N), rel_chips, add=True)
-        cap_start = _scatter_drop(
-            cap_start, torch.where(mov_ok, mov_old, N), mov_chips, add=True)
+        cap_start = scatter_nodes(
+            cap, torch.where(rel_valid, rel_node, N), rel_chips)
+        cap_start = scatter_nodes(
+            cap_start, torch.where(mov_ok, mov_old, N), mov_chips)
         arr_row = arrs["arr_ids"][:, t]
         narr_jid = torch.cat([defer_ids, arr_row], 1) if has_defer \
             else arr_row
@@ -1464,7 +1496,7 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         else:
             ci_fc = ci_col
             fut_rate = torch.full((L,), inf, device=dev)
-        cur_rate = torch.where(healthy, ci_col * pue, inf).amin(1)
+        cur_rate = ax.amin(torch.where(healthy, ci_col * pue, inf))
         mid.update(cap_ctx=cap, ci_col=ci_col, ci_true=ci_true, ci_fc=ci_fc,
                    healthy=healthy, strag=strag, cap_start=cap_start,
                    dem=dem, n_ev=n_ev, ev_idx=ev_idx, fut_rate=fut_rate,
@@ -1498,8 +1530,8 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
                 add=False)
             slot_jid = _scatter_drop(
                 slot_jid, torch.where(mov_fail, mov_slot, S), -1, add=False)
-            njobs = _scatter_drop(njobs, torch.where(mov_win, mnode_new, N),
-                                  1, add=True)
+            njobs = scatter_nodes(njobs, torch.where(mov_win, mnode_new, N),
+                                  1)
             placed_t = placed_t + mov_win.sum(1)
             dropped_t = dropped_t + mov_fail.sum(1)
             ys_mov_node = torch.where(mov_win, mnode_new, -1)
@@ -1537,8 +1569,8 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
                 torch.zeros((L, n_narr), dtype=torch.bool, device=dev),
                 torch.where(sel_ok, sel_idx, n_narr), True, add=False)
             takeback = defer_again & (nnode >= 0)
-            cap2 = _scatter_drop(cap2, torch.where(takeback, nnode, N),
-                                 narr_chips, add=True)
+            cap2 = scatter_nodes(cap2, torch.where(takeback, nnode, N),
+                                 narr_chips)
             deferred_t = defer_again.sum(1)
             # the queue carries in priority order (overflow places this
             # epoch: no overflow accounting by design)
@@ -1552,8 +1584,8 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             defer_again = takeback | (can_defer & (nnode < 0))
             # taken-back placements release their chips again (the host
             # loop's pure-release redo call == a scatter)
-            cap2 = _scatter_drop(cap2, torch.where(takeback, nnode, N),
-                                 narr_chips, add=True)
+            cap2 = scatter_nodes(cap2, torch.where(takeback, nnode, N),
+                                 narr_chips)
             deferred_t = defer_again.sum(1)
             didx = _nonzero_sized(defer_again, d_cap, n_narr)
             defer_ids = _take(narr_jid, didx, didx < n_narr, -1)
@@ -1585,21 +1617,20 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
         slot_end = _scatter_drop(slot_end, tgt_slot,
                                  t + arrs["duration"].gather(1, jsafe),
                                  add=False)
-        njobs = _scatter_drop(njobs, torch.where(place_new, nnode, N), 1,
-                              add=True)
+        njobs = scatter_nodes(njobs, torch.where(place_new, nnode, N), 1)
         placed_t = placed_t + place_new.sum(1)
         dropped_t = dropped_t + drop_new.sum(1)
 
         # ---- 5. emission accounting (f32 on the device, at the TRUE CI) --
         on = (njobs > 0) if dims.power_off_idle \
-            else torch.ones((L, N), dtype=torch.bool, device=dev)
+            else torch.ones((L, n_loc), dtype=torch.bool, device=dev)
         occ = 1.0 - cap2.to(torch.float32) \
             / arrs["chips_total"].to(torch.float32).clamp(min=1.0)
         energy = arrs["power_kw"] * (arrs["en_idle"][:, None]
                                      + arrs["en_dyn"][:, None] * occ) * on
         node_g = energy * pue * mid["ci_true"] \
             + arrs["en_embodied"][:, None] * on
-        e_t = node_g.sum(1)
+        e_t = ax.whole(node_g).sum(1)
         ys = {}
         if n_ten > 0:
             # attribution from the post-update slot table: each on-node's
@@ -1609,12 +1640,12 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             s_jid = slot_jid.clamp(min=0)
             s_chips = torch.where(occ3, chips_d.gather(1, s_jid),
                                   0).to(torch.float32)
-            occ_chips = _scatter_drop(
-                torch.zeros((L, N), dtype=torch.float32, device=dev),
-                torch.where(occ3, slot_node, N), s_chips, add=True)
+            occ_chips = scatter_nodes(
+                torch.zeros((L, n_loc), dtype=torch.float32, device=dev),
+                torch.where(occ3, slot_node, N), s_chips)
             share = node_g / occ_chips.clamp(min=1.0)
             contrib = torch.where(
-                occ3, share.gather(1, slot_node.clamp(0, N - 1)) * s_chips,
+                occ3, ax.take(share, slot_node.clamp(0, N - 1)) * s_chips,
                 0.0)
             ten_t = tenant_sum(torch.where(
                 occ3, arrs["tenant"].gather(1, s_jid), n_ten), contrib)
@@ -1638,15 +1669,15 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             cap_l = torch.where(occ_r, arrs["lam_cap"].gather(
                 1, chips_l.clamp(0, chips_max)), 0)
             node_l = slot_node.clamp(0, N - 1)
-            pue_l = pue.gather(1, node_l)
-            carbon_l = pue_l * mid["ci_col"].gather(1, node_l)
+            pue_l = ax.take(pue, node_l)
+            carbon_l = pue_l * ax.take(mid["ci_col"], node_l)
             routed, offered = routerlib.route_epoch_batched(
                 req_t=arrs["tr_req"][:, t], svc=svc_l, jid=slot_jid,
                 weight=w_l, cap=cap_l, carbon=carbon_l, n_svc=n_svc,
                 greenness=arrs["greenness"])
             g_lane = routed.to(torch.float32) * (
                 arrs["en_reqkwh"][:, None]
-                * (pue_l * mid["ci_true"].gather(1, node_l)))
+                * (pue_l * ax.take(mid["ci_true"], node_l)))
             p99_l = routerlib.modeled_p99(torch, routed, chips_l, chips_max,
                                           arrs["tr_mu"][:, None])
             # the float sums in float64: no atomics, and each device's
@@ -1680,7 +1711,7 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
                   ov_t=overflow)
         return carry, ys
 
-    st = (arrs["capacity"], torch.zeros((L, N), **i64),
+    st = (arrs["capacity"], torch.zeros((L, n_loc), **i64),
           torch.full((L, S), -1, **i64), torch.zeros((L, S), **i64),
           torch.zeros((L, S), **i64), torch.full((L, d_cap), -1, **i64),
           torch.zeros(L, dtype=torch.float32, device=dev),
@@ -1701,9 +1732,10 @@ def _trajectory(arrs, statics, dims: _Dims, syncs: HostSyncs):
             fleet, mid["dem"], weights, horizon_h=1.0, engine=engine,
             shortlist=shortlist, use_kernel=use_kernel,
             capacity=mid["cap_start"], n_events=mid["n_ev"],
-            energy=energies, syncs=syncs)
+            energy=energies, syncs=syncs, split=split)
         st, ys = epoch_post(mid, t, out_c, cap2, n_sw)
         ys_all.append(ys)
+    st = (ax.whole(st[0]), ax.whole(st[1])) + tuple(st[2:])
     carry = [c.cpu().numpy() for c in st]
     ys = {k: torch.stack([y[k] for y in ys_all], dim=1).cpu().numpy()
           for k in ys_all[0]}
@@ -1811,12 +1843,15 @@ def _lane_split(n_lanes: int) -> Tuple[int, int]:
     return nd, (dist.get_rank() if nd > 1 else 0)
 
 
-def _run_bucket(members, pad_plan: bool, shard: bool = False) -> list:
+def _run_bucket(members, pad_plan: bool, shard=False) -> list:
     """One bucket of prepared runs as ONE batched trajectory; results in
     member order.  ``shard``: this rank runs its contiguous block of the
     lanes, at the buffer sizes of the whole bucket, and every rank gets
-    every lane's result (``all_gather_object``)."""
+    every lane's result (``all_gather_object``); ``"en"`` splits them as
+    ``_run_bucket_en`` does."""
     dims, jp, nmax = _shared_dims(members, pad_plan)
+    if shard == "en" and _world_size() > 1:
+        return _run_bucket_en(members, dims, jp, nmax)
     nd, rank = _lane_split(len(members)) if shard else (1, 0)
     if nd > 1:
         per = len(members) // nd
@@ -1828,14 +1863,74 @@ def _run_bucket(members, pad_plan: bool, shard: bool = False) -> list:
     return _run_lanes(members, dims, jp, nmax)
 
 
-def _run_lanes(members, dims: _Dims, jp: int, nmax: int) -> list:
-    """Lanes at the given shared buffer sizes as ONE batched trajectory."""
+def _run_bucket_en(members, dims: _Dims, jp: int, nmax: int) -> list:
+    """The bucket over the ``("e", "n")`` ensemble mesh of the world
+    (``sharding.ensemble_mesh``: e the largest divisor of the lane count
+    that fits, n the largest divisor of the node count from what is
+    left).  The ranks of one e-row run one contiguous block of lanes,
+    each holding its node shard of the lanes' buffers and carries
+    (``_trajectory``'s ``split``); ranks past
+    e·n stay idle.  Every rank gets every lane's result
+    (``all_gather_object``), from the first rank of each row."""
+    from repro_torch.core.placement import NodeSplit
+    from repro_torch.distributed.sharding import ensemble_mesh
+    n_nodes = int(members[0].fleet0.capacity.shape[0])
+    dev = members[0].fleet0.capacity.device
+    mesh = ensemble_mesh(len(members), n_nodes, device_type=dev.type)
+    ne, nn = mesh.shape
+    rank = dist.get_rank()
+    mine = []
+    if rank < ne * nn:
+        e, per = rank // nn, len(members) // ne
+        split = NodeSplit(mesh.get_group("n"), n_nodes) if nn > 1 else None
+        mine = _run_lanes(members[e * per:(e + 1) * per], dims, jp, nmax,
+                          split)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, mine if rank % nn == 0 else [])
+    return [r for part in parts[:ne * nn:nn] for r in part]
+
+
+# the stacked buffers that carry the node axis in dim 1 (the reference's
+# names): a node split keeps this rank's slice of each
+_NODE_AXIS_KEYS = ("capacity", "pue", "power_kw", "chips_total",
+                   "flops_per_j", "straggler", "healthy", "ridx")
+
+
+def _node_shard(stacked, split):
+    """``stacked``'s node-axis buffers cut to ``split``'s slice: those of
+    ``_NODE_AXIS_KEYS``, the fault eligibility (L, T, N), and the
+    migration's per-region pue order, kept in order for this rank's
+    nodes as its own positions (pads n, pue +inf)."""
+    out = dict(stacked)
+    for k in _NODE_AXIS_KEYS:
+        out[k] = split.local(stacked[k]).contiguous()
+    if "f_elig" in stacked:
+        out["f_elig"] = stacked["f_elig"][
+            :, :, split.off:split.off + split.n].contiguous()
+    perm, pue = stacked["mig_perm"], stacked["mig_pue"]
+    mine = (perm >= split.off) & (perm < split.off + split.n)
+    order = torch.sort((~mine).to(torch.int8), dim=2, stable=True).indices
+    mine = mine.gather(2, order)
+    out["mig_perm"] = torch.where(mine, perm.gather(2, order) - split.off,
+                                  split.n)
+    out["mig_pue"] = torch.where(mine, pue.gather(2, order), torch.inf)
+    return out
+
+
+def _run_lanes(members, dims: _Dims, jp: int, nmax: int,
+               split=None) -> list:
+    """Lanes at the given shared buffer sizes as ONE batched trajectory
+    (``split`` as in ``_trajectory``: this rank keeps its node shard of
+    the buffers, each built whole and cut at once)."""
     cache: dict = {}
     built = [_build_arrs(m, dims, jp, nmax, cache) for m in members]
     stacked = {k: torch.stack([b[k] for b in built]) for k in built[0]}
     del built
+    if split is not None:
+        stacked = _node_shard(stacked, split)
     syncs = HostSyncs()
-    carry, ys = _trajectory(stacked, members[0].statics, dims, syncs)
+    carry, ys = _trajectory(stacked, members[0].statics, dims, syncs,
+                            split)
     return [_scan_result(m, [c[l] for c in carry],
                          {k: v[l] for k, v in ys.items()}, syncs.n)
             for l, m in enumerate(members)]
@@ -1893,9 +1988,12 @@ def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
     of lanes at the whole bucket's buffer sizes.  Every rank calls with
     the same ``runs`` and gets the whole result list in input order.
     Without a process group, or in a world of one, it is the unsharded
-    program, as the reference's one-device mesh is.  ``"en"`` (lanes,
-    then the fleet's node axis) over more than one rank is not ported
-    (ROADMAP Queue 1 slice (C))."""
+    program, as the reference's one-device mesh is.  ``"en"`` splits the
+    lanes, then the fleet's node axis: each rank of a lane block's n-axis
+    group runs the placement engine on its slice of the nodes (the rank
+    kernel K4 on that slice with ``use_kernel``), with the reductions
+    over nodes as the group's collectives, the same results on each; the
+    lanes equal the unsharded program's bit for bit."""
     _check_shard(shard)
     preps = [_prepare_scan_run(spec[0], spec[1], spec[2], spec[3],
                                spec[4] if len(spec) > 4 else None, pad_plan)
@@ -1906,20 +2004,16 @@ def simulate_fleet_ensemble(runs, *, pad_plan: bool = True,
     results: list = [None] * len(preps)
     for idxs in buckets.values():
         for i, r in zip(idxs, _run_bucket([preps[i] for i in idxs],
-                                          pad_plan, bool(shard))):
+                                          pad_plan, shard)):
             results[i] = r
     return results
 
 
 def _check_shard(shard) -> None:
-    """Validate ``shard``: ``"en"``'s node split over more than one rank
-    is not ported; every other form runs (the unsharded program in a
-    world of one)."""
-    if shard == "en" and _world_size() > 1:
-        raise NotImplementedError(
-            "shard='en' over more than one rank — the ('e', 'n') mesh's "
-            "node split, with its cross-shard top-k merge — is not ported "
-            "to repro_torch yet (ROADMAP Queue 1 slice (C))")
+    """Validate ``shard``: False, True, ``"e"`` or ``"en"``."""
+    if shard not in (False, True, "e", "en"):
+        raise ValueError(f"shard must be False, True, 'e' or 'en', got "
+                         f"{shard!r}")
 
 
 # ---------------------------------------------------------------------------

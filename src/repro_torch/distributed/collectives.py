@@ -10,7 +10,10 @@ host memory itself).  ``CollectiveMode`` is a dispatch mode that sees
 every collective issued inside it:
 
 - it counts the calls and the payload bytes (each call's input tensors)
-  by op name, functional and eager alike (``CollectiveLog``);
+  by op name, functional and eager alike, and each call's result bytes
+  by the reference's kind and weight (``roofline.collective_bytes``: an
+  all-reduce 2×, an all-gather, reduce-scatter or all-to-all 1×), the
+  per-device collective bytes of the roofline (``CollectiveLog``);
 - ``gloo_cuda_collective`` runs a functional collective as the eager
   c10d call with the same semantics, when and only when its group's
   backend is gloo and its tensor is on CUDA (``"avg"`` as a sum and a
@@ -37,16 +40,49 @@ from torch.utils._python_dispatch import TorchDispatchMode
 @dataclasses.dataclass
 class CollectiveLog:
     """Calls and payload bytes by op name; ``eager_bytes`` for the
-    functional collectives run by ``gloo_cuda_collective``."""
+    functional collectives run by ``gloo_cuda_collective``; ``per_kind``
+    the weighted result bytes by the reference's kind."""
     calls: Dict[str, int] = dataclasses.field(
         default_factory=collections.Counter)
     bytes: Dict[str, int] = dataclasses.field(
         default_factory=collections.Counter)
     eager_bytes: int = 0
+    per_kind: Dict[str, float] = dataclasses.field(
+        default_factory=collections.Counter)
 
     @property
     def total_bytes(self) -> int:
         return sum(self.bytes.values())
+
+    @property
+    def weighted_bytes(self) -> float:
+        """The reference's ``collective_bytes``: per-device result bytes,
+        an all-reduce counted twice."""
+        return sum(self.per_kind.values())
+
+
+# op name (functional, eager c10d, DTensor's own) -> the reference's HLO
+# kind; its weight is roofline's (all-reduce 2x: a ring's reduce-scatter
+# and all-gather phases)
+_KIND = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "allreduce_": "all-reduce",
+    "allreduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather", "gather_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "alltoall_": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast", "reduce_": "reduce",
+    "scatter_": "scatter",
+}
+_WEIGHT = {"all-reduce": 2.0}
 
 
 # the input position of each c10d (eager) op's payload
@@ -146,6 +182,29 @@ _GROUP_ARG = {"all_gather_into_tensor": 2, "reduce_scatter_tensor": 3,
               "all_reduce_coalesced": 2}
 
 
+def collective_name(func) -> Optional[str]:
+    """The op name of a collective this module counts (functional, eager
+    c10d, DTensor's all-to-all), else None."""
+    ns, name = func.namespace, func._schema.name.split("::")[-1]
+    if ((ns in _FUNCTIONAL and name in _GROUP_ARG)
+            or (ns == "_dtensor" and name == "shard_dim_alltoall")
+            or (ns == "c10d" and name in _C10D_INPUT)):
+        return name
+    return None
+
+
+def record(log: CollectiveLog, func, args, out) -> None:
+    """Bill collective ``func``'s call, payload and weighted result bytes
+    to ``log`` (an eager c10d op's result is its first argument)."""
+    name = collective_name(func)
+    eager = func.namespace == "c10d"
+    log.calls[name] += 1
+    log.bytes[name] += _nbytes(args[_C10D_INPUT[name]] if eager else args[0])
+    kind = _KIND[name]
+    log.per_kind[kind] += (_nbytes(args[0] if eager else out)
+                           * _WEIGHT.get(kind, 1.0))
+
+
 class CollectiveMode(TorchDispatchMode):
     """Counts the collectives issued inside it into ``log`` and runs the
     functional ones on CUDA tensors of gloo groups eagerly."""
@@ -162,24 +221,22 @@ class CollectiveMode(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         ns, name = func.namespace, func._schema.name.split("::")[-1]
-        if ns in _FUNCTIONAL and name in _GROUP_ARG:
-            b = _nbytes(args[0])
-            self.log.calls[name] += 1
-            self.log.bytes[name] += b
+        if collective_name(func) is not None:
             t = _first_tensor(args[0])
-            if (t is not None and t.is_cuda
+            if (ns in _FUNCTIONAL and t is not None and t.is_cuda
                     and _is_gloo(_group(args[_GROUP_ARG[name]]))):
-                self.log.eager_bytes += b
-                return gloo_cuda_collective(name, args)
-        elif (ns in _FUNCTIONAL and name not in _PASS
-              and any(isinstance(a, torch.Tensor) and a.is_cuda
-                      for a in args) and _is_gloo(None)):
+                self.log.eager_bytes += _nbytes(args[0])
+                out = gloo_cuda_collective(name, args)
+            else:
+                out = func(*args, **kwargs)
+            record(self.log, func, args, out)
+            return out
+        if (ns in _FUNCTIONAL and name not in _PASS
+                and any(isinstance(a, torch.Tensor) and a.is_cuda
+                        for a in args) and _is_gloo(None)):
             # never hand gloo a functional collective on CUDA tensors
             raise NotImplementedError(
                 f"{ns}.{name} on CUDA tensors over gloo has no eager form")
-        elif ns == "c10d" and name in _C10D_INPUT:
-            self.log.calls[name] += 1
-            self.log.bytes[name] += _nbytes(args[_C10D_INPUT[name]])
         return func(*args, **kwargs)
 
 

@@ -22,8 +22,12 @@
 // kt + 1 loads while tile kt computes, one barrier per tile.  The tiles
 // use XOR-swizzled layouts, so the operand loads are free of bank
 // conflicts.  Ragged S is masked (rows and keys past S read as 0 and are
-// never written or counted); hd <= 128 (64 and 128 instantiations, the
-// dims past hd padded with 0).  The 16-byte copies need 16-byte aligned
+// never written or counted); hd <= 192 (64, 128 and 192 instantiations,
+// the dims past hd padded with 0; 192 is nemotron-4-340b's head dim, as
+// the TPU kernel, whose BlockSpecs carry hd whole, takes any).  At hd 192
+// the bf16 kernel's tiles take 120 KiB of shared memory (one block an
+// SM) and its 24 accumulator tiles 96 f32 registers a thread beside 48
+// for the q fragments; the f32 kernel keeps one kv stage (below).  The 16-byte copies need 16-byte aligned
 // rows (hd % 8 == 0 in bf16, hd % 4 == 0 in f32) and aligned tensors;
 // otherwise the launcher passes vec = 0 and the same kernel stages element
 // by element.  A row with no live key keeps a running max of -inf
@@ -412,10 +416,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
 constexpr int FMA_RT = 4;  // q rows per thread; a row group is 8 lanes
 
-template <int HD>
+template <int HD, int STAGES>
 constexpr size_t fma_smem_bytes() {
-  // the q tile, then two stages of K and of V
-  return sizeof(float) * HD * (BQ + 4 * BK);
+  // the q tile, then STAGES stages of K and of V
+  return sizeof(float) * HD * (BQ + 2 * STAGES * BK);
 }
 
 // Float offset of (row, 4-float chunk) in a tile of HD f32 columns: the
@@ -471,7 +475,12 @@ __device__ __forceinline__ void load_tile_f32(float* dst,
 // cg + 8 u; the probabilities of key 8 c + j come from lane c of the group
 // by shuffle (4 shuffles per 4 x 4 HD / 32 FMAs), summed over the keys in
 // order.
-template <int HD>
+//
+// STAGES is 2 (the next kv tile's cp.async in flight under this tile's
+// math) where two stages fit a block's 227 KB of shared memory, and 1 at
+// hd 192 (two stages would take 240 KB): there the next tile is loaded
+// once every warp is done with this one.
+template <int HD, int STAGES>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -481,8 +490,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
   constexpr int DC = HD / 32;  // output chunks per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);  // BQ x HD
-  float* k_s = q_s + BQ * HD;                       // 2 stages of BK x HD
-  float* v_s = k_s + 2 * BK * HD;                   // 2 stages of BK x HD
+  float* k_s = q_s + BQ * HD;                  // STAGES stages of BK x HD
+  float* v_s = k_s + STAGES * BK * HD;         // STAGES stages of BK x HD
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int rg = tid >> 3, cg = tid & 7;
@@ -517,16 +526,24 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int st = (kt - kt_lo) & 1;
+    const int st = STAGES == 2 ? (kt - kt_lo) & 1 : 0;
+    if (STAGES == 1 && kt > kt_lo) {
+      __syncthreads();  // every warp is done with tile kt - 1
+      load_tile_f32<HD>(k_s, kh, kt * BK, S, hd, vec);
+      load_tile_f32<HD>(v_s, vh, kt * BK, S, hd, vec);
+      cp_async_commit();
+    }
     cp_async_wait_all();
     __syncthreads();  // tile kt landed; tile kt - 1's stage is free
-    if (kt < kt_hi) {
-      load_tile_f32<HD>(k_s + (st ^ 1) * BK * HD, kh, (kt + 1) * BK, S, hd,
-                        vec);
-      load_tile_f32<HD>(v_s + (st ^ 1) * BK * HD, vh, (kt + 1) * BK, S, hd,
-                        vec);
+    if (STAGES == 2) {
+      if (kt < kt_hi) {
+        load_tile_f32<HD>(k_s + (st ^ 1) * BK * HD, kh, (kt + 1) * BK, S,
+                          hd, vec);
+        load_tile_f32<HD>(v_s + (st ^ 1) * BK * HD, vh, (kt + 1) * BK, S,
+                          hd, vec);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
     const int c0 = kt * BK;
     // a tile with no live key for any of this warp's rows: nothing to do
     if (w0 >= S || c0 > w0 + 15 ||
@@ -665,17 +682,17 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int STAGES>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
                int H, int K, int S, int hd, int window, float scale, int vec,
                cudaStream_t stream) {
-  constexpr size_t smem = fma_smem_bytes<HD>();
+  constexpr size_t smem = fma_smem_bytes<HD, STAGES>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fma_kernel<HD, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (S + BQ - 1) / BQ);
-  flash_fma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
+  flash_fma_kernel<HD, STAGES><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, H / K, S, hd,
       window, scale, vec);
@@ -693,18 +710,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int B, int H, int K, int S, int hd,
                                       int window, float scale, int vec,
                                       void* stream) {
-  if (B < 1 || K < 1 || H % K || S < 1 || hd < 1 || hd > 128 ||
+  if (B < 1 || K < 1 || H % K || S < 1 || hd < 1 || hd > 192 ||
       H > 65535 || B > 65535 || (dtype != 0 && dtype != 1) ||
       (vec && hd % (dtype == 1 ? 8 : 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return hd <= 64 ? launch_fma<64>(q, k, v, o, B, H, K, S, hd, window,
-                                     scale, vec, st)
-                    : launch_fma<128>(q, k, v, o, B, H, K, S, hd, window,
-                                      scale, vec, st);
-  return hd <= 64 ? launch_mma<64>(q, k, v, o, B, H, K, S, hd, window, scale,
-                                   vec, st)
-                  : launch_mma<128>(q, k, v, o, B, H, K, S, hd, window,
-                                    scale, vec, st);
+  if (dtype == 0) {
+    if (hd <= 64)
+      return launch_fma<64, 2>(q, k, v, o, B, H, K, S, hd, window, scale,
+                               vec, st);
+    if (hd <= 128)
+      return launch_fma<128, 2>(q, k, v, o, B, H, K, S, hd, window, scale,
+                                vec, st);
+    return launch_fma<192, 1>(q, k, v, o, B, H, K, S, hd, window, scale, vec,
+                              st);
+  }
+  if (hd <= 64)
+    return launch_mma<64>(q, k, v, o, B, H, K, S, hd, window, scale, vec,
+                          st);
+  if (hd <= 128)
+    return launch_mma<128>(q, k, v, o, B, H, K, S, hd, window, scale, vec,
+                           st);
+  return launch_mma<192>(q, k, v, o, B, H, K, S, hd, window, scale, vec, st);
 }

@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -67,13 +67,13 @@ def variant(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     its rows are 16-byte multiples (``hd % 8 == 0`` in bf16, ``hd % 4 ==
     0`` in f32) and every tensor is 16-byte aligned (``aligned``), else the
     same kernel staging element by element (``-elementwise``).  HD is the
-    instantiated head dim (64 or 128) that hd is padded to.  Raises for a
-    dtype or head dim no kernel takes."""
+    instantiated head dim (64, 128 or 192) that hd is padded to.  Raises
+    for a dtype or head dim no kernel takes."""
     if dtype not in _DTYPES:
         raise ValueError(f"flash_attention takes f32 or bf16, not {dtype}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} is not in [1, {MAX_HEAD_DIM}]")
-    HD = 64 if hd <= 64 else 128
+    HD = 64 if hd <= 64 else 128 if hd <= 128 else 192
     f32 = dtype == torch.float32
     vec = hd % (4 if f32 else 8) == 0 and aligned
     return (f"f32-fma-{HD}" if f32 else f"bf16-mma-{HD}") + (

@@ -6,6 +6,9 @@
 here has 256 ranks.  ``make_host_mesh`` builds a ``DeviceMesh`` over the
 ranks of the default process group (one process and one device per
 rank), dropping a size-1 ``pod`` axis as the reference does.
+``make_fake_mesh`` builds a production mesh in one process, over a world
+of the ``"fake"`` backend (the dry run's mesh: DTensor plans and issues
+every collective, and none moves data).
 
 The TPU v5e constants (``PEAK_FLOPS_BF16``, ``HBM_BW``, ``ICI_BW``,
 ``CHIPS_PER_POD``) are the reference's, kept as the parity default of
@@ -30,6 +33,54 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     if multi_pod:
         return MeshShape(("pod", "data", "model"), (2, 16, 16))
     return MeshShape(("data", "model"), (16, 16))
+
+
+def make_fake_mesh(shape: MeshShape):
+    """A ``DeviceMesh`` of ``shape`` in this process, over the first
+    ``shape.size`` ranks of a ``"fake"``-backend world (this process is
+    rank 0; the world is made, of ``shape.size`` ranks, when no process
+    group is up).  Its device type is ``meta``: its tensors are meta
+    DTensors, and DTensor issues a true all-to-all on it where a CPU mesh
+    would fall back to an all-gather.  ``close_fake_world`` ends the
+    world."""
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=shape.size)
+    elif dist.get_backend() != "fake" or dist.get_world_size() < shape.size:
+        raise ValueError(f"a fake {shape} mesh needs a fake world of "
+                         f"{shape.size} ranks; the process group is "
+                         f"{dist.get_backend()} of {dist.get_world_size()}")
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh("meta", torch.arange(shape.size).reshape(shape.sizes),
+                      mesh_dim_names=shape.names)
+    _topology(mesh)
+    if "pod" in shape.names and len(shape.names) > 1:
+        _topology(mesh[tuple(n for n in shape.names if n != "pod")])
+    return mesh
+
+
+# cards per host of the fake mesh, for DTensor's redistribute cost model
+# (an H100 host holds 8)
+CARDS_PER_HOST = 8
+
+
+def _topology(mesh) -> None:
+    """Fill DTensor's cached topology of ``mesh`` (its redistribute cost
+    model asks the mesh's device module for the cards per host, and the
+    meta device has none)."""
+    from unittest import mock
+    from torch.distributed.device_mesh import _mesh_resources
+    from torch.distributed.tensor._collective_utils import MeshTopoInfo
+    with mock.patch.object(type(_mesh_resources), "num_devices_per_host",
+                           staticmethod(lambda device_type: CARDS_PER_HOST)):
+        MeshTopoInfo.build_from_mesh(mesh)
+
+
+def close_fake_world() -> None:
+    """End the fake world ``make_fake_mesh`` made (a no-op otherwise)."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        dist.destroy_process_group()
 
 
 def host_mesh_shape(data: int = 1, model: int = 1,

@@ -10,7 +10,7 @@ the port's ``ModelFlags`` (the reference's fields plus ``use_kernel``, on).
 
 On one device ``rules`` and ``constrain_acts`` change nothing (every rule
 resolves to replication), and ``grad_sync`` applies only across pods
-(``--multi-pod``, ROADMAP Queue 1 item 1(b), slice (C)).
+(the dry run's ``--multi-pod`` mesh).
 """
 from __future__ import annotations
 

@@ -23,7 +23,14 @@ any device (the card, the CPU, or ``meta`` for a dry run), with
   caches) bills its bytes once per step, at first use; a kernel's custom
   op bills its formula's bytes (each input read once, each output written
   once).
-- Collectives: none on one device (``coll_bytes`` 0).
+- Collectives (``coll_bytes``, ``coll_per_kind``): on a mesh the step
+  runs on DTensors, and the counter sits above DTensor's dispatch: it
+  lets DTensor split each op into its local op and collectives, and
+  bills those at each rank's local shapes, as the reference's HLO is
+  per device.  A collective bills its result bytes by the reference's
+  kind and weight (``distributed.collectives.record``: an all-reduce 2×,
+  every other kind 1×), and, as hlo_cost does, 2 × its result bytes to
+  the memory term.  On one device there are none (``coll_bytes`` 0).
 - Loops: a torch step runs its loops in Python, so every trip dispatches
   and is counted; hlo_cost's trip-count scaling is built in.
 
@@ -39,6 +46,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed import collectives as _coll
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import selective_scan as _ss
 
@@ -69,7 +77,8 @@ _ALLOC = {"empty", "empty_like", "empty_strided", "new_empty",
           "new_empty_strided", "zeros", "zeros_like", "new_zeros", "ones",
           "ones_like", "new_ones", "full", "full_like", "new_full",
           "scalar_tensor", "arange", "linspace", "detach", "alias",
-          "lift_fresh", "lift_fresh_copy", "_local_scalar_dense"}
+          "lift_fresh", "lift_fresh_copy", "_local_scalar_dense",
+          "wait_tensor"}
 # the kernels' custom ops: their (FLOPs, bytes) formulas
 _KERNELS: Dict[Any, Callable] = {
     torch.ops.repro_torch.flash_attention: _fa.flash_attention_cost,
@@ -88,6 +97,13 @@ class Cost:
 def tensors(tree) -> list:
     """The tensors among a tree's leaves (dicts, lists, tuples)."""
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def local_tensors(tree) -> list:
+    """``tensors``, each DTensor as this rank's local shard."""
+    from torch.distributed.tensor import DTensor
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in tensors(tree)]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -162,16 +178,19 @@ class StepCounter(TorchDispatchMode):
     """Counts the ``Cost`` of every aten op dispatched inside it.
 
     ``arguments`` are the step's argument trees (parameters, optimizer
-    state, batch, caches): their bytes are billed once each, at first use.
-    ``by_op`` holds {op name: [calls, FLOPs, bytes]}."""
+    state, batch, caches; DTensors count their local shards): their bytes
+    are billed once each, at first use.  ``by_op`` holds {op name:
+    [calls, FLOPs, bytes]}; ``collectives`` the ``CollectiveLog``."""
 
     def __init__(self, *arguments):
         super().__init__()
         self.cost = Cost()
         self.by_op: Dict[str, list] = {}
+        self.collectives = _coll.CollectiveLog()
+        self.cost.coll_per_kind = self.collectives.per_kind
         # argument storages -> byte ranges already billed
         self._unread: Dict[int, list] = {
-            _storage(t): [] for t in tensors(arguments)}
+            _storage(t): [] for t in local_tensors(arguments)}
 
     def _read_args(self, ins, clamp) -> int:
         b = 0
@@ -192,7 +211,19 @@ class StepCounter(TorchDispatchMode):
         return b
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            # DTensor splits the op into local ops and collectives, which
+            # come back here on each rank's local tensors
+            return NotImplemented
         kwargs = kwargs or {}
+        if _coll.collective_name(func) is not None:
+            out = func(*args, **kwargs)
+            _coll.record(self.collectives, func, args, out)
+            self.cost.coll_bytes = self.collectives.weighted_bytes
+            res = args[0] if func.namespace == "c10d" else out
+            self._bill(func, 0.0, 2.0 * sum(_nbytes(t) for t in tensors(res)))
+            return out
         if (func._overloadpacket not in flop_registry
                 and func is not torch.ops.prim.device.default):
             with self:
@@ -200,8 +231,11 @@ class StepCounter(TorchDispatchMode):
                 if r is not NotImplemented:
                     return r
         out = func(*args, **kwargs)
-        f = _op_flops(func, args, kwargs, out)
-        b = _op_bytes(func, args, kwargs, out, self._read_args)
+        self._bill(func, _op_flops(func, args, kwargs, out),
+                   _op_bytes(func, args, kwargs, out, self._read_args))
+        return out
+
+    def _bill(self, func, f: float, b: float) -> None:
         self.cost.flops += f
         self.cost.bytes += b
         rec = self.by_op.setdefault(func._overloadpacket.__name__,
@@ -209,7 +243,6 @@ class StepCounter(TorchDispatchMode):
         rec[0] += 1
         rec[1] += f
         rec[2] += b
-        return out
 
 
 def count_step(fn: Callable, *arguments) -> Tuple[Any, Cost]:

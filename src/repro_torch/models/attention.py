@@ -23,7 +23,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Param, is_dtensor, local_rows
+from repro_torch.distributed.sharding import (Param, constrain, is_dtensor,
+                                              local_rows, matmul, reshape,
+                                              write_rows)
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.layers import apply_rope
 
@@ -77,12 +79,13 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk is padded; each chunk runs under a checkpoint, so backward
     recomputes its scores.  Returns (B, S, K, G, hd)."""
     if is_dtensor(q):
-        # on a mesh, each rank attends its own rows (the products flatten
-        # (batch, head) into one bmm dim, which DTensor cannot always
-        # place); heads are replicated there
+        # on a mesh, each rank attends its own rows and kv heads (the
+        # products flatten (batch, head) into one bmm dim, which DTensor
+        # cannot always place); a split of the query heads within a kv
+        # group, or of the sequence, is gathered there
         return local_rows(functools.partial(
             attention_core, window=window, q_offset=q_offset, chunk=chunk),
-            q, k, v)
+            q, k, v, dims=(0, 2))
     B, S, K, G, hd = q.shape
     H = K * G
     T = k.shape[1]
@@ -108,12 +111,15 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _project_qkv(cfg: ArchConfig, p, x, positions):
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, K, H // K, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    q = constrain(reshape(matmul(x, p["wq"]), B, S, K, H // K, hd),
+                  "batch", "seq", "kv_heads", None, None)
+    k = constrain(reshape(matmul(x, p["wk"]), B, S, K, hd),
+                  "batch", "seq", "kv_heads", None)
+    v = constrain(reshape(matmul(x, p["wv"]), B, S, K, hd),
+                  "batch", "seq", "kv_heads", None)
     if cfg.rope != "none":
-        q = apply_rope(q.reshape(B, S, H, hd), positions,
-                       cfg.rope_theta).reshape(B, S, K, H // K, hd)
+        q = reshape(apply_rope(reshape(q, B, S, H, hd), positions,
+                               cfg.rope_theta), B, S, K, H // K, hd)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -126,7 +132,7 @@ def attention_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     q, k, v = _project_qkv(cfg, p, x, positions)
     window = cfg.window if cfg.attention == "swa" else 0
     out = attention_core(q, k, v, window=window, chunk=chunk)
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    return matmul(reshape(out, B, S, cfg.n_heads * cfg.head_dim), p["wo"])
 
 
 def attention_prefill(cfg: ArchConfig, p, x, positions, cache_len: int, *,
@@ -141,10 +147,13 @@ def attention_prefill(cfg: ArchConfig, p, x, positions, cache_len: int, *,
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(cfg, p, x, positions)
     window = cfg.window if cfg.attention == "swa" else 0
-    out = flash_attention_op(
-        q.reshape(B, S, H, hd).transpose(1, 2), k.transpose(1, 2),
-        v.transpose(1, 2), window=window, use_kernel=use_kernel)
-    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    # K5 on DTensors: each rank runs its own rows and kv heads (q's heads
+    # split as k's: head h reads kv head h // G)
+    out = local_rows(functools.partial(
+        flash_attention_op, window=window, use_kernel=use_kernel),
+        reshape(q, B, S, H, hd).transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), dims=(0, 1))
+    out = reshape(out.transpose(1, 2), B, S, H * hd)
     if cfg.attention == "swa":
         cl = min(cache_len, cfg.window)
         # the last min(S, cl) tokens land at slots pos % cl
@@ -159,7 +168,7 @@ def attention_prefill(cfg: ArchConfig, p, x, positions, cache_len: int, *,
         cv = v.new_zeros((B, cache_len) + v.shape[2:])
         ck[:, :S] = k
         cv[:, :S] = v
-    return out @ p["wo"], KVCache(ck, cv)
+    return matmul(out, p["wo"]), KVCache(ck, cv)
 
 
 def cache_template(cfg: ArchConfig, batch: int,
@@ -183,30 +192,84 @@ def attention_decode(cfg: ArchConfig, p, x, cache: KVCache,
     returns it."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if is_dtensor(positions):
+        # the (B,) positions whole on every rank: the mask's integer math
+        # (floor division) has no DTensor rule
+        positions = positions.full_tensor()
     rp = positions if rope_positions is None else rope_positions
     q, k_new, v_new = _project_qkv(cfg, p, x, rp[:, None])
     ck, cv = cache
     cl = ck.shape[1]
     is_swa = cfg.attention == "swa"
     slot = positions % cl if is_swa else positions
-    rows = torch.arange(B, device=x.device)
-    ck[rows, slot] = k_new[:, 0]
-    cv[rows, slot] = v_new[:, 0]
+    write_rows(ck, slot, k_new[:, 0])
+    write_rows(cv, slot, v_new[:, 0])
 
+    if is_dtensor(ck):
+        out = _decode_attend_split(q[:, 0], ck, cv, positions, slot,
+                                   is_swa)
+        return matmul(reshape(out, B, 1, H * hd), p["wo"]), KVCache(ck, cv)
     scores = torch.einsum("bkgh,btkh->bkgt", q[:, 0].float(),
                           ck.float()) * (hd ** -0.5)
     slot_ids = torch.arange(cl, device=x.device)[None, :]      # (1, cl)
-    if is_swa:
-        # slot s holds absolute position p' with p' % cl == s and
-        # p' in (pos - cl, pos]; valid once written
-        ahead = (slot_ids > slot[:, None]).to(positions.dtype)
-        abs_pos = (positions[:, None] // cl - ahead) * cl + slot_ids
-        valid = ((abs_pos >= 0) & (abs_pos <= positions[:, None])
-                 & (abs_pos > positions[:, None] - cl))
-    else:
-        valid = slot_ids <= positions[:, None]
+    valid = _live_slots(slot_ids, positions, slot, cl, is_swa)
     scores = scores.masked_fill(~valid[:, None, None], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkh->bkgh", w.to(cv.dtype), cv)
     out = out.reshape(B, 1, H * hd) @ p["wo"]
     return out, KVCache(ck, cv)
+
+
+def _live_slots(slot_ids, positions, slot, cl: int, is_swa: bool):
+    """(B, len(slot_ids)): which cache slots hold a position the new
+    token attends to."""
+    if is_swa:
+        # slot s holds absolute position p' with p' % cl == s and
+        # p' in (pos - cl, pos]; valid once written
+        ahead = (slot_ids > slot[:, None]).to(positions.dtype)
+        abs_pos = (positions[:, None] // cl - ahead) * cl + slot_ids
+        return ((abs_pos >= 0) & (abs_pos <= positions[:, None])
+                & (abs_pos > positions[:, None] - cl))
+    return slot_ids <= positions[:, None]
+
+
+def _decode_attend_split(q, ck, cv, positions, slot, is_swa: bool):
+    """Decode attention against a DTensor cache (rows, positions and kv
+    heads split over the mesh), each rank on the cache entries it holds:
+    the softmax over positions split across ranks takes the max and the
+    sum across them (collectives of those mesh dims), and so does the
+    weighted sum of values.  q (B, K, G, hd) and the (B,) positions are
+    taken whole; returns (B, K, G, hd) split as the cache's rows and
+    heads.  (DTensor's einsum flattens a split position dim, which torch
+    2.11 refuses.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, cl, hd = ck.device_mesh, ck.shape[1], ck.shape[-1]
+    (nb, nt, nk, _), (b0, t0, k0, _) = compute_local_shape_and_global_offset(
+        ck.shape, mesh, ck.placements)
+    groups = [mesh.get_group(i) for i, p in enumerate(ck.placements)
+              if isinstance(p, Shard) and p.dim % 4 == 1]
+    qw = q.full_tensor() if is_dtensor(q) else q
+    q_loc = qw[b0:b0 + nb, k0:k0 + nk]
+    pos = positions[b0:b0 + nb]
+    slot_ids = torch.arange(t0, t0 + nt, device=pos.device)[None, :]
+    valid = _live_slots(slot_ids, pos, slot[b0:b0 + nb], cl, is_swa)
+    s = torch.einsum("bkgh,btkh->bkgt", q_loc.float(),
+                     ck.to_local().float()) * (hd ** -0.5)
+    s = s.masked_fill(~valid[:, None, None], NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    for g in groups:
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                     group=g)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True)
+    out = torch.einsum("bkgt,btkh->bkgh", e.to(cv.dtype), cv.to_local())
+    for g in groups:
+        torch.distributed.all_reduce(den, group=g)
+        torch.distributed.all_reduce(out, group=g)
+    out = (out.float() / den).to(cv.dtype)
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim % 4 == 0 else
+          Shard(1) if isinstance(p, Shard) and p.dim % 4 == 2 else
+          Replicate() for p in ck.placements]
+    return DTensor.from_local(out, mesh, pl, run_check=False)

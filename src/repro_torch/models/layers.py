@@ -13,7 +13,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Param, gather_last
+from repro_torch.distributed.sharding import (Param, constrain, gather_last,
+                                              is_dtensor, lookup_rows, matmul)
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -88,15 +89,16 @@ def mlp_template(d: int, f: int, kind: str) -> Dict[str, Param]:
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
               kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
     elif kind == "relu2":
-        h = torch.square(F.relu(x @ p["w_up"]))
+        h = torch.square(F.relu(matmul(x, p["w_up"])))
     elif kind == "gelu":
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
+        h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return h @ p["w_down"]
+    h = constrain(h, "batch", "seq", "tp")
+    return matmul(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +111,15 @@ def embed_template(vocab: int, d: int) -> Param:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(table):
+        return lookup_rows(table, tokens)
     return table[tokens]
 
 
 def lm_head(table_or_w: torch.Tensor, x: torch.Tensor, *,
             tied: bool) -> torch.Tensor:
     w = table_or_w.T if tied else table_or_w
-    return (x @ w.to(x.dtype)).float()
+    return matmul(x, w.to(x.dtype)).float()
 
 
 # ---------------------------------------------------------------------------

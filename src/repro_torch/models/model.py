@@ -32,7 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Param, gather_last, init_tree
+from repro_torch.distributed.sharding import (Param, constrain, gather_last,
+                                              init_tree, tree_map,
+                                              unshard_fsdp)
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import (embed_lookup, embed_template, lm_head,
                                        rmsnorm, rmsnorm_template,
@@ -93,6 +95,7 @@ class Model:
         (B, S, V) logits are made ``loss_chunk`` positions at a time, each
         chunk under a checkpoint, the padded tail masked out."""
         cfg, fl = self.cfg, self.flags
+        params = tree_map(unshard_fsdp, params)
         x, pos = self._inputs(batch, params)
         h, aux = tr.stack_apply(cfg, params["stack"], x, pos,
                                 remat=fl.remat, attn_chunk=fl.attn_chunk,
@@ -120,7 +123,9 @@ class Model:
                 tot, cnt = tot + t, cnt + n
             ce = tot / torch.clamp_min(cnt, 1.0)
         else:
-            ce = softmax_xent(self._logits(params, h), labels)
+            logits = constrain(self._logits(params, h),
+                               "batch", "seq", "vocab")
+            ce = softmax_xent(logits, labels)
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -131,6 +136,9 @@ class Model:
             x = batch["embeds"]
         else:
             x = embed_lookup(params["embed"], batch["tokens"])
+        # kill feature-sharded/token-replicated propagation from the
+        # embedding table's fallback sharding right at the source
+        x = constrain(x, "batch", "seq", None)
         B, S = x.shape[:2]
         if "positions" in batch:
             pos = batch["positions"]
@@ -152,6 +160,7 @@ class Model:
     def prefill(self, params, batch, cache_len: int):
         """Logits (B, V) f32 of the last prompt token and the caches."""
         fl = self.flags
+        params = tree_map(unshard_fsdp, params)
         x, pos = self._inputs(batch, params)
         h, caches = tr.stack_prefill(self.cfg, params["stack"], x, pos,
                                      cache_len, use_kernel=fl.use_kernel,
@@ -165,6 +174,7 @@ class Model:
         """One token per row at its own position; the caches are updated
         in place and returned."""
         cfg = self.cfg
+        params = tree_map(unshard_fsdp, params)
         if cfg.input_mode == "embeddings":
             x = batch["embed"][:, None]
         else:

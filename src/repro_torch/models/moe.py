@@ -25,6 +25,7 @@ Order rules, which keep the routing equal to the JAX package's:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Param
+from repro_torch.distributed.sharding import (Param, constrain, local_rows,
+                                              matmul, reshape)
 from repro_torch.models.layers import mlp_apply
 
 
@@ -62,7 +64,7 @@ def route(cfg: ArchConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     """(probs (B, S, E) f32, top_w (B, S, k) f32 renormalised, top_e
     (B, S, k) int64): the router's softmax over f32 logits and its top k,
     the lower expert id first on ties."""
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    probs = torch.softmax(matmul(x.float(), p["router"]), dim=-1)
     top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_e = top_w[..., :cfg.top_k], top_e[..., :cfg.top_k]
     return probs, top_w / torch.sum(top_w, -1, keepdim=True), top_e
@@ -89,13 +91,15 @@ def _experts(cfg: ArchConfig, p, eb: torch.Tensor) -> torch.Tensor:
     batched matmuls over (E, B·C, D) x (E, D, F) that read the stacked
     expert weights in place (``einsum`` copied the weight operand)."""
     B, E, C, D = eb.shape
-    xe = eb.transpose(0, 1).reshape(E, B * C, D)
+    xe = reshape(eb.transpose(0, 1), E, B * C, D)
     if cfg.mlp == "swiglu":
         h = (F.silu(torch.bmm(xe, p["w_gate"]))
              * torch.bmm(xe, p["w_up"]))
     else:
         h = F.gelu(torch.bmm(xe, p["w_up"]), approximate="tanh")
-    return torch.bmm(h, p["w_down"]).reshape(E, B, C, D).transpose(0, 1)
+    # the reference's (B, E, C, F) constraint in this (E, B·C, F) layout
+    h = constrain(h, "experts", "batch", "tp")
+    return reshape(torch.bmm(h, p["w_down"]), E, B, C, D).transpose(0, 1)
 
 
 def moe_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
@@ -104,8 +108,12 @@ def moe_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, S)
+    x = constrain(x, "batch", "seq", None)
     probs, top_w, top_e = route(cfg, p, x)
-    top_w = top_w.to(x.dtype)
+    # pin the routing tensors to batch sharding: the sort/scatter below
+    # stays shard-local (one group = one sequence = one shard row)
+    top_w = constrain(top_w.to(x.dtype), "batch", "seq", None)
+    top_e = constrain(top_e, "batch", "seq", None)
 
     # switch load-balance loss over all tokens; the one-hot as a compare
     # (F.one_hot checks its input's range on the host: a read-back per
@@ -114,17 +122,30 @@ def moe_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     frac = torch.mean(onehot.float(), dim=(0, 1))
     aux = E * torch.sum(frac * torch.mean(probs, dim=(0, 1)))
 
-    order, slot = _dispatch(cfg, top_e, C)
-    s_tok = torch.div(order, k, rounding_mode="floor")            # (B, T·k)
-    rows = torch.arange(B, device=x.device)[:, None]
-    # the buffer: row s_e·C + pos holds its token's x; overflow rows land
-    # in the trash row E·C, which is cut off
-    buf = x.new_zeros((B, E * C + 1, D))
-    buf[rows, slot] = x[rows, s_tok]
-    y = _experts(cfg, p, buf[:, :E * C].reshape(B, E, C, D))
-    y_pad = torch.cat([y.reshape(B, E * C, D), y.new_zeros((B, 1, D))], 1)
+    # dispatch and combine are per group: on a mesh each rank runs its
+    # own rows (the reference's shard_map over the batch axes)
+    buf, order, slot = local_rows(functools.partial(_fill, cfg, C), x, top_e)
+    eb = constrain(reshape(buf[:, :E * C], B, E, C, D),
+                   "batch", "experts", None, None)
+    y = constrain(reshape(_experts(cfg, p, eb), B, E * C, D),
+                  "batch", None, None)
+    y_pad = torch.cat([y, y.new_zeros((B, 1, D))], 1)
+    out = local_rows(_combine, y_pad, slot, order, top_w)
+    return constrain(out, "batch", "seq", None), aux
 
-    return _combine(y_pad, slot, order, top_w), aux
+
+def _fill(cfg: ArchConfig, capacity: int, x: torch.Tensor,
+          top_e: torch.Tensor):
+    """(buf (B, E·C + 1, D), order, slot): ``_dispatch``, and the buffer
+    whose row s_e·C + pos holds its token's x; overflow rows land in the
+    trash row E·C."""
+    B, _, D = x.shape
+    order, slot = _dispatch(cfg, top_e, capacity)
+    s_tok = torch.div(order, cfg.top_k, rounding_mode="floor")    # (B, T·k)
+    rows = torch.arange(B, device=x.device)[:, None]
+    buf = x.new_zeros((B, cfg.n_experts * capacity + 1, D))
+    buf[rows, slot] = x[rows, s_tok]
+    return buf, order, slot
 
 
 def _combine(y_pad: torch.Tensor, slot: torch.Tensor, order: torch.Tensor,

@@ -21,6 +21,7 @@ training alike), as the JAX package does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -28,8 +29,20 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import Param
+from repro_torch.distributed.sharding import (Param, constrain, is_dtensor,
+                                              local_rows, matmul,
+                                              whole_local)
 from repro_torch.kernels.ops import selective_scan_op
+
+def _scan(dt, x, b, c, a, use_kernel: bool):
+    """K6 (``selective_scan_op``); on DTensors each rank runs its own
+    rows, with the per-channel decay ``a`` whole on every rank."""
+    if is_dtensor(a):
+        a = whole_local(a, x)
+    return local_rows(functools.partial(selective_scan_op,
+                                        use_kernel=use_kernel),
+                      dt, x, b, c, a)
+
 
 # ---------------------------------------------------------------------------
 # Chunked selective scan (the training path)
@@ -41,13 +54,15 @@ def _scan_chunk(a: torch.Tensor, b: torch.Tensor,
     """Inclusive scan of h_t = a_t * h_{t-1} + b_t over one chunk
     (B, Q, M, N) from the carry h (B, M, N): step t takes in step t - d
     with ``_assoc``'s combine (a1 * a2, a2 * b1 + b2), d = 1, 2, 4, ..."""
+    a = constrain(a, "batch", None, "ssm_inner", None)
+    b = constrain(b, "batch", None, "ssm_inner", None)
     Q = a.shape[1]
     d = 1
     while d < Q:
         b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
         a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
         d *= 2
-    return a * h[:, None] + b
+    return constrain(a * h[:, None] + b, "batch", None, "ssm_inner", None)
 
 
 def chunked_selective_scan(dA: torch.Tensor, dBx: torch.Tensor,
@@ -85,13 +100,25 @@ def selective_scan_step(dA, dBx, h):
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, C); w: (C, W) depthwise taps (tap W-1 = current token)."""
+    """x: (B, S, C); w: (C, W) depthwise taps (tap W-1 = current token).
+    On a DTensor x each rank convolves its own rows (the shifted pads
+    along S have no DTensor rule on torch 2.11), the taps whole."""
+    if is_dtensor(x):
+        return local_rows(causal_conv, x, whole_local(w, x),
+                          whole_local(b, x))
     W = w.shape[-1]
     out = x * w[:, -1]
     for i in range(1, W):
         shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
         out = out + shifted * w[:, -1 - i]
     return out + b
+
+
+def _conv_tail(x_in: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W - 1 conv inputs (B, W - 1, C), zero-padded in front
+    when S < W - 1: the decode cache's conv history."""
+    S = x_in.shape[1]
+    return F.pad(x_in, (0, 0, max(W - 1 - S, 0), 0))[:, -(W - 1):]
 
 
 def causal_conv_step(x_t: torch.Tensor, conv_cache: torch.Tensor,
@@ -138,9 +165,9 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def _mamba1_inputs(cfg: ArchConfig, p, xc):
     """xc: (..., S, di) post-conv activations -> dt, Bm, Cm (f32)."""
     N, R = cfg.ssm_state, cfg.dt_rank
-    xdbl = xc @ p["x_proj"]
+    xdbl = matmul(xc, p["x_proj"])
     dt_r, Bm, Cm = torch.split(xdbl, [R, N, N], dim=-1)
-    dt = _softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])
+    dt = _softplus(matmul(dt_r, p["dt_proj"]).float() + p["dt_bias"])
     return dt, Bm.float(), Cm.float()
 
 
@@ -154,15 +181,16 @@ def mamba1_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     differentiates."""
     B, S, D = x.shape
     W = cfg.ssm_conv
-    x_in, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    x_in, z = torch.chunk(
+        constrain(matmul(x, p["in_proj"]), "batch", "seq", "ssm_inner"), 2,
+        dim=-1)
     xc = F.silu(causal_conv(x_in, p["conv_w"], p["conv_b"]))
     dt, Bm, Cm = _mamba1_inputs(cfg, p, xc)
     A = -torch.exp(p["A_log"])                                 # (di, N)
     if chunk is None:
         # x in f32, so y stays f32 until D_skip is added, as in the JAX
         # block
-        y, h_last = selective_scan_op(dt, xc.float(), Bm, Cm, A,
-                                      use_kernel=use_kernel)
+        y, h_last = _scan(dt, xc.float(), Bm, Cm, A, use_kernel)
     else:
         dA = torch.exp(dt[..., None] * A)                      # (B,S,di,N)
         dBx = (dt * xc.float())[..., None] * Bm[:, :, None, :]
@@ -171,10 +199,10 @@ def mamba1_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
         h_all, h_last = chunked_selective_scan(dA, dBx, h0, chunk=chunk)
         y = torch.einsum("bsmn,bsn->bsm", h_all, Cm)
     y = (y + p["D_skip"] * xc.float()).to(x.dtype)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = matmul(y * F.silu(z), p["out_proj"])
     if return_state:
-        conv_tail = F.pad(x_in, (0, 0, max(W - 1 - S, 0), 0))[:, -(W - 1):]
-        return out, {"h": h_last, "conv": conv_tail}
+        return out, {"h": h_last, "conv": local_rows(
+            functools.partial(_conv_tail, W=W), x_in)}
     return out
 
 
@@ -242,7 +270,8 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
 def _mamba2_head(cfg: ArchConfig, p, x):
     """The projections and conv shared by both Mamba-2 routes: (z, x_in,
     xc, Bm, Cm, dt (..., nh) f32 after softplus)."""
-    z, x_in, Bm, Cm, dt = _mamba2_split(cfg, x @ p["in_proj"])
+    z, x_in, Bm, Cm, dt = _mamba2_split(
+        cfg, constrain(matmul(x, p["in_proj"]), "batch", "seq", None))
     xc = F.silu(causal_conv(x_in, p["conv_w"], p["conv_b"]))
     dt = _softplus(dt.float() + p["dt_bias"])
     return z, x_in, xc, Bm, Cm, dt
@@ -254,10 +283,10 @@ def _mamba2_tail(cfg: ArchConfig, p, y, xc, z, x_in, h_last, S, dtype,
     P, W = cfg.ssm_head_dim, cfg.ssm_conv
     y = y + torch.repeat_interleave(p["D_skip"], P) * xc.float()
     y = _gated_rmsnorm(y, z, p["norm_w"], cfg.norm_eps).to(dtype)
-    out = y @ p["out_proj"]
+    out = matmul(y, p["out_proj"])
     if return_state:
-        conv_tail = F.pad(x_in, (0, 0, max(W - 1 - S, 0), 0))[:, -(W - 1):]
-        return out, {"h": h_last, "conv": conv_tail}
+        return out, {"h": h_last, "conv": local_rows(
+            functools.partial(_conv_tail, W=W), x_in)}
     return out
 
 
@@ -275,9 +304,9 @@ def mamba2_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     z, x_in, xc, Bm, Cm, dt = _mamba2_head(cfg, p, x)
     A = -torch.exp(p["A_log"])                                   # (nh,)
     if chunk is None:
-        y, h_last = selective_scan_op(
-            torch.repeat_interleave(dt, P, dim=-1), xc.float(), Bm, Cm,
-            torch.repeat_interleave(A, P), use_kernel=use_kernel)
+        y, h_last = _scan(torch.repeat_interleave(dt, P, dim=-1),
+                          xc.float(), Bm, Cm, torch.repeat_interleave(A, P),
+                          use_kernel)
     else:
         dA = torch.exp(dt * A)                                   # (B,S,nh)
         xh = xc.reshape(B, S, nh, P).float()
@@ -295,6 +324,7 @@ def mamba2_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 def _ssd_chunk(h, al, Bq, Cq, dx):
     """One SSD chunk: al (B, Q, nh) log-decays, Bq / Cq (B, Q, N), dx
     (B, Q, nh, P), carry h (B, nh, P, N) -> (h_new, y (B, Q, nh, P))."""
+    dx = constrain(dx, "batch", None, "ssm_inner", None)
     Q = al.shape[1]
     lc = torch.cumsum(al, dim=1)                             # (B,Q,nh)
     # intra-chunk: masked decay "attention"

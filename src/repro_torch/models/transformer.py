@@ -29,7 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import stack_trees, tree_map
+from repro_torch.distributed.sharding import constrain, stack_trees, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -154,19 +154,23 @@ def block_apply(cfg: ArchConfig, p, x, positions, *, attn_chunk: int,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One repeated block.  Returns (x, aux_loss_increment)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x, "batch", "seq", None)
     if cfg.has_ssm:
         fn = _ssm_fn(cfg, ssm_algo)
         y = fn(cfg, p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps),
                chunk=ssm_chunk)
-        return x + y, aux
+        return constrain(x + y, "batch", "seq", None), aux
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attn.attention_apply(cfg, p["attn"], h, positions,
                                  chunk=attn_chunk)
+    x = constrain(x, "batch", "seq", None)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.is_moe:
         y, aux = moe_mod.moe_apply(cfg, p["mlp"], h)
-        return x + y, aux
-    return x + mlp_apply(p["mlp"], h, cfg.mlp), aux
+        x = x + y
+    else:
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp)
+    return constrain(x, "batch", "seq", None), aux
 
 
 def shared_attn_apply(cfg: ArchConfig, p, x, positions, *,

@@ -10,9 +10,9 @@ laid out the same way (``("batch", None)``).  Options:
   f32 (activation memory ∝ batch / microbatches under remat);
 - ``grad_sync``: ``"auto"`` — DTensor's sharding propagation places the
   collectives, as GSPMD does in the reference: the model's forward and
-  backward run on the DTensors as on local tensors, and each gradient is
-  brought to its parameter's placements (the reductions over the batch
-  axes land there);
+  backward run on the DTensors as on local tensors, and each gradient
+  comes back at its parameter's placements, reduced once over the batch
+  axes in f32 (``sharding.unshard_fsdp``, which ``Model`` applies);
   ``"int8"`` / ``"int16"`` / ``"fp32"`` — the reference's explicit pod
   reduction (its ``shard_map`` over ``"pod"``): the grads are computed on
   the pod-local batch over the mesh's other axes, then mean-reduced over
@@ -38,7 +38,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.distributed.collectives import on_mesh
-from repro_torch.distributed.sharding import (is_dtensor, replicated_local,
+from repro_torch.distributed.sharding import (is_dtensor, pod_split,
+                                              replicated_local, to_submesh,
                                               tree_leaves, tree_map)
 from repro_torch.models.model import Model
 from repro_torch.train.compression import (compressed_psum_mean,
@@ -128,42 +129,8 @@ def _dtensor_context():
     return implicit_replication()
 
 
-def _like_params(grads, params):
-    """Each DTensor gradient redistributed to its parameter's placements
-    (a plain gradient as it is)."""
-    def one(g, p):
-        if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
-            return g.redistribute(p.device_mesh, p.placements)
-        return g
-    return tree_map(one, grads, params)
-
-
 def _local_metrics(metrics):
     return {k: replicated_local(v) for k, v in metrics.items()}
-
-
-def _pod_split(mesh):
-    """(pod group, the mesh's other axes as a submesh or None, their
-    names)."""
-    names = tuple(mesh.mesh_dim_names)
-    rest = tuple(a for a in names if a != "pod")
-    return mesh.get_group("pod"), (mesh[rest] if rest else None), rest
-
-
-def _to_submesh(x, sub, rest, *, batch: bool):
-    """A full-mesh leaf as the same rank's values on the non-pod submesh:
-    a parameter (replicated over pod) keeps its other placements; a batch
-    leaf becomes this pod's rows, split over the submesh as before."""
-    from torch.distributed.tensor import DTensor, Replicate
-    names = tuple(x.device_mesh.mesh_dim_names)
-    pl = dict(zip(names, x.placements))
-    if not batch and not isinstance(pl["pod"], Replicate):
-        raise ValueError(f"a parameter sharded over 'pod' ({x.placements});"
-                         " the pod sync needs it replicated there")
-    if sub is None:
-        return x.to_local()
-    return DTensor.from_local(x.to_local(), sub, [pl[a] for a in rest],
-                              run_check=False)
 
 
 def _to_full_mesh(g, p):
@@ -180,13 +147,13 @@ def _pod_grads(grad_fn, sync, params, batch):
     """Grads and metrics of the pod-local batch on the mesh's other axes,
     then their mean over the pod group by ``sync``."""
     mesh = tree_leaves(params)[0].device_mesh
-    group, sub, rest = _pod_split(mesh)
-    p_sub = tree_map(lambda p: _to_submesh(p, sub, rest, batch=False),
+    group, sub, rest = pod_split(mesh)
+    p_sub = tree_map(lambda p: to_submesh(p, sub, rest, batch=False),
                      params)
-    b_sub = {k: _to_submesh(v, sub, rest, batch=True)
+    b_sub = {k: to_submesh(v, sub, rest, batch=True)
              for k, v in batch.items()}
     grads, metrics = grad_fn(p_sub, b_sub)
-    grads = sync(_like_params(grads, p_sub), group)
+    grads = sync(grads, group)
     metrics = psum_mean(_local_metrics(metrics), group)
     return tree_map(_to_full_mesh, grads, params), metrics
 
@@ -222,7 +189,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
         if is_dtensor(lead) and "pod" in lead.device_mesh.mesh_dim_names:
             return _pod_grads(grad_fn, sync, params, batch)
         grads, metrics = grad_fn(params, batch)
-        return _like_params(grads, params), _local_metrics(metrics)
+        return grads, _local_metrics(metrics)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         lead = tree_leaves(state.params)[0]

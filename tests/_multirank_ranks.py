@@ -4,13 +4,16 @@ runs a list of tasks in order on every rank of one world and returns
 their results by task name; each task decides which ranks take part."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_shape
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.settings import cell_settings
 from repro_torch.models.model import ModelFlags, build_model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import compression
@@ -82,31 +85,40 @@ def _params(model, params_np, dtype):
 
 
 def steps(rank, world, shape, params_np, batches, sync="auto",
-          dtype="float32"):
+          dtype="float32", sequence_parallel=False):
     """``len(batches)`` train steps on a ``make_host_mesh(*shape)`` mesh
     (``shape`` = (data, model, pod)) from ``params_np``: per-step loss and
     grad norm, and on rank 0 the final parameters and every leaf's
-    placements."""
+    placements.  ``sequence_parallel``: the parameters laid out by, and
+    the steps run under ``activation_sharding`` with, the rules of the
+    optimized llama3.2-3b train cell (the sequence split over ``model``);
+    ``moved`` counts the redistributes the constraints issued."""
     data, model_n, pod = shape
     mesh = make_host_mesh(data, model_n, pod, device="cpu")
     if rank >= data * model_n * pod:
         return None
     model, cfg = _model()
     tpl = model.template()
-    shard = sh.tree_shardings(tpl, mesh)
+    rules, ctx = sh.Rules(), contextlib.nullcontext()
+    if sequence_parallel:
+        rules = cell_settings(get_config("llama3.2-3b"),
+                              get_shape("train_4k"), "optimized").rules
+        ctx = sh.activation_sharding(mesh, rules)
+    shard = sh.tree_shardings(tpl, mesh, rules)
     params = sh.distribute_tree(_params(model, params_np, dtype), shard,
                                 src_rank=None)
     state = TrainState.create(params)
     bsh = sh.tree_shardings(
         {k: sh.Param(v.shape, ("batch", None), dtype=torch.int32)
-         for k, v in batches[0].items()}, mesh)
+         for k, v in batches[0].items()}, mesh, rules)
     step = make_train_step(model, AdamWConfig(), grad_sync=sync,
                            mesh=mesh if sync != "auto" else None)
     losses, gnorms = [], []
     for b in batches:
         b = sh.distribute_tree({k: torch.from_numpy(v)
                                 for k, v in b.items()}, bsh, src_rank=None)
-        state, met = step(state, b)
+        with ctx:
+            state, met = step(state, b)
         losses.append(float(met["loss"]))
         gnorms.append(float(met["grad_norm"]))
     pl_ok = all(tuple(p.placements) == tuple(s.placements)
@@ -117,9 +129,39 @@ def steps(rank, world, shape, params_np, batches, sync="auto",
                                 sh.tree_leaves(shard)))
     full = sh.local_tree(state.params)
     return dict(losses=losses, gnorms=gnorms, placements_ok=pl_ok,
-                moments_ok=mu_ok,
+                moments_ok=mu_ok, moved=getattr(ctx, "moved", 0),
                 params=sh.tree_map(lambda t: t.float().numpy(), full)
                 if rank == 0 else None)
+
+
+def decode(rank, world, params_np, tokens):
+    """Decode steps of the reduced granite on a (data 2, model 2) mesh
+    from empty caches laid out by their template (positions over
+    ``model``): each step's logits, whole, on every rank.  Parameters
+    are used with their fsdp splits gathered, as the dry run does."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh = make_host_mesh(2, 2, device="cpu")
+    model, _ = _model()
+    params = sh.distribute_tree(
+        _params(model, params_np, "float32"),
+        sh.tree_shardings(model.template(), mesh), src_rank=None)
+    B, T = tokens.shape
+    tpl = model.cache_template(B, T)
+    caches = sh.distribute_tree(sh.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32), tpl),
+        sh.tree_shardings(tpl, mesh), src_rank=None)
+    bsh = sh.tree_shardings({k: sh.Param((B,), ("batch",), dtype=torch.int64)
+                             for k in ("token", "positions")}, mesh)
+    out = []
+    with implicit_replication():
+        for t in range(T):
+            b = sh.distribute_tree(
+                {"token": torch.from_numpy(tokens[:, t]),
+                 "positions": torch.full((B,), t, dtype=torch.int64)},
+                bsh, src_rank=None)
+            logits, caches = model.decode_step(params, caches, b)
+            out.append(sh.replicated_local(logits).numpy())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -182,14 +224,29 @@ def loop(rank, world, ckpt_dir, kw, fault_at):
                 has_state=run.final_state is not None)
 
 
-def ensemble(rank, world, cfgs, n, chips):
+def ensemble(rank, world, cfgs, n, chips, shard=True):
     from repro_torch.core import simulator as S
     runs = []
     for c in cfgs:
         f, t, r = S.synthetic_lifecycle_fleet(n, c, chips_per_node=chips,
                                               device="cpu")
         runs.append((f, t, r, c, S.generate_jobs(c)))
-    return S.simulate_fleet_ensemble(runs, shard=True)
+    return S.simulate_fleet_ensemble(runs, shard=shard)
+
+
+def ensemble_en(rank, world, cfgs, n, chips):
+    """``shard="en"``: the lanes over the ensemble mesh's e axis, each
+    lane block's placement engine over its n-axis ranks by nodes."""
+    return ensemble(rank, world, cfgs, n, chips, shard="en")
+
+
+def sweep_en(rank, world, cfg, n):
+    """``sweep_policies(shard="en")``: one reactive lane, its engine split
+    over the world's ranks by nodes."""
+    from repro_torch.core import simulator as S
+    from repro_torch.core.policy import PolicyConfig
+    return S.sweep_policies(cfg, {"r": PolicyConfig()}, n=n, device="cpu",
+                            shard="en")
 
 
 def ensemble_meshes(rank, world):

@@ -33,10 +33,13 @@ FLASH_CASES = [
     (2, 4, 4, 256, 64, 128, jnp.float32),
     (1, 2, 2, 384, 128, 0, jnp.bfloat16),
     (1, 4, 2, 512, 32, 256, jnp.bfloat16),
+    (1, 12, 1, 128, 192, 0, jnp.float32),     # nemotron's head dim, 12:1
 ]
 RAGGED_FLASH = [
     (1, 4, 2, 200, 64, 0, jnp.float32),       # S no multiple of a block
     (2, 6, 3, 77, 120, 30, jnp.bfloat16),     # danube's head dim, window
+    (2, 24, 2, 96, 192, 0, jnp.bfloat16),     # nemotron's head dim, 12:1
+    (1, 12, 1, 77, 192, 0, jnp.float32),
 ]
 SCAN_CASES = [
     # (B, S, D, N, block_d, q_chunk, dtype), the JAX suite's
@@ -204,12 +207,15 @@ def test_kernel_launchers_refuse_shapes_they_do_not_take(bad):
     (torch.float32, 120, True, "f32-fma-128"),
     (torch.float32, 60, True, "f32-fma-64"),
     (torch.float32, 30, True, "f32-fma-64-elementwise"),
+    (torch.bfloat16, 192, True, "bf16-mma-192"),
+    (torch.bfloat16, 130, False, "bf16-mma-192-elementwise"),
+    (torch.float32, 192, True, "f32-fma-192"),
 ])
 def test_flash_variant_names_the_route(dtype, hd, aligned, want):
     """bf16 runs on the tensor cores and f32 on the FMA pipes, each with
     16-byte copies only for aligned tensors whose rows are 16-byte
-    multiples (hd % 8 == 0 in bf16, hd % 4 == 0 in f32); hd pads to 64 or
-    128."""
+    multiples (hd % 8 == 0 in bf16, hd % 4 == 0 in f32); hd pads to 64,
+    128 or 192."""
     assert fa_mod.variant(dtype, hd, aligned) == want
 
 
@@ -260,7 +266,7 @@ def test_scan_variant_names_the_staging(dtype, D, aligned, want):
 
 
 @pytest.mark.parametrize("bad", ["float16 attention", "head_dim 0",
-                                 "head_dim 129", "float16 scan",
+                                 "head_dim 193", "float16 scan",
                                  "k/v shape", "dt/x shape"])
 def test_launchers_refuse_before_building(bad):
     """What each kernel refuses, refused before any build or launch (meta
@@ -272,8 +278,8 @@ def test_launchers_refuse_before_building(bad):
             fa_mod.variant(torch.float16, 64)
         elif bad == "head_dim 0":
             fa_mod.variant(torch.bfloat16, 0)
-        elif bad == "head_dim 129":
-            flash_attention(*(torch.empty(1, 2, 8, 129, dtype=torch.bfloat16,
+        elif bad == "head_dim 193":
+            flash_attention(*(torch.empty(1, 2, 8, 193, dtype=torch.bfloat16,
                                           **m) for _ in range(3)))
         elif bad == "float16 scan":
             sc_mod.variant(torch.float16, 64)

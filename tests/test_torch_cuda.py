@@ -732,7 +732,9 @@ from repro_torch.kernels.selective_scan import (selective_scan,  # noqa: E402
     # the prefill shapes of moonshot-v1-16b-a3b, qwen2-vl-72b (GQA 8:1)
     # and zamba2-1.2b's tied block
     (4, 16, 16, 512, 128, 0), (4, 64, 8, 512, 128, 0),
-    (4, 32, 32, 512, 64, 0)])
+    (4, 32, 32, 512, 64, 0),
+    # nemotron-4-340b's head dim 192, 12:1 (96 heads over 8)
+    (2, 24, 2, 512, 192, 0), (1, 12, 1, 333, 192, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, H, K, S, hd, window,
                                               dtype):
@@ -771,13 +773,15 @@ def test_selective_scan_kernel_matches_plain(dev, B, S, D, N, dtype):
 
 
 # the bf16 route's edge cases: one row, a long sequence, a GQA group of 8,
-# head dims padded to 64 and 128 (32, 120), windows that end inside a kv
-# tile, and q scaled by 8 so the running max moves tile to tile and the
-# accumulator is rescaled in registers
+# head dims padded to 64, 128 and 192 (32, 120, 150), windows that end
+# inside a kv tile, and q scaled by 8 so the running max moves tile to
+# tile and the accumulator is rescaled in registers
 @pytest.mark.parametrize("B,H,K,S,hd,window", [
     (2, 4, 4, 1, 64, 0), (1, 8, 1, 2048, 64, 0), (2, 16, 2, 200, 64, 0),
     (1, 4, 2, 300, 32, 0), (1, 4, 2, 300, 120, 0), (1, 4, 2, 333, 64, 100),
-    (2, 4, 1, 260, 128, 70), (1, 2, 2, 2048, 120, 500)])
+    (2, 4, 1, 260, 128, 70), (1, 2, 2, 2048, 120, 500),
+    (1, 12, 1, 300, 192, 0), (2, 4, 1, 260, 150, 70),
+    (1, 12, 1, 2048, 192, 500)])
 @pytest.mark.parametrize("q_scale", [1.0, 8.0])
 def test_flash_attention_bf16_edge_cases(dev, B, H, K, S, hd, window,
                                          q_scale):
@@ -827,7 +831,9 @@ def test_flash_attention_routes_and_staging(dev):
 @pytest.mark.parametrize("B,H,K,S,hd,window", [
     (2, 4, 4, 1, 64, 0), (1, 8, 1, 2048, 64, 0), (2, 16, 2, 200, 64, 0),
     (1, 4, 2, 300, 32, 0), (1, 4, 2, 300, 120, 0), (1, 4, 2, 333, 64, 100),
-    (2, 4, 1, 260, 128, 70), (1, 2, 2, 2048, 120, 500)])
+    (2, 4, 1, 260, 128, 70), (1, 2, 2, 2048, 120, 500),
+    (1, 12, 1, 300, 192, 0), (2, 4, 1, 260, 150, 70),
+    (1, 12, 1, 2048, 192, 500)])
 @pytest.mark.parametrize("q_scale", [1.0, 8.0])
 def test_flash_attention_f32_edge_cases(dev, B, H, K, S, hd, window,
                                         q_scale):

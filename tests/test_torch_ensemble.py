@@ -232,13 +232,14 @@ def test_sweep_policies_and_pareto_frontier_match_reference():
 
 
 @pytest.mark.parametrize("what", ["shard", "shard_en", "blind"])
-def test_unported_ensemble_options_raise(what, monkeypatch):
-    """``shard="en"``'s node split over more than one rank (ROADMAP Queue
-    1 slice (C)) and the host-only comparators refuse; a world of two
-    ranks is faked by the world size the check reads.  ``shard=True``
-    without a process group is the unsharded program: it refuses
-    nothing and equals the plain ensemble bit for bit (its split over
-    ranks runs in ``tests/test_torch_multirank.py``)."""
+def test_unported_ensemble_options_raise(what):
+    """The host-only comparators refuse.  ``shard=True`` without a process
+    group is the unsharded program: it refuses nothing and equals the
+    plain ensemble bit for bit (its split over ranks runs in
+    ``tests/test_torch_multirank.py``).  ``shard="en"`` over a world of
+    two ranks no longer refuses: the lane's placement engine splits over
+    the two by nodes and the lane, and ``sweep_policies``' result, equal
+    the one-process run bit for bit on both ranks."""
     cp = S.SimConfig(**dict(BASE, epochs=4))
     f, t, r = S.synthetic_lifecycle_fleet(16, cp, device="cpu")
     if what == "shard":
@@ -248,19 +249,27 @@ def test_unported_ensemble_options_raise(what, monkeypatch):
                                                          shard=True)):
             assert_same(b, a, emissions_rel=0)
         return
-    kw, err, match = {}, NotImplementedError, "ROADMAP Queue 1 slice \\(C\\)"
     if what == "shard_en":
-        kw = dict(shard="en")
-        monkeypatch.setattr(S, "_world_size", lambda: 2)
-    else:
-        cp, err, match = dataclasses.replace(cp, engine="blind"), \
-            ValueError, "scanned core"
-    with pytest.raises(err, match=match):
-        S.simulate_fleet_ensemble([(f, t, r, cp)], **kw)
-    if what == "shard_en":
-        with pytest.raises(err, match=match):
-            S.sweep_policies(cp, {"r": PolicyConfig()}, n=16, device="cpu",
-                             **kw)
+        import _multirank_ranks as R
+        from repro_torch.distributed.ranks import run_ranks
+        chips = 64
+        f, t, r = S.synthetic_lifecycle_fleet(16, cp, chips_per_node=chips,
+                                              device="cpu")
+        want = S.simulate_fleet_ensemble([(f, t, r, cp,
+                                           S.generate_jobs(cp))])
+        sweep = S.sweep_policies(cp, {"r": PolicyConfig()}, n=16,
+                                 device="cpu")
+        out = run_ranks(R.world_tasks, 2, [
+            ("en", "ensemble_en", dict(cfgs=[cp], n=16, chips=chips)),
+            ("sweep", "sweep_en", dict(cfg=cp, n=16))], timeout=240)
+        for got in out:
+            for a, b in zip(got["en"], want):
+                assert_same(a, b, emissions_rel=0)
+            assert got["sweep"] == sweep
+        return
+    cp = dataclasses.replace(cp, engine="blind")
+    with pytest.raises(ValueError, match="scanned core"):
+        S.simulate_fleet_ensemble([(f, t, r, cp)])
 
 
 @pytest.mark.parametrize("shard", [True, "e", "en"])

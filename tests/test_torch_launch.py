@@ -474,17 +474,51 @@ def test_run_cell_result_and_skips():
         if not cfg.supports_shape(configs.SHAPES["long_500k"]):
             s = dryrun.run_cell(arch, "long_500k")
             assert s["status"] == "skipped" and "500k" in s["reason"]
-    with pytest.raises(NotImplementedError, match=r"item 1\(b\)"):
-        dryrun.run_cell("granite-3-2b", "train_4k", chips=512)
+    # the (2, 16, 16) mesh in this process, over a fake world it ends
+    m = dryrun.run_cell("granite-3-2b", "decode_32k", chips=512)
+    assert (m["status"], m["chips"], m["multi_pod"]) == ("ok", 512, True)
+    assert m["roofline"]["collective_bytes_per_device"] > 0
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="chips"):
+        dryrun.run_cell("granite-3-2b", "train_4k", chips=8)
 
 
-def test_dry_run_cli_refuses_multi_pod():
+def test_dry_run_cli_refuses_multi_pod(tmp_path):
+    """``--multi-pod`` (``--chips 512``) runs the cell on the (2, 16, 16)
+    mesh and writes its result."""
+    path = tmp_path / "cell.json"
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "granite-3-2b", "--shape", "train_4k", "--multi-pod"],
+         "granite-3-2b", "--shape", "decode_32k", "--multi-pod", "--out",
+         str(path)],
         capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert out.returncode != 0 and "item 1(b)" in out.stderr
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    r = json.loads(path.read_text())
+    assert (r["status"], r["chips"], r["multi_pod"]) == ("ok", 512, True)
+    assert r["roofline"]["collective_bytes_per_device"] > 0
+    assert "multipod" in out.stdout
+
+
+def test_written_results_count_only_for_their_own_mesh(tmp_path,
+                                                       monkeypatch):
+    """A result file under a mesh's name counts as that mesh's only when
+    its ``chips`` are the mesh's: a one-card result left under
+    ``__pod__`` is run again by ``--all --meshes pod`` and is not printed
+    as a pod number by ``--table --chips 256``."""
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    path = dryrun._result_path("granite-3-2b", "train_4k", "baseline", 256)
+    assert path.name == "granite-3-2b__train_4k__pod__baseline.json"
+    path.write_text(json.dumps({"status": "ok", "chips": 1}))
+    assert dryrun._written(path, 256) is None
+    assert dryrun._written(path, 1) == {"status": "ok", "chips": 1}
+    row = next(r for r in dryrun.table("baseline", 256).splitlines()
+               if r.startswith("| granite-3-2b |"))
+    assert "other mesh" in row and " s, " not in row
+    path.write_text(json.dumps({"status": "skipped", "chips": 256}))
+    row = next(r for r in dryrun.table("baseline", 256).splitlines()
+               if r.startswith("| granite-3-2b |"))
+    assert "skipped" in row
 
 
 def test_model_flops_and_batch_template_match_reference():

@@ -48,6 +48,9 @@ from repro.train.train_step import make_train_step as jax_make_train_step
 
 from repro_torch.configs import get_config
 from repro_torch.core import simulator as S
+from repro_torch.core.faults import FaultConfig
+from repro_torch.core.policy import PolicyConfig
+from repro_torch.core.traffic import TrafficConfig
 from repro_torch.data.pipeline import DataConfig, PipelineState, host_batch
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.ranks import run_ranks
@@ -68,6 +71,9 @@ LOOP = dict(steps=8, batch=4, seq=16, reduced=True, task="copy",
             ckpt_every=2, log_every=100)
 FAULT_AT = 5
 ENS_N, ENS_CHIPS = 16, 64
+# shard="en": more nodes than the shortlist (16), so each rank's shard
+# sends candidates to the cross-rank merge
+EN_N = 96
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,6 +119,26 @@ def _ens_cfgs(n_lanes: int) -> list:
             for i in range(n_lanes)]
 
 
+def _en_rich_cfgs() -> list:
+    """Lanes that reach every node-axis path of the trajectory under
+    ``shard="en"``: migration (the per-region best pue, the lookahead
+    planner), outages, faults (flapping eligibility, failed moves), SLO
+    deferral, tenant attribution; and serving (the router's node reads)
+    with the reactive policies."""
+    rich = dict(BASE, epochs=16, migration_budget=2, deferrable_frac=0.3,
+                outage=(0, 4, 3), n_tenants=3)
+    return [S.SimConfig(**dict(
+                rich, seed=5, policy=PolicyConfig(migration="lookahead",
+                                                  deferral="slo",
+                                                  green_gate=10.0),
+                faults=FaultConfig(ci_dropout=0.6, stale_cap_h=2,
+                                   safe_stale_h=4, telem_sigma=0.1,
+                                   mig_fail=0.4, flap_rate=0.03,
+                                   quarantine_h=2))),
+            S.SimConfig(**dict(rich, seed=6, traffic=TrafficConfig(
+                req_rate=2000.0, n_svc=2, mu_per_chip=0.1)))]
+
+
 @pytest.fixture(scope="module")
 def worlds():
     """Every multi-rank task, one spawn per world size."""
@@ -123,17 +149,30 @@ def worlds():
           ("ens4", "ensemble", dict(cfgs=_ens_cfgs(4), n=ENS_N,
                                     chips=ENS_CHIPS)),
           ("ens3", "ensemble", dict(cfgs=_ens_cfgs(3), n=ENS_N,
-                                    chips=ENS_CHIPS))]
+                                    chips=ENS_CHIPS)),
+          ("en1", "ensemble_en", dict(cfgs=_ens_cfgs(1), n=EN_N,
+                                      chips=ENS_CHIPS)),
+          ("en_rich1", "ensemble_en", dict(cfgs=_en_rich_cfgs()[:1],
+                                           n=EN_N, chips=ENS_CHIPS))]
     w4 = [("22", "steps", dict(step, shape=(2, 2, 1))),
           ("22_bf16", "steps", dict(step, shape=(2, 2, 1),
                                     dtype="bfloat16")),
+          ("22_sp", "steps", dict(step, shape=(2, 2, 1),
+                                  sequence_parallel=True)),
           ("loop", "loop", dict(ckpt_dir=f"{root}/loop", kw=dict(
               LOOP, data_mesh=2, model_mesh=2), fault_at=FAULT_AT)),
           ("ens4", "ensemble", dict(cfgs=_ens_cfgs(4), n=ENS_N,
                                     chips=ENS_CHIPS)),
           ("ens3", "ensemble", dict(cfgs=_ens_cfgs(3), n=ENS_N,
                                     chips=ENS_CHIPS)),
-          ("emesh", "ensemble_meshes", {})]
+          ("emesh", "ensemble_meshes", {}),
+          ("decode", "decode", dict(params_np=params, tokens=_tokens())),
+          ("en2", "ensemble_en", dict(cfgs=_ens_cfgs(2), n=EN_N,
+                                      chips=ENS_CHIPS)),
+          ("en3", "ensemble_en", dict(cfgs=_ens_cfgs(3), n=EN_N,
+                                      chips=ENS_CHIPS)),
+          ("en_rich2", "ensemble_en", dict(cfgs=_en_rich_cfgs(), n=EN_N,
+                                           chips=ENS_CHIPS))]
     w8 = [("11", "steps", dict(step, shape=(1, 1, 1))),
           ("222", "steps", dict(step, shape=(2, 2, 2)))]
     w8 += [(f"222_{s}", "steps", dict(step, shape=(2, 2, 2), sync=s))
@@ -351,6 +390,30 @@ def test_train_step_2x2_matches_jax_one_device(worlds):
         assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
 
 
+def test_train_step_2x2_sequence_parallel_matches_one_process(
+        worlds, one_process):
+    """The (2, 2) steps with the optimized llama3.2-3b cell's rules
+    (sequence split over ``model``, weights whole over it) under
+    ``activation_sharding``: the constraints move activations (at least
+    one redistribute per step), and the losses, grad norms and final
+    parameters are the one-process port's (f32) within the bars of
+    ``test_train_steps_match_one_process``."""
+    ref = one_process["float32"]
+    res = [r["22_sp"] for r in worlds[4]]
+    for r in res:
+        assert r["losses"] == res[0]["losses"]
+        assert r["placements_ok"] and r["moments_ok"]
+        assert r["moved"] >= len(worlds["batches"])
+    got = res[0]
+    for a, b in zip(got["losses"], ref["losses"]):
+        assert a == pytest.approx(b, rel=1e-5)
+    for a, b in zip(got["gnorms"], ref["gnorms"]):
+        assert abs(a - b) / b < 5e-2
+    for a, b in zip(sh.tree_leaves(got["params"]),
+                    sh.tree_leaves(ref["params"])):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
 def test_train_step_2x2_bf16_within_reference_bars(worlds, one_process):
     ref = one_process["bfloat16"]
     got = worlds[4][0]["22_bf16"]
@@ -446,6 +509,91 @@ def test_train_loop_elastic_restart_matches_one_process(worlds):
     for a, b in zip(runs[0]["losses"], one.losses):
         assert abs(a - b) < 5e-3
     assert runs[0]["losses"][-1] == pytest.approx(one.losses[-1], rel=1e-4)
+
+
+def _tokens() -> np.ndarray:
+    """(4, 6) token ids for the decode steps."""
+    cfg = get_config(ARCH).reduced()
+    return np.random.default_rng(7).integers(0, cfg.vocab, (4, 6))
+
+
+def test_decode_on_a_mesh_matches_one_process(worlds):
+    """Decode steps on a (data 2, model 2) mesh, caches split by rows and
+    positions (each rank writes the entries it holds; the softmax over
+    positions split across ranks): every step's logits within 1e-5 x
+    max|logit| of the one-process decode (f32), on every rank."""
+    model = build_model(get_config(ARCH).reduced(),
+                        ModelFlags(attn_chunk=32))
+    params = R._params(model, worlds["params"], "float32")
+    tokens = _tokens()
+    B, T = tokens.shape
+    caches = sh.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32),
+                         model.cache_template(B, T))
+    want = []
+    for t in range(T):
+        logits, caches = model.decode_step(params, caches, {
+            "token": torch.from_numpy(tokens[:, t]),
+            "positions": torch.full((B,), t, dtype=torch.int64)})
+        want.append(logits.numpy())
+    for r in worlds[4]:
+        for got, w in zip(r["decode"], want):
+            np.testing.assert_allclose(got, w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("world,lanes,mesh", [(2, 1, (1, 2)),
+                                              (4, 2, (2, 2)),
+                                              (4, 3, (3, 1))])
+def test_en_ensemble_equals_one_process(worlds, world, lanes, mesh):
+    """``shard="en"`` over the world's ``("e", "n")`` ensemble mesh (one
+    lane on (e 1, n 2); two on (2, 2); three on (3, 1), one rank idle):
+    each lane block's placement engine splits over its n ranks by nodes,
+    and every lane == the one-process ensemble, bit for bit, on every
+    rank."""
+    assert sh.ensemble_mesh(lanes, EN_N, world).sizes == mesh
+    runs = []
+    for c in _ens_cfgs(lanes):
+        f, t, r = S.synthetic_lifecycle_fleet(EN_N, c,
+                                              chips_per_node=ENS_CHIPS,
+                                              device="cpu")
+        runs.append((f, t, r, c, S.generate_jobs(c)))
+    want = S.simulate_fleet_ensemble(runs)
+    for rank in range(world):
+        got = worlds[world][rank][f"en{lanes}"]
+        assert len(got) == lanes
+        for a, b in zip(got, want):
+            assert_same(a, b, emissions_rel=0)
+
+
+@pytest.mark.parametrize("world,key,lanes", [(2, "en_rich1", 1),
+                                             (4, "en_rich2", 2)])
+def test_en_ensemble_rich_lanes_equal_one_process(worlds, world, key,
+                                                  lanes):
+    """``shard="en"`` on lanes that reach every node-axis path
+    (``_en_rich_cfgs``: one lane on (e 1, n 2); both on a world of 4,
+    each its own bucket, so each lane's nodes split 4 ways): every field
+    of every lane's result == the one-process ensemble's, emissions,
+    tenant and request accounting included, on every rank."""
+    runs = []
+    for c in _en_rich_cfgs()[:lanes]:
+        f, t, r = S.synthetic_lifecycle_fleet(EN_N, c,
+                                              chips_per_node=ENS_CHIPS,
+                                              device="cpu")
+        runs.append((f, t, r, c, S.generate_jobs(c)))
+    want = S.simulate_fleet_ensemble(runs)
+    assert min(want[0].migrations, want[0].migrations_failed,
+               want[0].jobs_deferred, want[0].evictions) > 0
+    assert lanes == 1 or want[1].req_served > 0
+    for rank in range(world):
+        got = worlds[world][rank][key]
+        assert len(got) == lanes
+        for a, b in zip(got, want):
+            for fld in dataclasses.fields(b):
+                x, y = getattr(a, fld.name), getattr(b, fld.name)
+                if isinstance(y, (np.ndarray, float)):
+                    assert np.array_equal(x, y, equal_nan=True), fld.name
+                else:
+                    assert x == y, fld.name
 
 
 @pytest.mark.parametrize("world,lanes", [(2, 4), (2, 3), (4, 4), (4, 3)])
