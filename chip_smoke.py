@@ -68,7 +68,13 @@ outputs against the port's CPU path and the paper headline:
      (2 batches of 4 slots, prompt 512, 32 new tokens, greedy) with
      granite-3-2b (40 layers; K5 on every prefill layer) and
      falcon-mamba-7b (64 layers; K6 on every prefill layer), random
-     weights from a seed and a redrawn lm_head; each K5 / K6 launch of a
+     weights from a seed and a redrawn lm_head; the engine's prefill and
+     decode run as CUDA graphs (one capture per step and signature, the
+     launches counted per replay and warm-up), its tokens == an eager
+     engine's, a captured prefill's logits and caches and 8 captured
+     decode steps == the eager steps bit for bit, the decode step
+     profiled eager and replayed, both engines timed; each K5 / K6
+     launch of a
      prefill within its bar of the plain version on that layer's own
      inputs; each model's prefill logits through the kernels == the same
      model through the plain versions on the card, on two prompt batches
@@ -128,7 +134,8 @@ outputs against the port's CPU path and the paper headline:
      experts top 6; 28.06 B parameters) and (b) zamba2-1.2b (Mamba-2 with
      K6's per-channel form, the tied attention block every 6 blocks),
      both at full width and depth, bf16 from seed 0, served like phase
-     11 (8 requests, 2 x 4 slots, prompt 512, 32 new); the launches
+     11 (8 requests, 2 x 4 slots, prompt 512, 32 new; captured steps
+     bitwise the eager ones, tokens == an eager engine's); the launches
      counted per prefill, each K5 / K6 launch of a prefill within its bar
      of the plain version on that layer's inputs, the prefill logits
      kernel vs plain route (2e-2 / 4e-1 x max|logit|; for moonshot the
@@ -136,7 +143,8 @@ outputs against the port's CPU path and the paper headline:
      zamba2's SSD route vs its scan route; (c) qwen2-vl-72b at full width,
      16 of 80 layers: stub patch embeddings (B 4, S 544) with M-RoPE ids
      (grid 32), prefill of 512, 32 decode steps fed the stub embeddings
-     and their ids, the prefill kernel vs plain route and the last decode
+     and their ids, eager and through the engine's captured steps
+     (bitwise), the prefill kernel vs plain route and the last decode
      logits vs the training forward's at that position (2e-2); (d)
      reduced moonshot (capacity factor 16), zamba2 and qwen2-vl with f32
      parameters, prefill and 5 decode steps card == CPU (1e-4); peak
@@ -150,7 +158,8 @@ outputs against the port's CPU path and the paper headline:
      (``launch.dryrun.count_cell``) at the same shape, FLOPs and bytes,
      K5/K6 through their formulas; (c) every cell phases 11, 14 and 15
      time on the card's roofline row: the counted step time beside the
-     measured one, ``roofline_fraction`` and ``mfu`` (model FLOPs over
+     measured one (a serving cell's captured step, the eager step's ms
+     beside it), ``roofline_fraction`` and ``mfu`` (model FLOPs over
      the dense bf16 peak x the measured time; the training cells' within
      1 % of phase 14's share: both divide by the same measured time, so
      this holds ``active_param_count`` against the tensor elements); what
@@ -251,6 +260,9 @@ TRAFFIC_GAMMAS = (0.0, 0.25, 0.5, 0.75, 1.0)
 # the same with f32 parameters on both routes: the CPU suite's f32 bar
 # (tests/test_torch_models.py), x max|logit|
 SERVE_F32_BAR = 1e-4
+# phases 11 and 15: the decode steps the captured step (CUDA graph) is
+# held bitwise against the eager step for, from the same caches
+GRAPH_DECODE = 8
 # phase 14: (arch, layers, batch, seq, steps) of the full-width training
 # runs; falcon-mamba-7b's depth is cut to fit its training state in 80 GB
 TRAIN_FULL = (("granite-3-2b", 40, 4, 1024, 5),
@@ -802,7 +814,9 @@ def _wrappers():
 
 def counted(fn):
     """Run ``fn`` with every launch count set to 0 just before and read
-    just after; returns (result, {kernel: launches})."""
+    just after; returns (result, {kernel: launches}).  A CUDA graph's
+    replays count the launches it captured, each time (``_graphs``); the
+    capture itself counts none."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.selective_scan import selective_scan
@@ -2236,12 +2250,147 @@ def _k6_per_channel(dev, g, rates, flush, err):
     return out
 
 
+def _bitwise(what, a, b):
+    """Check ``a`` == ``b`` bit for bit; a difference names its first
+    element and the count."""
+    import torch
+    if torch.equal(a, b):
+        return
+    diff = a != b
+    n = int(diff.sum()) if a.shape == b.shape else -1
+    at = (tuple(int(i) for i in torch.nonzero(diff)[0]) if n > 0 else ())
+    first = (f"first at {at}: {float(a[at])!r} vs {float(b[at])!r}"
+             if n > 0 else f"shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+    check(False, f"{what}: captured and eager differ in {n} of "
+          f"{a.numel()} values, {first}")
+
+
+class _EagerStep:
+    """An engine step run as the engine ran it before its steps were
+    captured: the same call, no graph."""
+    setup_s = captures = warmups = 0
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, params, inputs, state=None, **static):
+        return self.fn(params, inputs, state, **static)
+
+
+def _eager_engine(model, params, cache, dev):
+    """A ``ServeEngine`` whose prefill and decode run eagerly: its
+    ``generate`` is the engine's loop, sampling and per-step reads
+    included, timed as the engine times its steps."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(model, params, max_seq=cache, batch_slots=SERVE_SLOTS,
+                      device=dev)
+    eng._prefill = _EagerStep(eng._prefill.fn)
+    eng._decode = _EagerStep(eng._decode.fn)
+    return eng
+
+
+def _busy_share(dev_ms, step_ms):
+    """The profiled step's device ms as a share of the unprofiled step's
+    measured ms (the profiler's own wall time is mostly its start-up)."""
+    if dev_ms is None:
+        return "not measured (the profiler saw no device time)"
+    return (f"device {dev_ms:.2f} ms = {100 * dev_ms / step_ms:.1f} % of "
+            f"the unprofiled {step_ms:.2f} ms")
+
+
+def _sync_ms(fn, reps=3):
+    """Median host ms of ``fn()`` ended by a device synchronize."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _captured_vs_eager(tag, arch, model, params, cache, served, dec, dev):
+    """The served engine's captured steps against the eager steps, on the
+    first prompt batch ``serve`` drew (seed 0): (1) the engine's greedy
+    tokens (``served``) == an eager engine's, whose decode ms/step and
+    prefill ms are the eager times; (2) a captured prefill's logits and
+    caches and ``GRAPH_DECODE`` captured decode steps' logits (and the
+    caches after them) bitwise the eager steps' from the same caches;
+    (3) the prefill alone, eager and replayed, 3 times each; (4) one
+    eager decode step and one replayed, profiled, each step's device time
+    against its measured ms (``dec``: the served engine's captured decode
+    ms per step).  Returns (eager prefill ms, captured prefill ms), each
+    the mean of (3)'s two medians, and the eager engine's decode ms per
+    step.  (The engine's own prefill mean is over 2 calls, the first
+    carrying any first use in the process of what follows the step.)"""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    prompts = np.random.default_rng(0).integers(
+        2, model.cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT))
+    eager = _eager_engine(model, params, cache, dev)
+    toks = [r.tokens for r in eager.generate(prompts, SERVE_NEW)]
+    check(toks == [r.tokens for r in served],
+          f"{arch}: the engine's tokens differ from an eager engine's")
+    t = eager.timings
+    pre, e_dec = t["prefill_s"] * 1e3, t["decode_s"] / t["decode_steps"] * 1e3
+    del eager
+    eng = ServeEngine(model, params, max_seq=cache, batch_slots=SERVE_SLOTS,
+                      device=dev)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev).long()}
+    le, ce = model.prefill(params, batch, cache)
+    lg, cg = eng.prefill(batch)
+    _bitwise(f"{arch} prefill logits", le, lg)
+    for i, (a, b) in enumerate(zip(_leaves(ce), _leaves(cg))):
+        _bitwise(f"{arch} prefill cache leaf {i}", a, b)
+    for i in range(GRAPH_DECODE):
+        step = {"token": le.argmax(-1),
+                "positions": torch.full((SERVE_SLOTS,), SERVE_PROMPT + i,
+                                        dtype=torch.long, device=dev)}
+        le, ce = model.decode_step(params, ce, step)
+        lg, cg = eng.decode(cg, step)
+        _bitwise(f"{arch} decode step {i} logits", le, lg)
+    for i, (a, b) in enumerate(zip(_leaves(ce), _leaves(cg))):
+        _bitwise(f"{arch} cache leaf {i} after {GRAPH_DECODE} decode steps",
+                 a, b)
+    p_ms = [_sync_ms(lambda: model.prefill(params, batch, cache)),
+            _sync_ms(lambda: eng.prefill(batch)),
+            _sync_ms(lambda: eng.prefill(batch)),
+            _sync_ms(lambda: model.prefill(params, batch, cache))]
+    _, e_dev, e_wall, e_summ = device_busy(
+        lambda: model.decode_step(params, ce, step), top=5)
+    _, g_dev, g_wall, g_summ = device_busy(lambda: eng.decode(cg, step),
+                                           top=5)
+    say(f"{tag} {arch}: the engine's {len(toks)} x {SERVE_NEW} tokens == "
+        f"an eager engine's; the captured prefill's logits and caches and "
+        f"{GRAPH_DECODE} captured decode steps' logits and caches == the "
+        f"eager steps' bit for bit; eager engine: prefill {pre:.2f} ms, "
+        f"decode {e_dec:.3f} ms per step; the prefill alone (median of 3, "
+        f"synchronized; eager, captured, captured, eager): "
+        f"{', '.join(f'{m:.2f}' for m in p_ms)} ms; pool of this engine's "
+        f"two graphs {eng._pool.reserved / 2**20:.1f} MiB")
+    say(f"{tag} {arch}: profiled eager decode step: "
+        f"{_busy_share(e_dev, e_dec)}; {busy_note(e_dev, e_wall)}; {e_summ}")
+    say(f"{tag} {arch}: profiled replayed decode step: "
+        f"{_busy_share(g_dev, dec)}; {busy_note(g_dev, g_wall)}; {g_summ}")
+    return (p_ms[0] + p_ms[3]) / 2, (p_ms[1] + p_ms[2]) / 2, e_dec
+
+
+def _graph_note(out):
+    """The serve engine's captures, their seconds and its pool."""
+    return (f"{out['captures']} captures (one per step and signature) in "
+            f"{out['capture_s']:.2f} s, {out['warmup_prefills']} warm-up "
+            f"prefills, graph pool {out['pool_bytes'] / 2**20:.1f} MiB")
+
+
 def phase_serving(dev, record):
     """Serve each full-width model through ``launch.serve.serve``; its
     prefill logits through the kernels == through the plain versions.
     ``record`` gets each model's prefill and decode cell for phase 16:
     the measured ms and the step counted on the card."""
     import torch
+    from repro_torch._graphs import WARMUP
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import ModelFlags, build_model
@@ -2269,7 +2418,12 @@ def phase_serving(dev, record):
             total[k] = total.get(k, 0) + v
         kern = "flash_attention" if cfg.has_attention else "selective_scan"
         other = "selective_scan" if cfg.has_attention else "flash_attention"
-        want = cfg.n_layers * out["prefills"]
+        # the engine's captured prefill launches its kernel once a layer
+        # on each replay, and on each eager warm-up before its capture
+        check(out["captures"] == 2 and out["warmup_prefills"] == WARMUP,
+              f"{arch}: {out['captures']} captures, "
+              f"{out['warmup_prefills']} warm-ups; expected 2 and {WARMUP}")
+        want = cfg.n_layers * (out["prefills"] + out["warmup_prefills"])
         check(cnt[kern] == want and cnt[other] == 0,
               f"{arch}: launches {cnt}, expected {kern} = {want}")
         check(out["requests"] == SERVE_REQUESTS and all(
@@ -2323,33 +2477,28 @@ def phase_serving(dev, record):
         torch.cuda.empty_cache()
         prompts = torch.as_tensor(np.random.default_rng(0).integers(
             2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
-        lk, caches = kmodel.prefill(params, {"tokens": prompts}, cache)
         _, dev_ms, prof_ms, summ = device_busy(
             lambda: kmodel.prefill(params, {"tokens": prompts}, cache),
             top=5)
-        step = {"token": lk.argmax(-1),
-                "positions": torch.full((SERVE_SLOTS,), SERVE_PROMPT,
-                                        device=dev)}
-        _, dec_dev, dec_wall, dec_summ = device_busy(
-            lambda: kmodel.decode_step(params, caches, step), top=5)
         pre = out["prefill_s"] / out["prefills"] * 1e3
         dec = out["decode_s"] / out["decode_steps"] * 1e3
         say(f"[11] {arch}: pod {out['pod']}, {out['tokens']} tokens, "
-            f"prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x"
-            f"{SERVE_PROMPT}, decode {dec:.2f} ms per step of "
+            f"captured prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x"
+            f"{SERVE_PROMPT}, captured decode {dec:.2f} ms per step of "
             f"{SERVE_SLOTS} tokens ({dec / SERVE_SLOTS:.2f} ms/token), "
             f"{out['tok_per_s']:.1f} tok/s, {out['g_per_request']:.4f} "
-            f"gCO2/request; launches {cnt[kern]} {kern}; profiled prefill: "
-            f"{busy_note(dev_ms, prof_ms)}; {summ}")
-        say(f"[11] {arch}: profiled decode step: "
-            f"{busy_note(dec_dev, dec_wall)}; {dec_summ}")
-        del lk, caches
+            f"gCO2/request; launches {cnt[kern]} {kern}; {_graph_note(out)}"
+            f"; profiled eager prefill: {busy_note(dev_ms, prof_ms)}; "
+            f"{summ}")
+        e_pre, g_pre, e_dec = _captured_vs_eager(
+            "[11]", arch, kmodel, params, cache,
+            out["results"][:SERVE_SLOTS], dec, dev)
         c_pre, c_dec = _count_serving(kmodel, params, prompts, cache)
         _roof_cell(record, f"{arch} prefill", cfg, kmodel, "prefill",
-                   SERVE_PROMPT, SERVE_SLOTS, pre, cache_len=cache,
-                   card=c_pre)
+                   SERVE_PROMPT, SERVE_SLOTS, g_pre, cache_len=cache,
+                   card=c_pre, eager=e_pre)
         _roof_cell(record, f"{arch} decode", cfg, kmodel, "decode", cache,
-                   SERVE_SLOTS, dec, card=c_dec)
+                   SERVE_SLOTS, dec, card=c_dec, eager=e_dec)
         del params, kmodel, pmodel
         torch.cuda.empty_cache()
     return total
@@ -2430,6 +2579,7 @@ def _serve_family(dev, arch, record):
     kernel route's prefill against the plain route's (and for zamba2 the
     SSD route's against the scan's)."""
     import torch
+    from repro_torch._graphs import WARMUP
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import ModelFlags, build_model
@@ -2448,8 +2598,13 @@ def _serve_family(dev, arch, record):
     n_attn = (len(hybrid_groups(cfg)) if cfg.family == "hybrid"
               else cfg.n_layers)
     n_scan = cfg.n_layers if cfg.has_ssm else 0
-    want = {"flash_attention": n_attn * out["prefills"],
-            "selective_scan_per_channel": n_scan * out["prefills"]}
+    check(out["captures"] == 2 and out["warmup_prefills"] == WARMUP,
+          f"{arch}: {out['captures']} captures, {out['warmup_prefills']} "
+          f"warm-ups; expected 2 and {WARMUP}")
+    # each replay of the captured prefill, and each warm-up before it
+    runs = out["prefills"] + out["warmup_prefills"]
+    want = {"flash_attention": n_attn * runs,
+            "selective_scan_per_channel": n_scan * runs}
     check(all(cnt[k] == v for k, v in want.items())
           and sum(cnt.values()) == sum(want.values()),
           f"{arch}: launches {cnt}, expected {want}")
@@ -2462,19 +2617,24 @@ def _serve_family(dev, arch, record):
     pre = out["prefill_s"] / out["prefills"] * 1e3
     dec = out["decode_s"] / out["decode_steps"] * 1e3
     say(f"[15] {tag} {arch}: pod {out['pod']}, {out['tokens']} tokens, "
-        f"prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x{SERVE_PROMPT}, "
-        f"decode {dec:.2f} ms per step of {SERVE_SLOTS} tokens, "
-        f"{out['tok_per_s']:.1f} tok/s, {out['g_per_request']:.4f} "
-        f"gCO2/request; launches {want}")
+        f"captured prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x"
+        f"{SERVE_PROMPT}, captured decode {dec:.2f} ms per step of "
+        f"{SERVE_SLOTS} tokens, {out['tok_per_s']:.1f} tok/s, "
+        f"{out['g_per_request']:.4f} gCO2/request; launches {want}; "
+        f"{_graph_note(out)}")
     cache = SERVE_PROMPT + SERVE_NEW + 8
-    _roof_cell(record, f"{arch} prefill", cfg, build_model(cfg), "prefill",
-               SERVE_PROMPT, SERVE_SLOTS, pre, cache_len=cache)
-    _roof_cell(record, f"{arch} decode", cfg, build_model(cfg), "decode",
-               cache, SERVE_SLOTS, dec)
+    kmodel = build_model(cfg)
+    e_pre, g_pre, e_dec = _captured_vs_eager(
+        f"[15] {tag}", arch, kmodel, params, cache,
+        out["results"][:SERVE_SLOTS], dec, dev)
+    _roof_cell(record, f"{arch} prefill", cfg, kmodel, "prefill",
+               SERVE_PROMPT, SERVE_SLOTS, g_pre, cache_len=cache,
+               eager=e_pre)
+    _roof_cell(record, f"{arch} decode", cfg, kmodel, "decode", cache,
+               SERVE_SLOTS, dec, eager=e_dec)
     prompts = torch.as_tensor(np.random.default_rng(0).integers(
         2, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT)), device=dev)
     batch = {"tokens": prompts}
-    kmodel = build_model(cfg)
     pmodel = build_model(cfg, ModelFlags(use_kernel=False))
     ((lk, _, held), ek) = _routings(
         lambda: _held_prefill(kmodel, params, batch, cache))
@@ -2517,19 +2677,10 @@ def _serve_family(dev, arch, record):
         f"(bar {bar})")
     check(e <= bar * scale, f"{arch}: kernel-route prefill logits differ "
           f"from the plain route by {e} (max|logit| {scale})")
-    lk, caches = kmodel.prefill(params, batch, cache)
     _, dev_ms, prof_ms, summ = device_busy(
         lambda: kmodel.prefill(params, batch, cache), top=5)
-    step = {"token": lk.argmax(-1),
-            "positions": torch.full((SERVE_SLOTS,), SERVE_PROMPT,
-                                    device=dev)}
-    _, dec_dev, dec_wall, dec_summ = device_busy(
-        lambda: kmodel.decode_step(params, caches, step), top=5)
-    say(f"[15] {tag} {arch}: profiled prefill: "
+    say(f"[15] {tag} {arch}: profiled eager prefill: "
         f"{busy_note(dev_ms, prof_ms)}; {summ}")
-    say(f"[15] {tag} {arch}: profiled decode step: "
-        f"{busy_note(dec_dev, dec_wall)}; {dec_summ}")
-    del caches
     if cfg.has_ssm:
         ls, _ = build_model(cfg, ModelFlags(ssm_algo="ssd")).prefill(
             params, batch, cache)
@@ -2545,14 +2696,17 @@ def _serve_family(dev, arch, record):
 
 def _vlm_family(dev, record):
     """(c): qwen2-vl-72b at full width, 16 of 80 layers: stub patch
-    embeddings with M-RoPE ids, prefill, 32 decode steps; the prefill
-    held kernel vs plain route, the last decode logits vs the training
-    forward's at the same position."""
+    embeddings with M-RoPE ids, prefill, 32 decode steps, each eager and
+    captured (the serving engine's steps with ``embed`` and
+    ``rope_positions`` among the static inputs), the captured ones
+    bitwise the eager ones; the prefill held kernel vs plain route, the
+    last decode logits vs the training forward's at the same position."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import frontend
     from repro_torch.models import transformer as tr
     from repro_torch.models.model import ModelFlags, build_model
+    from repro_torch.serve.engine import ServeEngine
     cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
     t0 = time.perf_counter()
     params, n_par = _seeded_params(cfg, dev)
@@ -2566,12 +2720,21 @@ def _vlm_family(dev, record):
              "positions": ids[:, :SERVE_PROMPT]}
     cache = S + 8
     kmodel = build_model(cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    kmodel.prefill(params, batch, cache)
-    torch.cuda.synchronize()
-    pre = (time.perf_counter() - t0) * 1e3
-    lk, caches, held = _held_prefill(kmodel, params, batch, cache)
+    eng = ServeEngine(kmodel, params, max_seq=cache, batch_slots=B,
+                      device=dev)
+    le, ce = kmodel.prefill(params, batch, cache)
+    lg, cg = eng.prefill(batch)           # the capture and a first replay
+    # the prefill alone, synchronized (median of 3; eager, captured,
+    # captured, eager)
+    p_ms = [_sync_ms(lambda: kmodel.prefill(params, batch, cache)),
+            _sync_ms(lambda: eng.prefill(batch)),
+            _sync_ms(lambda: eng.prefill(batch)),
+            _sync_ms(lambda: kmodel.prefill(params, batch, cache))]
+    pre, pre_g = (p_ms[0] + p_ms[3]) / 2, (p_ms[1] + p_ms[2]) / 2
+    _bitwise(f"{VLM_ARCH} prefill logits", le, lg)
+    for i, (a, b) in enumerate(zip(_leaves(ce), _leaves(cg))):
+        _bitwise(f"{VLM_ARCH} prefill cache leaf {i}", a, b)
+    lk, _, held = _held_prefill(kmodel, params, batch, cache)
     lp, _ = build_model(cfg, ModelFlags(use_kernel=False)).prefill(
         params, batch, cache)
     e_l, n_ok, n_held = held["flash_attention"]
@@ -2583,15 +2746,30 @@ def _vlm_family(dev, record):
     check(bool(torch.isfinite(lk).all()) and e <= SERVE_BARS[VLM_ARCH] * scale,
           f"{VLM_ARCH}: kernel-route prefill logits differ from the plain "
           f"route by {e} (max|logit| {scale})")
+    steps = [{"embed": embeds[:, t],
+              "positions": torch.full((B,), t, dtype=torch.long, device=dev),
+              "rope_positions": ids[:, t]} for t in range(SERVE_PROMPT, S)]
+    eager, captured = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(SERVE_PROMPT, S):
-        logits, caches = kmodel.decode_step(params, caches, {
-            "embed": embeds[:, t],
-            "positions": torch.full((B,), t, dtype=torch.long, device=dev),
-            "rope_positions": ids[:, t]})
+    for step in steps:
+        logits, ce = kmodel.decode_step(params, ce, step)
+        eager.append(logits.clone())
     torch.cuda.synchronize()
     dec = (time.perf_counter() - t0) * 1e3 / SERVE_NEW
+    t0, s0 = time.perf_counter(), eng._decode.setup_s
+    for step in steps:
+        lg, cg = eng.decode(cg, step)
+        captured.append(lg.clone())
+    torch.cuda.synchronize()
+    dec_g = ((time.perf_counter() - t0 - (eng._decode.setup_s - s0)) * 1e3
+             / SERVE_NEW)
+    for i, (a, b) in enumerate(zip(eager, captured)):
+        _bitwise(f"{VLM_ARCH} decode step {i} logits", a, b)
+    for i, (a, b) in enumerate(zip(_leaves(ce), _leaves(cg))):
+        _bitwise(f"{VLM_ARCH} cache leaf {i} after {SERVE_NEW} decode steps",
+                 a, b)
+    logits = eager[-1]
     with torch.no_grad():
         x, pos = kmodel._inputs({"embeds": embeds, "positions": ids}, params)
         h, _ = tr.stack_apply(cfg, params["stack"], x, pos, remat="none")
@@ -2602,20 +2780,35 @@ def _vlm_family(dev, record):
           and ed <= SERVE_BARS[VLM_ARCH] * rs,
           f"{VLM_ARCH}: the last decode logits differ from the forward's by "
           f"{ed} (max|logit| {rs})")
+    _, e_dev, e_wall, e_summ = device_busy(
+        lambda: kmodel.decode_step(params, ce, steps[-1]), top=5)
+    _, g_dev, g_wall, g_summ = device_busy(
+        lambda: eng.decode(cg, steps[-1]), top=5)
     say(f"[15] (c) {VLM_ARCH}: each of the {n_held} K5 launches of the "
         f"prefill within its bar of the plain version on that layer's "
         f"inputs (max abs err {e_l:.4g}); prefill logits kernel vs plain "
         f"route max abs err {e:.4g} = {e / scale:.3g} x max|logit|; the "
         f"logits after {SERVE_NEW} decode steps vs the forward's at "
         f"position {S - 1}: {ed:.4g} = {ed / rs:.3g} x max|logit| {rs:.4g} "
-        f"(bar {SERVE_BARS[VLM_ARCH]}); prefill {pre:.1f} ms per batch of "
-        f"{B}x{SERVE_PROMPT}, decode {dec:.2f} ms per step of {B} tokens")
+        f"(bar {SERVE_BARS[VLM_ARCH]}); the captured prefill's logits and "
+        f"caches and {SERVE_NEW} captured decode steps' logits and caches "
+        f"== the eager steps' bit for bit; prefill {pre_g:.1f} ms captured, "
+        f"{pre:.1f} ms eager, per batch of {B}x{SERVE_PROMPT}; decode "
+        f"{dec_g:.2f} ms captured, {dec:.2f} ms eager, per step of {B} "
+        f"tokens; {eng._prefill.captures + eng._decode.captures} captures "
+        f"in {eng._prefill.setup_s + eng._decode.setup_s:.2f} s, graph "
+        f"pool {eng._pool.reserved / 2**20:.1f} MiB")
+    say(f"[15] (c) {VLM_ARCH}: profiled eager decode step: "
+        f"{_busy_share(e_dev, dec)}; {busy_note(e_dev, e_wall)}; {e_summ}")
+    say(f"[15] (c) {VLM_ARCH}: profiled replayed decode step: "
+        f"{_busy_share(g_dev, dec_g)}; {busy_note(g_dev, g_wall)}; "
+        f"{g_summ}")
     name = f"{VLM_ARCH} ({VLM_LAYERS} layers)"
     _roof_cell(record, f"{name} prefill", cfg, kmodel, "prefill",
-               SERVE_PROMPT, B, pre, cache_len=cache)
+               SERVE_PROMPT, B, pre_g, cache_len=cache, eager=pre)
     _roof_cell(record, f"{name} decode", cfg, kmodel, "decode", cache, B,
-               dec)
-    del params, caches
+               dec_g, eager=dec)
+    del params, ce, cg, eng
 
 
 def _families_card_equal_cpu(dev):
@@ -2971,14 +3164,16 @@ EXAMPLE_CALLS = {
 
 
 def _roof_cell(record, key, cfg, model, kind, seq, batch, ms, *,
-               cache_len=None, card=None, share=None):
+               cache_len=None, card=None, share=None, eager=None):
     """One measured cell for phase 16: its config and model, its shape
     (a decode step's ``seq`` is its cache length), the measured ms per
-    step, the ``Cost`` counted on the card (or None) and phase 14's
-    model-FLOP share (or None)."""
+    step (a serving cell's: the captured step's, a prefill's synchronized
+    alone), the ``Cost`` counted on
+    the card (or None), phase 14's model-FLOP share (or None) and the
+    eager step's ms (or None)."""
     from repro_torch.configs.base import ShapeSpec
     record[key] = dict(cfg=cfg, model=model, cache_len=cache_len, ms=ms,
-                       card=card, share=share,
+                       card=card, share=share, eager=eager,
                        shape=ShapeSpec(key, kind, seq, batch))
 
 
@@ -3085,11 +3280,13 @@ def _phase16_counts(record, hw, card):
         mf = dryrun.model_flops(e["cfg"], e["shape"])
         mfu = mf / (peak * e["ms"] / 1e3)
         sh = e["shape"]
+        eager = ("" if e["eager"] is None else
+                 f"; the captured step; eager {e['eager']:.2f} ms")
         say(f"[16] (c) {key} ({sh.global_batch} x {sh.seq_len}): counted "
             f"{c.flops:.4g} FLOPs, {c.bytes:.4g} bytes -> roofline step "
             f"{roof.step_s * 1e3:.3f} ms ({roof.dominant}) on {hw}; "
             f"measured {e['ms']:.2f} ms ({100 * roof.step_s * 1e3 / e['ms']:.2f}"
-            f" % of it); model FLOPs {mf:.4g} = {mf / c.flops:.3f} x counted;"
+            f" % of it{eager}); model FLOPs {mf:.4g} = {mf / c.flops:.3f} x counted;"
             f" roofline_fraction {roof.roofline_fraction(mf):.4f}; mfu "
             f"{mfu:.5f} on {card}")
         if e["share"] is not None:

@@ -14,7 +14,8 @@ runs the plain torch version ``attention_plain``, the math of
 shape; any other device raises.
 ``flash_attention.launches`` counts kernel launches, and
 ``flash_attention.route_launches`` splits them by route (``"bf16"``,
-``"f32"``).
+``"f32"``); a CUDA graph that captured launches adds them on each replay
+(``count_launches``).
 
 The public call goes through the custom op
 ``torch.ops.repro_torch.flash_attention``, so a ``TorchDispatchMode`` (the
@@ -147,8 +148,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], B, H, k.shape[1], S, hd, int(window),
         hd ** -0.5, int(vec), stream), "flash_attention")
-    flash_attention.launches += 1
-    flash_attention.route_launches[_ROUTES[q.dtype]] += 1
+    count_launches(_ROUTES[q.dtype])
     return out
 
 
@@ -178,6 +178,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the kernel (built at first use, or the call raises); meta tensors: the
     output's shape."""
     return torch.ops.repro_torch.flash_attention(q, k, v, int(window))
+
+
+def count_launches(route: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``route`` to ``flash_attention``'s counters: one
+    for each launch here, and a CUDA graph's captured launches on each of
+    its replays (``repro_torch._graphs``; its capture takes back, with a
+    negative ``n``, what it counted while nothing ran)."""
+    flash_attention.launches += n
+    flash_attention.route_launches[route] += n
 
 
 flash_attention.launches = 0

@@ -18,7 +18,8 @@ at first use; on CPU tensors it runs the plain step-by-step loop
 shapes; any other device raises.
 ``selective_scan.launches`` counts kernel launches and
 ``selective_scan.route_launches`` splits them by the decay's form
-(``"dn"``: (D, N); ``"per_channel"``: (D,)).
+(``"dn"``: (D, N); ``"per_channel"``: (D,)); a CUDA graph that captured
+launches adds them on each replay (``count_launches``).
 
 The public call goes through the custom op
 ``torch.ops.repro_torch.selective_scan``, so a ``TorchDispatchMode`` (the
@@ -157,9 +158,7 @@ def launch(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
         dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), y.data_ptr(), h_last.data_ptr(), _DTYPES[x.dtype],
         B, S, D, N, int(a.dim() == 1), int(vec), stream), "selective_scan")
-    selective_scan.launches += 1
-    selective_scan.route_launches["per_channel" if a.dim() == 1
-                                  else "dn"] += 1
+    count_launches("per_channel" if a.dim() == 1 else "dn")
     return y, h_last
 
 
@@ -190,6 +189,15 @@ def selective_scan(dt, x, b, c, a) -> Tuple[torch.Tensor, torch.Tensor]:
     plain version; CUDA tensors: the kernel (built at first use, or the
     call raises); meta tensors: the outputs' shapes."""
     return torch.ops.repro_torch.selective_scan(dt, x, b, c, a)
+
+
+def count_launches(route: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``route`` to ``selective_scan``'s counters: one
+    for each launch here, and a CUDA graph's captured launches on each of
+    its replays (``repro_torch._graphs``; its capture takes back, with a
+    negative ``n``, what it counted while nothing ran)."""
+    selective_scan.launches += n
+    selective_scan.route_launches[route] += n
 
 
 selective_scan.launches = 0

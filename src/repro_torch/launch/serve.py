@@ -4,8 +4,10 @@
 ``python -m repro_torch.launch.serve --arch granite-3-2b --requests 8
 --max-new 16 [--full] [--device cpu]`` ranks a 64-pod fleet (Eq. 1),
 places the replica on the best pod with ``place_jobs``, serves the
-requests in batches of ``--slots`` with the slot engine and reports tok/s
-and gCO2/request (Eq. 2).  Runs on the card unless ``--device cpu``.
+requests in batches of ``--slots`` with the slot engine (its prefill and
+decode captured as CUDA graphs on the card, eager on the CPU) and reports
+tok/s and gCO2/request (Eq. 2).  Runs on the card unless ``--device
+cpu``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ def serve(cfg: ArchConfig, *, requests: int = 8, prompt_len: int = 16,
     random tokens (seed 0) and account their carbon.  ``params`` defaults
     to ``build_model(cfg).init(0)`` on ``device``.  Returns the pod, the
     results, tokens, wall seconds, tok/s, gCO2/request and the engine's
-    prefill/decode timings."""
+    ``timings`` (prefill / decode seconds and counts, its captures, their
+    seconds, the warm-up prefills and the graph pool's bytes)."""
     dev = resolve_device(device)
     fleet = synthetic_fleet(64, seed=0, device=dev)
     pl = place_jobs(fleet, torch.tensor([slots], dtype=torch.int32,
@@ -74,7 +77,8 @@ def serve(cfg: ArchConfig, *, requests: int = 8, prompt_len: int = 16,
                g_per_request=g / max(done, 1), **engine.timings)
     log(f"\n{done} requests, {toks} tokens in {wall:.1f}s "
         f"({toks / wall:.1f} tok/s); ~{g / max(done, 1):.3f} gCO2/request "
-        f"on pod {pod}")
+        f"on pod {pod}; {engine.timings['captures']} step captures "
+        f"({engine.timings['capture_s']:.1f}s)")
     return out
 
 

@@ -5,9 +5,24 @@ A fixed batch of B slots, each holding one request's cache rows; per-slot
 positions and an active mask let finished slots stop while the others
 decode.  Greedy or temperature sampling (a seeded ``torch.Generator``).
 The engine runs on ``device`` (the card unless the caller passes
-``device="cpu"``), moving the parameters there if they live elsewhere, and
-times its own prefill and decode calls (host clock; each ends in a device
-read of the sampled tokens).
+``device="cpu"``), moving the parameters there if they live elsewhere.
+
+As the reference ``jax.jit``s ``prefill`` and ``decode_step``, the engine
+runs them as ``_graphs.CapturedStep``s in one graph pool: on the card each
+is captured as a CUDA graph once per signature and replayed; the prefill
+graph's output caches are the decode graph's state, so a second
+``generate`` at the same prompt length replays both and captures
+nothing.  On the CPU the same steps run eagerly on the same static
+buffers.  Sampling, the EOS mask and the per-step read of the tokens stay
+outside the graphs, as outside the reference's jit.  The parameters are
+read by address: replacing ``params`` under a captured step raises.
+
+``timings``: seconds in prefill calls / decode steps and their counts
+(host clock; each ends in a device read of the sampled tokens; warm-up
+and capture excluded), the captures (``captures``, one per step and
+signature), the seconds of their warm-up and capture (``capture_s``), the
+eager warm-up runs of the prefill (``warmup_prefills``: they launch the
+prefill's kernels) and the bytes the graph pool reserved (``pool_bytes``).
 """
 from __future__ import annotations
 
@@ -19,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._graphs import CapturedStep, GraphPool
 from repro_torch.distributed.sharding import tree_map
 from repro_torch.models.model import Model
 
@@ -41,9 +57,37 @@ class ServeEngine:
         self.slots = batch_slots
         self.temperature = temperature
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # seconds spent in prefill calls / decode steps, and their counts
+        self._pool = GraphPool(self.device)
+        self._prefill = CapturedStep(
+            lambda p, batch, _, cache_len: model.prefill(p, batch,
+                                                         cache_len),
+            self._pool)
+        self._decode = CapturedStep(
+            lambda p, batch, caches: model.decode_step(p, caches, batch),
+            self._pool)
         self.timings: Dict[str, float] = dict(
             prefill_s=0.0, prefills=0, decode_s=0.0, decode_steps=0)
+        self.timings.update(self._graph_timings())
+
+    # ------------------------------------------------------------------
+    def prefill(self, batch: Dict[str, torch.Tensor]):
+        """``model.prefill(params, batch, max_seq)``, captured: (logits,
+        caches), both the graph's static outputs."""
+        return self._prefill(self.params, batch, cache_len=self.max_seq)
+
+    def decode(self, caches, batch: Dict[str, torch.Tensor]):
+        """``model.decode_step(params, caches, batch)``, captured for these
+        caches (a prefill's): (logits, caches advanced in place)."""
+        return self._decode(self.params, batch, caches)
+
+    def _setup_s(self) -> float:
+        return self._prefill.setup_s + self._decode.setup_s
+
+    def _graph_timings(self) -> Dict[str, float]:
+        return dict(captures=self._prefill.captures + self._decode.captures,
+                    capture_s=self._setup_s(),
+                    warmup_prefills=self._prefill.warmups,
+                    pool_bytes=self._pool.reserved)
 
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -62,28 +106,27 @@ class ServeEngine:
         B, P = prompts.shape
         if B != self.slots:
             raise ValueError(f"{B} prompt rows for {self.slots} slots")
-        t0 = time.perf_counter()
-        logits, caches = self.model.prefill(
-            self.params,
+        t0, s0 = time.perf_counter(), self._setup_s()
+        logits, caches = self.prefill(
             {"tokens": torch.as_tensor(np.asarray(prompts),
-                                       device=self.device).long()},
-            self.max_seq)
+                                       device=self.device).long()})
         tok = self._sample(logits)
         # honor EOS on the prefill-sampled token too: the token is still
         # emitted, but its slot goes inactive before any decode step
         active = (tok != eos_id) if eos_id is not None \
             else torch.ones((B,), dtype=torch.bool, device=self.device)
         out = [[t] for t in tok.tolist()]
-        self.timings["prefill_s"] += time.perf_counter() - t0
+        self.timings["prefill_s"] += (time.perf_counter() - t0
+                                      - (self._setup_s() - s0))
         self.timings["prefills"] += 1
         pos = torch.full((B,), P, dtype=torch.long, device=self.device)
 
         for _ in range(max_new - 1):
             if not bool(active.any()):
                 break
-            t0 = time.perf_counter()
-            logits, caches = self.model.decode_step(
-                self.params, caches, {"token": tok.long(), "positions": pos})
+            t0, s0 = time.perf_counter(), self._setup_s()
+            logits, caches = self.decode(
+                caches, {"token": tok.long(), "positions": pos})
             nxt = self._sample(logits)
             if eos_id is not None:
                 active = active & (tok != eos_id)
@@ -91,9 +134,11 @@ class ServeEngine:
             for i, (a, t) in enumerate(zip(active.tolist(), nxt.tolist())):
                 if a:
                     out[i].append(t)
-            self.timings["decode_s"] += time.perf_counter() - t0
+            self.timings["decode_s"] += (time.perf_counter() - t0
+                                         - (self._setup_s() - s0))
             self.timings["decode_steps"] += 1
             tok = nxt
             pos = pos + active.long()
 
+        self.timings.update(self._graph_timings())
         return [GenerationResult(toks, P, len(toks)) for toks in out]

@@ -20,7 +20,12 @@ steps of reduced granite, falcon and danube with f32 parameters on the
 card equal to the CPU, and the launcher's fault restart on the card equal
 to its clean run; K5/K6's custom ops equal to their bare launches bit
 for bit, and reduced prefill and decode steps counted on the card
-(``launch.step_cost``) equal to the meta dry run.  Skips without a GPU;
+(``launch.step_cost``) equal to the meta dry run; the serving engine's
+captured steps (CUDA graphs) equal to the eager steps bit for bit for
+every served family, reduced, in bf16 and f32 (prefill logits and caches,
+8 decode steps), and K5/K6's launch counts after captured prefills equal
+to the warm-ups' launches plus the captured launches times the replays.
+Skips without a GPU;
 run on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``."""
 import dataclasses
@@ -1081,3 +1086,128 @@ def test_step_counts_on_the_card_equal_meta(dev, arch):
     assert (pre.flops, pre.bytes) == (mp.cost.flops, mp.cost.bytes)
     assert (dec.flops, dec.bytes) == (md.cost.flops, md.cost.bytes)
     assert {"flash_attention", "selective_scan"} & set(mp.by_op)
+
+
+GRAPH_FAMILIES = ["granite-3-2b", "falcon-mamba-7b", "moonshot-v1-16b-a3b",
+                  "zamba2-1.2b", "qwen2-vl-72b"]
+
+
+def _graph_case(arch, dtype, dev):
+    """A reduced model with seeded parameters in ``dtype`` (f32: every
+    leaf; bf16: as ``init`` draws them) and a random head, a prompt batch
+    and the inputs of decode step t given the last logits."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.models import frontend
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    params["lm_head"] = (torch.randn(cfg.d_model, cfg.vocab, generator=g,
+                                     device=dev) / math.sqrt(cfg.d_model)
+                         ).to(params["lm_head"].dtype)
+    if dtype == torch.float32:
+        params = tree_map(lambda t: t.float(), params)
+    B, P, n_dec = 2, 24, 8
+    if cfg.input_mode == "embeddings":
+        emb = frontend.fake_patch_embeddings(cfg, B, P + n_dec, device=dev)
+        emb = emb.to(dtype)
+        ids = frontend.mrope_position_ids(B, P + n_dec, grid=4, device=dev)
+        batch = {"embeds": emb[:, :P], "positions": ids[:, :P]}
+
+        def step(t, logits):
+            return {"embed": emb[:, P + t],
+                    "positions": torch.full((B,), P + t, dtype=torch.long,
+                                            device=dev),
+                    "rope_positions": ids[:, P + t]}
+    else:
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            2, cfg.vocab, (B, P)), device=dev)}
+
+        def step(t, logits):
+            return {"token": logits.argmax(-1),
+                    "positions": torch.full((B,), P + t, dtype=torch.long,
+                                            device=dev)}
+    return cfg, model, params, batch, step, B, P + n_dec + 4, n_dec
+
+
+def _routes():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import selective_scan as ss
+    return {**{("fa", r): n for r, n in fa.flash_attention.route_launches
+               .items()},
+            **{("ss", r): n for r, n in ss.selective_scan.route_launches
+               .items()}}
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_captured_steps_equal_eager_bitwise(dev, arch, dtype):
+    """The engine's captured prefill (logits and caches) and 8 captured
+    decode steps (logits, and the caches after them) are the eager
+    steps' bit for bit, from the same caches; the decode graph advances
+    the prefill graph's caches in place, so the Mamba states would show a
+    warm-up that advanced them."""
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.serve.engine import ServeEngine
+    cfg, model, params, batch, step, B, cache, n_dec = _graph_case(
+        arch, dtype, dev)
+    eng = ServeEngine(model, params, max_seq=cache, batch_slots=B,
+                      device=dev)
+    le, ce = model.prefill(params, batch, cache)
+    lg, cg = eng.prefill(batch)
+    torch.cuda.synchronize()
+    assert torch.equal(le, lg)
+    leaves = tree_leaves
+    assert all(torch.equal(a, b) for a, b in zip(leaves(ce), leaves(cg)))
+    for t in range(n_dec):
+        s = step(t, le)
+        le, ce = model.decode_step(params, ce, s)
+        lg, cg = eng.decode(cg, s)
+        assert torch.equal(le, lg), (arch, t)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(ce), leaves(cg)))
+    assert eng._prefill.captures == eng._decode.captures == 1
+    assert eng._decode.replays == n_dec
+
+
+@pytest.mark.parametrize("arch", GRAPH_FAMILIES)
+def test_graph_launch_counts_are_captured_launches_times_replays(dev, arch):
+    """K5 / K6's counters after captured prefills: the warm-up runs' own
+    launches, none for the capture, and the captured launches on each
+    replay, route by route, each the eager prefill's."""
+    from repro_torch._graphs import WARMUP
+    from repro_torch.serve.engine import ServeEngine
+    cfg, model, params, batch, _, B, cache, _ = _graph_case(
+        arch, torch.bfloat16, dev)
+    c0 = _routes()
+    model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    per = _delta(_routes(), c0)
+    assert per and all(n > 0 for n in per.values())
+    eng = ServeEngine(model, params, max_seq=cache, batch_slots=B,
+                      device=dev)
+    c1 = _routes()
+    eng.prefill(batch)
+    assert _delta(_routes(), c1) == {k: n * (WARMUP + 1)
+                                     for k, n in per.items()}
+    (entry,) = eng._prefill.entries.values()
+    assert sorted(entry.launches.values()) == sorted(per.values())
+    c2 = _routes()
+    for _ in range(3):
+        eng.prefill(batch)
+    assert _delta(_routes(), c2) == {k: 3 * n for k, n in per.items()}
+    assert eng._prefill.replays == 4 and eng._prefill.captures == 1
+    if cfg.input_mode == "tokens":
+        # a generate at a new prompt length: one prefill and one decode
+        # signature more, the timings refreshed
+        eng.generate(np.full((B, 5), 3), 2)
+        t = eng.timings
+        assert t["warmup_prefills"] == 2 * WARMUP and t["captures"] == 3
+        assert t["pool_bytes"] > 0 and t["capture_s"] > 0

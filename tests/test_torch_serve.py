@@ -2,11 +2,16 @@
 engine's greedy tokens equal the JAX ``ServeEngine``'s with the same
 parameters (carried over by ``params_from_numpy``, float32, with a seeded
 non-zero ``lm_head`` so the tokens are not all 0; float32 keeps the two
-argmaxes from parting on a bf16 near-tie), EOS sampled at prefill ends
-its slot at once in both, and the serve launcher places the replica on
-the reference's pod and serves on the CPU.
+argmaxes from parting on a bf16 near-tie) for the dense, Mamba-1, SWA,
+MoE (capacity factor 16, so no token overflows) and hybrid families, EOS
+sampled at prefill ends its slot at once in both, a second ``generate``
+on one engine (its captured steps replayed, on the CPU their static
+buffers reused) equals a fresh engine's, and the serve launcher places
+the replica on the reference's pod and serves on the CPU.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,11 +30,18 @@ from test_torch_reference import load_reference
 SLOTS, P, MAX_NEW = 4, 9, 6
 
 
+# config overrides per arch: the MoE at capacity factor 16 (no token
+# overflows its expert, so the tokens do not hang on the drop order)
+OVERRIDES = {"moonshot-v1-16b-a3b": {"capacity_factor": 16.0}}
+
+
 def _engines(name):
-    cfg = get_config(name).reduced()
+    over = OVERRIDES.get(name, {})
+    cfg = dataclasses.replace(get_config(name).reduced(), **over)
     from repro.configs import ARCHS
-    jmodel, jparams = jax_model_params(ARCHS[name].reduced(), jnp.float32,
-                                       head_seed=5)
+    jmodel, jparams = jax_model_params(
+        dataclasses.replace(ARCHS[name].reduced(), **over), jnp.float32,
+        head_seed=5)
     kw = dict(max_seq=P + MAX_NEW + 8, batch_slots=SLOTS)
     jeng = JaxEngine(jmodel, jparams, **kw)
     peng = ServeEngine(build_model(cfg),
@@ -40,7 +52,9 @@ def _engines(name):
     return jeng, peng, prompts
 
 
-@pytest.mark.parametrize("name", ["granite-3-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("name", ["granite-3-2b", "falcon-mamba-7b",
+                                  "h2o-danube-3-4b", "moonshot-v1-16b-a3b",
+                                  "zamba2-1.2b"])
 def test_greedy_tokens_equal_reference_engine(name):
     jeng, peng, prompts = _engines(name)
     want = [r.tokens for r in jeng.generate(prompts, MAX_NEW)]
@@ -50,6 +64,26 @@ def test_greedy_tokens_equal_reference_engine(name):
     assert all(r.prompt_len == P and r.steps == MAX_NEW for r in got)
     t = peng.timings
     assert t["prefills"] == 1 and t["decode_steps"] == MAX_NEW - 1
+
+
+@pytest.mark.parametrize("name", ["granite-3-2b", "falcon-mamba-7b"])
+def test_second_generate_equals_a_fresh_engine(name):
+    """The second ``generate`` reuses the first's captured steps (no new
+    signature) and the caches they wrote; its tokens are a fresh
+    engine's.  A new prompt length adds one prefill and one decode
+    signature."""
+    _, peng, prompts = _engines(name)
+    _, fresh, _ = _engines(name)
+    peng.generate(prompts[::-1].copy(), MAX_NEW)
+    assert peng.timings["captures"] == 2
+    again = [r.tokens for r in peng.generate(prompts, MAX_NEW)]
+    assert peng.timings["captures"] == 2
+    assert again == [r.tokens for r in fresh.generate(prompts, MAX_NEW)]
+    peng.generate(prompts[:, :P - 2], MAX_NEW)
+    assert peng.timings["captures"] == 4
+    t = peng.timings
+    assert t["prefills"] == 3 and t["warmup_prefills"] == 0
+    assert t["capture_s"] == 0.0 and t["pool_bytes"] == 0
 
 
 def test_eos_sampled_at_prefill_ends_its_slot():
@@ -72,6 +106,7 @@ def test_serve_launcher_on_the_cpu():
     assert out["tokens"] == 8 and out["tok_per_s"] > 0
     assert out["g_per_request"] > 0
     assert out["prefills"] == 1 and out["decode_steps"] == 3
+    assert out["captures"] == 2 and out["warmup_prefills"] == 0
     ref = load_reference()
     fleet = ref.fleet.synthetic_fleet(64, seed=0)
     pl = ref.scheduler.place_jobs(fleet, jnp.asarray([4], jnp.int32))
