@@ -10,8 +10,8 @@ outputs against the port's CPU path and the paper headline:
      once, with nvcc's register / shared-memory / spill report; SASS
      counts (``cuobjdump``): K5's bf16 kernels run HMMA (tensor cores),
      its f32 kernels FFMA only; K6's instructions against its exps, and
-     each K6 instantiation's registers and spills (the per-channel N = 64
-     ones are Mamba-2's)
+     each K6 instantiation's registers and spills (the per-head ones,
+     Mamba-2's, spill nothing)
   2. K1 ``maiz_lohi`` (one fused launch: the sweep and the fold) and its
      per-tile instantiation / K2 ``maiz_topk`` vs their plain twins,
      bitwise, at N = 1,048,576 and a ragged N = 1,000,003, k in {1, 64,
@@ -58,8 +58,10 @@ outputs against the port's CPU path and the paper headline:
      ``scaled_dot_product_attention`` on the first backend that takes the
      inputs (flash first; the backend is printed); K5 bf16 at phase 15's
      prefill shapes (moonshot, qwen2-vl, zamba2's tied block) and K6's
-     per-channel form (Mamba-2) at zamba2's prefill (B 4, S 512, D 4096,
-     N 64), ragged and at S 2048, timed the same way; K5 at
+     per-head form (Mamba-2: dt (B, S, H), A (H,)) bitwise its plain
+     version at zamba2's prefill (B 4, S 512, H 64, P 64, N 64), the
+     reduced zamba2's heads, ragged tiles, P 1 and S 2048, timed the same
+     way with the issue floor of its unfused f32 arithmetic; K5 at
      nemotron-4-340b's head dim 192 with its 12:1 grouping (B 2, H 24,
      K 2, S 512 and 333), bf16 and f32, within the same bars, timed the
      same way
@@ -132,10 +134,11 @@ outputs against the port's CPU path and the paper headline:
      final loss rel 1e-4 of the clean run; (e) K1-K6 launch 0 times
  15. the remaining model families: (a) moonshot-v1-16b-a3b (MoE, 64
      experts top 6; 28.06 B parameters) and (b) zamba2-1.2b (Mamba-2 with
-     K6's per-channel form, the tied attention block every 6 blocks),
+     K6's per-head form, the tied attention block every 6 blocks),
      both at full width and depth, bf16 from seed 0, served like phase
      11 (8 requests, 2 x 4 slots, prompt 512, 32 new; captured steps
-     bitwise the eager ones, tokens == an eager engine's); the launches
+     bitwise the eager ones, tokens == an eager engine's, a digest of
+     the served tokens printed); the launches
      counted per prefill, each K5 / K6 launch of a prefill within its bar
      of the plain version on that layer's inputs, the prefill logits
      kernel vs plain route (2e-2 / 4e-1 x max|logit|; for moonshot the
@@ -148,7 +151,7 @@ outputs against the port's CPU path and the paper headline:
      logits vs the training forward's at that position (2e-2); (d)
      reduced moonshot (capacity factor 16), zamba2 and qwen2-vl with f32
      parameters, prefill and 5 decode steps card == CPU (1e-4); peak
-     memory per part, K5 bf16 and K6 per-channel launched
+     memory per part, K5 bf16 and K6 per-head launched
  16. the roofline and dry-run layer: (a) ``EnergyModel.for_workload``
      over the 40 (arch x shape) cells on the reference's TPU v5e row ==
      ``BENCH_energy.json``'s 20 recorded cells (to 0.01 W), and the table
@@ -204,7 +207,8 @@ phase that times anything and run beside phase 16 (a)-(c) only.  Launch counts a
 9, 11, 12, 13, 14 and 15 (and each held prefill of phase 11, each part of phase
 15) and read just after; the ranks of phase 17 (c) and (e) count their
 own K4 launches and report them; K5 counts its bf16 and f32 kernels apart, K6
-its (D, N) form (Mamba-1) and its per-channel form (Mamba-2).  The line
+its (D, N) form (Mamba-1) and its per-head form (Mamba-2, counted as
+``selective_scan_per_channel``).  The line
 before the last is a JSON object with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero before that line.  Needs one
 CUDA device; run from anywhere with ``python3 chip_smoke.py``.
@@ -553,20 +557,24 @@ def phase_build():
         say(f"[1] SASS {fn}: {c['all']} instructions, {c['MUFU']} MUFU, "
             f"{c['FMUL']} FMUL, {c['FADD']} FADD, {c['FFMA']} FFMA")
     # K6's registers, stack frame and spills per instantiation (ptxas);
-    # the per-channel N = 64 ones (Mamba-2) are the new ones
+    # the per-head ones (Mamba-2) spill nothing
     lib = built[mods.index(sc)][0]
     usage = resource_usage(lib)
     spills = dict(re.findall(
         r"Function properties for (\S+)\n\s*(\d+ bytes stack frame, \d+ "
         r"bytes spill stores, \d+ bytes spill loads)",
         _build.LOGS.get(lib, "")))
-    n64 = sorted(fn for fn in usage if "scan_pc_kernel" in fn
-                 and "Li64E" in fn)
-    check(len(n64) == 2, f"K6's per-channel N = 64 kernels are missing: "
+    head = sorted(fn for fn in usage if "scan_head_kernel" in fn)
+    check(len(head) == 4 and sum("Li64E" in fn for fn in head) == 2,
+          f"K6's per-head kernels (N 16 and 64, f32 and bf16) are missing: "
           f"{sorted(usage)}")
     for fn in sorted(usage):
         say(f"[1] K6 {fn}: {usage[fn]['REG']} registers, "
             f"{spills.get(fn, 'no ptxas report (library reused)')}")
+    for fn in head:
+        check("0 bytes spill stores, 0 bytes spill loads"
+              in spills.get(fn, "0 bytes spill stores, 0 bytes spill loads"),
+              f"K6 {fn} spills: {spills.get(fn)}")
 
 
 def sass_counts(lib, opcodes):
@@ -832,7 +840,7 @@ def counted(fn):
     torch.cuda.synchronize()
     cnt = {f.__name__: f.launches for f in _wrappers()}
     # K5's two kernels: bf16 on the tensor cores, f32 on the FMA pipes;
-    # K6's (D, N) decay (Mamba-1) and per-channel decay (Mamba-2) forms
+    # K6's (D, N) decay (Mamba-1) and per-head decay (Mamba-2) forms
     cnt["flash_attention"] = routes["bf16"]
     cnt["flash_attention_f32"] = routes["f32"]
     cnt["selective_scan"] = scan_routes["dn"]
@@ -1987,17 +1995,18 @@ def _k5_bound(B, H, K, S, hd, window, dtype, rates, fp32_pipes=False):
     return bound_ms(nbytes, 3 * ops, rates, rates[3])
 
 
-def _k6_bound(B, S, D, N, dtype, rates, per_channel=False):
-    """``kernels.selective_scan.k6_cost``'s operations and bytes (dt, x
-    and y (B, S, D), B and C (B, S, N), A (D, N), or (D,) in the
-    per-channel form, and the final state (B, D, N) moved once; per (b, t,
-    d, n) 5 FLOPs) on the f32 pipes.  The (D, N) form's one exp per (b,
-    t, d, n) is left out: the SFU alone would take about as long as the
-    bytes, but a share of the exps can run as polynomial code on the f32
-    pipes beside it, so the two together stay under the bytes.  The
-    per-channel form takes one exp per (b, t, d)."""
+def _k6_bound(B, S, D, N, dtype, rates, heads=None):
+    """``kernels.selective_scan.k6_cost``'s operations and bytes (x and y
+    (B, S, D), B and C (B, S, N), dt (B, S, D) and A (D, N), or in the
+    per-head form (``heads`` H) dt (B, S, H) and A (H,), and the final
+    state (B, D, N) moved once; per (b, t, d, n) 5 FLOPs) on the f32
+    pipes.  The (D, N) form's one exp per (b, t, d, n) is left out: the
+    SFU alone would take about as long as the bytes, but a share of the
+    exps can run as polynomial code on the f32 pipes beside it, so the two
+    together stay under the bytes.  The per-head form takes one exp per
+    (b, t, head)."""
     from repro_torch.kernels.selective_scan import k6_cost
-    ops, nbytes = k6_cost(B, S, D, N, dtype, per_channel)
+    ops, nbytes = k6_cost(B, S, D, N, dtype, heads)
     return bound_ms(nbytes, ops, rates)
 
 
@@ -2116,8 +2125,8 @@ def phase_model_kernels(dev, rates, sfu, flush):
                     _k6_bound(*shape, dt, rates), None)
     _k5_phase15_shapes(dev, g, rates, flush, err)
     _k5_hd192(dev, g, rates, flush, err)
-    times["selective_scan_per_channel"] = _k6_per_channel(dev, g, rates,
-                                                          flush, err)
+    times["selective_scan_per_channel"] = _k6_per_head(dev, g, rates, sfu,
+                                                       flush, err)
     for k, (ms, plain, (bd, by), lib) in times.items():
         say(f"[10] {k} at the path's shape: kernel {ms * 1e3:.1f} us, "
             f"plain {plain * 1e3:.1f} us, bound {bd * 1e3:.2f} us ({by}), "
@@ -2204,29 +2213,43 @@ def _k5_phase15_shapes(dev, g, rates, flush, err):
             f"{lib * 1e3:.1f} us")
 
 
-def _k6_per_channel(dev, g, rates, flush, err):
-    """K6's per-channel form (Mamba-2) vs its plain version at zamba2's
-    prefill shape, ragged shapes and 2048 steps, f32 and bf16; returns
-    (ms, plain ms, bound, None) at the path's shape in f32."""
+def _k6_per_head(dev, g, rates, sfu, flush, err):
+    """K6's per-head form (Mamba-2: dt (B, S, H), a (H,)) vs its plain
+    version, bit for bit, at zamba2's prefill shape (B 4, S 512, H 64, P
+    64, N 64), the reduced zamba2's heads (P 32, N 16), a D that ends in
+    the middle of a tile with a ragged S, tiles holding parts of heads (P
+    48), one head a channel (P 1) and 2048 steps with long and short
+    memory, f32 and bf16; returns (ms, plain ms, bound, None) at the
+    path's shape in f32, with the issue floor of its unfused arithmetic
+    printed beside the bound."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.selective_scan import (selective_scan,
                                                     selective_scan_plain)
     z = get_config("zamba2-1.2b")
-    path = (SERVE_SLOTS, SERVE_PROMPT, z.d_inner, z.ssm_state)
+    zr = z.reduced()
+    path = (SERVE_SLOTS, SERVE_PROMPT, z.d_inner // z.ssm_head_dim,
+            z.ssm_head_dim, z.ssm_state)
     out = None
-    for shape, (lo, hi) in ((path, (0.001, 0.1)),
-                            ((2, 37, 200, 64), (0.01, 0.11)),
-                            ((1, 45, 96, 16), (0.01, 0.11)),
-                            ((1, 2048, 130, 64), (0.004, 0.006))):
-        B, S, D, N = shape
+    # (B, S, H, P, N), dt range
+    for shape, (lo, hi) in (
+            (path, (0.001, 0.1)),
+            ((2, 37, zr.d_inner // zr.ssm_head_dim, zr.ssm_head_dim,
+              zr.ssm_state), (0.01, 0.11)),
+            ((2, 37, 5, 24, 64), (0.01, 0.11)),
+            ((1, 45, 96, 1, 16), (0.01, 0.11)),
+            ((1, 2048, 130, 1, 64), (0.004, 0.006)),
+            ((1, 2048, 4, 64, 64), (0.004, 0.006)),
+            ((2, 2048, 3, 48, 64), (0.5, 1.5))):
+        B, S, H, P, N = shape
+        D = H * P
         for dt in (torch.float32, torch.bfloat16):
-            d_t = (torch.rand(B, S, D, generator=g, device=dev) * (hi - lo)
+            d_t = (torch.rand(B, S, H, generator=g, device=dev) * (hi - lo)
                    + lo).to(dt)
             x = torch.randn(B, S, D, generator=g, device=dev).to(dt)
             b = torch.randn(B, S, N, generator=g, device=dev)
             c = torch.randn(B, S, N, generator=g, device=dev)
-            a = -torch.exp(torch.randn(D, generator=g, device=dev) * 0.3)
+            a = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3)
             y, h = selective_scan(d_t, x, b, c, a)
             y_p, h_p = selective_scan_plain(d_t, x, b, c, a)
             torch.cuda.synchronize()
@@ -2235,18 +2258,29 @@ def _k6_per_channel(dev, g, rates, flush, err):
             eh, okh = _allclose_err(h, h_p, bar)
             rec = err["selective_scan_per_channel"]
             rec[0] = max(rec[0], ey, eh)
-            say(f"[10] K6 per-channel {shape} dt in [{lo}, {hi}] "
-                f"{str(dt)[6:]}: max abs err y {ey:.3g}, h_S {eh:.3g} (bar "
-                f"{bar}); bitwise: y {ulp_diff(y, y_p) == 0}, h_S "
-                f"{ulp_diff(h, h_p) == 0}")
-            check(oky and okh, f"K6's per-channel form differs from its "
+            uy, uh = ulp_diff(y, y_p), ulp_diff(h, h_p)
+            say(f"[10] K6 per-head (B, S, H, P, N) {shape} dt in [{lo}, "
+                f"{hi}] {str(dt)[6:]}: max abs err y {ey:.3g}, h_S "
+                f"{eh:.3g} (bar {bar}); bitwise: y {uy == 0}, h_S "
+                f"{uh == 0}")
+            check(oky and okh, f"K6's per-head form differs from its "
                   f"plain version at {shape} {dt}")
+            check(torch.equal(y, y_p) and torch.equal(h, h_p),
+                  f"K6's per-head form is not bitwise its plain version at "
+                  f"{shape} {dt}: y {uy}, h_S {uh} ulp apart")
             if shape == path and dt == torch.float32:
                 out = (time_ms(lambda: selective_scan(d_t, x, b, c, a),
                                flush),
                        time_ms(lambda: selective_scan_plain(d_t, x, b, c, a),
                                flush, reps=5, warm=1),
-                       _k6_bound(*shape, dt, rates, per_channel=True), None)
+                       _k6_bound(B, S, D, N, dt, rates, heads=H), None)
+                # 5 unfused f32 instructions per state-step, issued at
+                # 128 a clock per SM (8 times the SFU's 16)
+                say(f"[10] selective_scan_per_channel: its "
+                    f"{B * S * D * N:.3g} state-steps as 5 unfused f32 "
+                    f"instructions each take at least "
+                    f"{5 * B * S * D * N / (8 * sfu) * 1e6:.2f} us of issue "
+                    f"at the max SM clock (the bitwise floor)")
     return out
 
 
@@ -2529,9 +2563,17 @@ def phase_families(dev, record):
             f"{ {k: v for k, v in cnt.items() if v} }")
     check(total["flash_attention"] > 0
           and total["selective_scan_per_channel"] > 0,
-          f"phase 15 did not launch K5 bf16 and K6 per-channel: {total}")
+          f"phase 15 did not launch K5 bf16 and K6 per-head: {total}")
     say(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
     return total
+
+
+def _tokens_digest(results) -> str:
+    """sha256 of the served requests' tokens (int64, in request order),
+    first 16 hex digits: equal digests are equal served tokens."""
+    import hashlib
+    return hashlib.sha256(np.asarray([r.tokens for r in results],
+                                     np.int64).tobytes()).hexdigest()[:16]
 
 
 def _seeded_params(cfg, dev):
@@ -2616,6 +2658,9 @@ def _serve_family(dev, arch, record):
           f"{arch}: every generated token is the same")
     pre = out["prefill_s"] / out["prefills"] * 1e3
     dec = out["decode_s"] / out["decode_steps"] * 1e3
+    say(f"[15] {tag} {arch}: served tokens digest "
+        f"{_tokens_digest(out['results'])} (sha256 of the requests' tokens "
+        f"in order, first 16 hex digits)")
     say(f"[15] {tag} {arch}: pod {out['pod']}, {out['tokens']} tokens, "
         f"captured prefill {pre:.1f} ms per batch of {SERVE_SLOTS}x"
         f"{SERVE_PROMPT}, captured decode {dec:.2f} ms per step of "

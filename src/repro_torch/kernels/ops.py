@@ -31,9 +31,10 @@ def flash_attention_op(q, k, v, *, window: int = 0,
 
 def selective_scan_op(dt, x, b, c, a, *, use_kernel: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Selective scan (K6): dt/x (B,S,D), b/c (B,S,N), a (D,N) (Mamba-1)
-    or (D,) (one decay per channel, Mamba-2) -> (y (B,S,D) in x's dtype,
-    final state (B,D,N) f32)."""
+    """Selective scan (K6): x (B,S,D), b/c (B,S,N), dt (B,S,D) with a
+    (D,N) (Mamba-1) or dt (B,S,H) with a (H,) (one step and decay per
+    head of D/H channels, Mamba-2) -> (y (B,S,D) in x's dtype, final
+    state (B,D,N) f32)."""
     if not use_kernel:
         return selective_scan_plain(dt, x, b, c, a)
     f32 = [t.to(torch.float32).contiguous() for t in (b, c, a)]

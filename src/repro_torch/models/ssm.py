@@ -12,10 +12,10 @@ through the chip and keeps the (d_inner, N) state on it, and also returns
 the final state for the decode cache.  Decode is the exact single-step
 recurrence in plain torch.
 
-Mamba-2 has one decay per head, shared by the head's P channels and its N
-states: its prefill runs K6 in the per-channel form (A of shape
-(d_inner,), one exp per (b, t, channel)); training runs the same chunked
-scan over (B, S, d_inner, N) terms.  ``ssm_algo="ssd"`` runs the SSD
+Mamba-2 has one step and one decay per head, shared by the head's P
+channels and its N states: its prefill runs K6 in the per-head form (dt
+(B, S, nh) and A (nh,), one exp per (b, t, head)); training runs the same
+chunked scan over (B, S, d_inner, N) terms.  ``ssm_algo="ssd"`` runs the SSD
 chunk-matmul form instead (``mamba2_apply_ssd``, plain torch, prefill and
 training alike), as the JAX package does.
 """
@@ -36,7 +36,7 @@ from repro_torch.kernels.ops import selective_scan_op
 
 def _scan(dt, x, b, c, a, use_kernel: bool):
     """K6 (``selective_scan_op``); on DTensors each rank runs its own
-    rows, with the per-channel decay ``a`` whole on every rank."""
+    rows, with the per-head decay ``a`` whole on every rank."""
     if is_dtensor(a):
         a = whole_local(a, x)
     return local_rows(functools.partial(selective_scan_op,
@@ -294,9 +294,9 @@ def mamba2_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                  x: torch.Tensor, *, chunk: Optional[int] = None,
                  return_state: bool = False, use_kernel: bool = True):
     """Forward of one Mamba-2 block.  ``chunk=None`` runs the scan through
-    K6 in its per-channel form (prefill; ``use_kernel=False`` its plain
-    version): dt repeated over each head's P channels, the decay A one
-    value per channel.  An int runs the JAX package's chunked scan over
+    K6 in its per-head form (prefill; ``use_kernel=False`` its plain
+    version): dt (B, S, nh) and the decay A (nh,), one value per head for
+    its P channels.  An int runs the JAX package's chunked scan over
     (B, S, d_inner, N) f32 terms, the training route."""
     B, S, D = x.shape
     di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
@@ -304,9 +304,7 @@ def mamba2_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     z, x_in, xc, Bm, Cm, dt = _mamba2_head(cfg, p, x)
     A = -torch.exp(p["A_log"])                                   # (nh,)
     if chunk is None:
-        y, h_last = _scan(torch.repeat_interleave(dt, P, dim=-1),
-                          xc.float(), Bm, Cm, torch.repeat_interleave(A, P),
-                          use_kernel)
+        y, h_last = _scan(dt, xc.float(), Bm, Cm, A, use_kernel)
     else:
         dA = torch.exp(dt * A)                                   # (B,S,nh)
         xh = xc.reshape(B, S, nh, P).float()

@@ -3,11 +3,16 @@ plain versions against the JAX Pallas kernels in interpret mode and
 against the JAX oracles, on the JAX suite's cases
 (``tests/test_kernels.py``) plus ragged shapes, with the JAX suite's bars:
 5e-6 (f32) / 6e-3 (bf16) for attention, 2e-6 / 5e-2 for the scan.  K6's
-final state is held against ``chunked_selective_scan``'s ``h_last``.  The
-wrappers take the plain version only for CPU tensors: any other device
+final state is held against ``chunked_selective_scan``'s ``h_last``.  K6's
+per-head form (Mamba-2: dt (B, S, H), a (H,)) is held bit for bit against
+its per-channel case on dt and a repeated over each head's channels, and
+against the Pallas kernel and the oracle on the broadcast (D, N) inputs.
+The wrappers take the plain version only for CPU tensors: any other device
 goes to the kernel's launcher, which refuses what is not on the card.
 """
 from __future__ import annotations
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -294,3 +299,131 @@ def test_launchers_refuse_before_building(bad):
                            torch.empty(1, 4, 16, **m),
                            torch.empty(32, 16, **m))
     assert (flash_attention.launches, selective_scan.launches) == (n5, n6)
+
+
+# K6's per-head form: (B, S, H, P, N, dtype); S ragged where no Pallas
+# kernel runs (it takes S a multiple of q_chunk)
+PER_HEAD = [(2, 37, 96, 1, 16, jnp.float32), (2, 37, 8, 32, 16, jnp.bfloat16),
+            (1, 29, 3, 64, 64, jnp.float32), (2, 37, 2, 64, 64, jnp.bfloat16),
+            (1, 21, 4, 32, 64, jnp.float32), (2, 19, 5, 24, 16, jnp.float32)]
+# (B, S, H, P, N, block_d, q_chunk, dtype): D = H·P a multiple of block_d
+PER_HEAD_PALLAS = [(2, 32, 128, 1, 16, 128, 16, jnp.float32),
+                   (1, 32, 4, 32, 16, 128, 8, jnp.float32),
+                   (2, 32, 2, 64, 64, 128, 16, jnp.float32),
+                   (1, 32, 2, 64, 16, 128, 8, jnp.bfloat16)]
+
+
+def _head_inputs(B, S, H, P, N, dt_, seed):
+    """Per-head inputs made with numpy: (dt (B, S, H), x, b, c, a (H,))
+    and their per-channel repeat (dt (B, S, D), a (D,)), both as torch
+    tensors, and the broadcast (D, N) form as JAX arrays."""
+    g = np.random.default_rng(seed)
+    D = H * P
+    dt = jnp.asarray(g.random((B, S, H)) * 0.1 + 0.01, dt_)
+    x = jnp.asarray(g.standard_normal((B, S, D)), dt_)
+    b = jnp.asarray(g.standard_normal((B, S, N)), jnp.float32)
+    c = jnp.asarray(g.standard_normal((B, S, N)), jnp.float32)
+    a = jnp.asarray(-np.exp(g.standard_normal(H) * 0.3), jnp.float32)
+    dt_d, a_d = jnp.repeat(dt, P, axis=-1), jnp.repeat(a, P)
+    head = [tensor_from_numpy(np.asarray(t), "cpu") for t in (dt, x, b, c, a)]
+    chan = [tensor_from_numpy(np.asarray(t), "cpu")
+            for t in (dt_d, x, b, c, a_d)]
+    jdn = (dt_d, x, b, c, jnp.broadcast_to(a_d[:, None], (D, N)))
+    return head, chan, jdn
+
+
+@pytest.mark.parametrize("case", PER_HEAD, ids=_ids(PER_HEAD))
+def test_scan_per_head_equals_per_channel_bitwise(case):
+    """The per-head plain version (one exp per (b, t, head), broadcast over
+    the head's P channels and the N states) gives the per-channel plain
+    version's y and h_S bit for bit on dt and a repeated P times."""
+    B, S, H, P, N, dt_ = case
+    head, chan, _ = _head_inputs(B, S, H, P, N, dt_, 23)
+    y, h = ops.selective_scan_op(*head)
+    y_c, h_c = ops.selective_scan_op(*chan)
+    assert y.dtype == head[1].dtype and y.shape == (B, S, H * P)
+    assert torch.equal(y, y_c) and torch.equal(h, h_c)
+
+
+@pytest.mark.parametrize("case", PER_HEAD_PALLAS,
+                         ids=_ids(PER_HEAD_PALLAS))
+def test_scan_per_head_matches_pallas_and_oracle(case):
+    B, S, H, P, N, bd, qc, dt_ = case
+    head, _, jdn = _head_inputs(B, S, H, P, N, dt_, 24)
+    tol = _tol(dt_, 2e-6, 5e-2)
+    y, h = ops.selective_scan_op(*head)
+    _close(y, selective_scan_op(*jdn, block_d=bd, q_chunk=qc,
+                                interpret=True), tol)
+    _close(y, jref.selective_scan_ref(*jdn), tol)
+    _close(h, _h_last(jdn), tol)
+
+
+@pytest.mark.parametrize("case", PER_HEAD[-2:], ids=_ids(PER_HEAD[-2:]))
+def test_scan_per_head_ragged_matches_oracle(case):
+    B, S, H, P, N, dt_ = case
+    head, _, jdn = _head_inputs(B, S, H, P, N, dt_, 25)
+    y, h = ops.selective_scan_op(*head)
+    _close(y, jref.selective_scan_ref(*jdn), 2e-6)
+    _close(pref.selective_scan_ref(*head), jref.selective_scan_ref(*jdn),
+           2e-6)
+    _close(h, _h_last(jdn), 2e-6)
+
+
+def test_scan_per_head_meta_route_launches_nothing():
+    """Meta tensors of the per-head form get y (B, S, D) and h_S (B, D, N)
+    f32 through the custom op, with no launch; the launcher refuses them
+    before building anything."""
+    head, _, _ = _head_inputs(2, 5, 3, 24, 64, jnp.bfloat16, 1)
+    meta = [t.to("meta") for t in head]
+    n = dict(selective_scan.route_launches)
+    y, h = selective_scan(*meta)
+    assert (y.device.type, tuple(y.shape), y.dtype) == (
+        "meta", (2, 5, 72), torch.bfloat16)
+    assert (tuple(h.shape), h.dtype) == ((2, 72, 64), torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sc_mod._check_args(*meta)
+    assert selective_scan.route_launches == n
+
+
+@pytest.mark.parametrize("bad", ["no multiple", "a's length", "(B, S, H)",
+                                 "takes dt (B, S, D)"])
+def test_scan_per_head_refuses_shapes(bad):
+    """D not a multiple of H, dt's last dim not a's length, dt of another
+    (B, S), and a (D, N) with a per-head dt: refused on the meta route (and
+    so before any launch), the CPU route and the launcher alike."""
+    B, S, H, P, N = 1, 4, 3, 8, 16
+    dt_h, a_h = (B, S, H), (H,)
+    shapes = {"no multiple": ((B, S, 5), (B, S, 32), (5,)),
+              "a's length": ((B, S, H), (B, S, H * P), (H + 1,)),
+              "(B, S, H)": ((B, S + 1, H), (B, S, H * P), a_h),
+              "takes dt (B, S, D)": (dt_h, (B, S, H * P), (H * P, N))}[bad]
+    dt, x, a = shapes
+    for dev in ("meta", "cpu"):
+        args = [torch.zeros(dt, device=dev), torch.zeros(x, device=dev),
+                torch.zeros(B, S, N, device=dev),
+                torch.zeros(B, S, N, device=dev), torch.zeros(a, device=dev)]
+        with pytest.raises(ValueError, match=re.escape(bad)):
+            selective_scan(*args)
+        with pytest.raises(ValueError, match=re.escape(bad)):
+            sc_mod._check_args(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_cost_counts_per_head_bytes(dtype):
+    """The per-head form moves dt (B, S, H) and A (H,): its bytes are the
+    per-channel case's less (D - H) values of dt per (b, t) and of A; the
+    FLOPs are the same.  The custom op's formula counts the same."""
+    B, S, H, P, N = 4, 512, 64, 64, 64
+    D, es = H * P, (2 if dtype == torch.bfloat16 else 4)
+    f_h, b_h = sc_mod.k6_cost(B, S, D, N, dtype, heads=H)
+    f_c, b_c = sc_mod.k6_cost(B, S, D, N, dtype, heads=D)
+    f_dn, b_dn = sc_mod.k6_cost(B, S, D, N, dtype)
+    assert f_h == f_c == f_dn == 5 * B * S * D * N
+    assert b_c - b_h == es * B * S * (D - H) + 4 * (D - H)
+    assert b_h == (es * B * S * (2 * D + H)
+                   + 4 * (2 * B * S * N + H + B * D * N))
+    assert b_dn - b_c == 4 * D * (N - 1)
+    meta = [torch.empty(s, device="meta", dtype=t) for s, t in (
+        ((B, S, H), dtype), ((B, S, D), dtype), ((B, S, N), torch.float32),
+        ((B, S, N), torch.float32), ((H,), torch.float32))]
+    assert sc_mod.selective_scan_cost(*meta) == (f_h, b_h)

@@ -13,8 +13,9 @@ equal to the CPU; K5
 suite's bars of their plain versions, edge cases included (S 1 and 2048,
 GQA groups, padded head dims, windows, large logits, long and short scan
 memory, element-wise staging), K5 at the moonshot, qwen2-vl and zamba2
-prefill shapes, K6's per-channel form (Mamba-2, N 16 and 64) and its
-(D, N) form bitwise, and one full-width moonshot MoE layer giving the
+prefill shapes, K6's per-head form (Mamba-2, N 16 and 64; per channel,
+zamba2's heads, ragged tiles) and its (D, N) form bitwise, and one
+full-width moonshot MoE layer giving the
 same bits on two runs; the training path (no kernel): train
 steps of reduced granite, falcon and danube with f32 parameters on the
 card equal to the CPU, and the launcher's fault restart on the card equal
@@ -912,9 +913,10 @@ def test_selective_scan_dn_form_is_bitwise(dev, B, S, D, N):
     assert torch.equal(y, y_p) and torch.equal(h, h_p)
 
 
-# K6's per-channel form (Mamba-2: a (D,) decay): zamba2-1.2b's prefill
-# (B 4, S 512, D 4096, N 64), ragged D and S, N 16 (the reduced zamba2),
-# and 2048 steps with long and short memory
+# K6's per-channel case of the per-head form (Mamba-2 with P = 1: a (D,)
+# decay): zamba2-1.2b's prefill (B 4, S 512, D 4096, N 64) with one head a
+# channel, ragged D and S, N 16 (the reduced zamba2), and 2048 steps with
+# long and short memory
 @pytest.mark.parametrize("B,S,D,N,dt_lo,dt_hi", [
     (4, 512, 4096, 64, 0.001, 0.1), (2, 37, 200, 64, 0.01, 0.11),
     (1, 45, 96, 16, 0.01, 0.11), (1, 2048, 130, 64, 0.004, 0.006),
@@ -937,6 +939,62 @@ def test_selective_scan_per_channel_matches_plain(dev, B, S, D, N, dt_lo,
     tol = 2e-6 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+    assert torch.equal(y, y_p) and torch.equal(h, h_p)
+
+
+def _head_inputs(B, S, H, P, N, dt_lo, dt_hi, dtype, dev, offset=0):
+    """Per-head inputs (dt (B, S, H), x (B, S, H·P), b, c, a (H,)); x
+    starts ``offset`` elements into its buffer (1: not 16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(S + H * P + N)
+    dt = torch.rand(B, S, H, generator=g, device=dev) * (dt_hi - dt_lo) \
+        + dt_lo
+    x = torch.randn(B * S * H * P + offset, generator=g, device=dev)
+    x = x.to(dtype)[offset:].view(B, S, H * P)
+    b = torch.randn(B, S, N, generator=g, device=dev)
+    c = torch.randn(B, S, N, generator=g, device=dev)
+    a = -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3)
+    return dt.to(dtype), x, b, c, a
+
+
+# K6's per-head form (Mamba-2: dt (B, S, H), a (H,)): zamba2-1.2b's prefill
+# (H 64, P 64, N 64), the reduced zamba2 (P 32, N 16), a D that ends in the
+# middle of a tile with a ragged S (P 24 and 3), tiles holding several heads
+# and parts of heads (P 48, which does not divide the tile's 64 channels),
+# and 2048 steps with long and short memory
+@pytest.mark.parametrize("B,S,H,P,N,dt_lo,dt_hi", [
+    (4, 512, 64, 64, 64, 0.001, 0.1), (2, 37, 8, 32, 16, 0.01, 0.11),
+    (2, 37, 5, 24, 64, 0.01, 0.11), (1, 77, 50, 3, 16, 0.01, 0.11),
+    (2, 100, 7, 48, 64, 0.01, 0.11), (1, 2048, 4, 64, 64, 0.004, 0.006),
+    (2, 2048, 3, 48, 64, 0.5, 1.5), (1, 2048, 6, 32, 16, 0.5, 1.5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_per_head_is_bitwise(dev, B, S, H, P, N, dt_lo,
+                                            dt_hi, dtype):
+    dt, x, b, c, a = _head_inputs(B, S, H, P, N, dt_lo, dt_hi, dtype, dev)
+    n = dict(selective_scan.route_launches)
+    y, h = selective_scan(dt, x, b, c, a)
+    assert selective_scan.route_launches == {**n, "per_channel":
+                                             n["per_channel"] + 1}
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    tol = 2e-6 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_p, atol=tol, rtol=tol)
+    assert torch.equal(y, y_p) and torch.equal(h, h_p)
+    # the per-channel case on dt and a repeated over each head's channels
+    y_c, h_c = selective_scan(dt.repeat_interleave(P, -1), x, b, c,
+                              a.repeat_interleave(P))
+    assert torch.equal(y, y_c) and torch.equal(h, h_c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_per_head_elementwise_staging(dev, dtype):
+    """x not 16-byte aligned takes the element-wise staging of the same
+    kernel: bitwise the plain version."""
+    dt, x, b, c, a = _head_inputs(2, 70, 6, 32, 64, 0.01, 0.11, dtype, dev,
+                                  offset=1)
+    assert x.data_ptr() % 16
+    y, h = selective_scan(dt, x, b, c, a)
+    y_p, h_p = selective_scan_plain(dt, x, b, c, a)
+    assert torch.equal(y, y_p) and torch.equal(h, h_p)
 
 
 def test_moe_combine_is_deterministic_on_the_card(dev):
@@ -1054,6 +1112,14 @@ def test_custom_ops_equal_the_bare_launches_bitwise(dev, dtype):
                          ss.launch(dt, x, b, c, a)):
         assert torch.equal(got, want)
     assert ss.selective_scan.launches == n + 2
+    # the per-head form: dt (B, S, H), a (H,), 3 heads of 32 channels
+    dt, a = dt[..., :3].contiguous(), -torch.rand(3, generator=g, device=dev)
+    b, c = (torch.randn(2, 50, 64, generator=g, device=dev)
+            for _ in range(2))
+    for got, want in zip(ss.selective_scan(dt, x, b, c, a),
+                         ss.launch(dt, x, b, c, a)):
+        assert torch.equal(got, want)
+    assert ss.selective_scan.launches == n + 4
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "falcon-mamba-7b",

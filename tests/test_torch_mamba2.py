@@ -1,15 +1,16 @@
 """The port's Mamba-2 block (``repro_torch.models.ssm``) and K6's
-per-channel form against the JAX package on the CPU, at the reduced
+per-head form against the JAX package on the CPU, at the reduced
 zamba2-1.2b (d_inner 256, 8 heads of 32 channels, N 16).
 
 The JAX block's parameters go into the port as they are.  The scan
-route (``mamba2_apply``: prefill's per-channel K6 call, whose plain
+route (``mamba2_apply``: prefill's per-head K6 call, whose plain
 version runs here, and the training route's chunked scan), the SSD form
 (``mamba2_apply_ssd``) and the decode step (``mamba2_step``) are held
 against the JAX functions, the final state and conv tail included: f32
 within 1e-5 (rtol and atol, the Mamba-1 test's bar), bf16 within 2e-2 x
-max|out|.  K6's per-channel plain version is held against the (D, N)
-form on the broadcast decay and against the JAX reference scan.
+max|out|.  K6's plain version with one decay per channel (the per-head
+form at H = D) is held against the (D, N) form on the broadcast decay
+and against the JAX reference scan.
 ``Model.loss`` and its gradients for the reduced zamba2 (scan and ssd)
 are held against ``jax.value_and_grad`` of the JAX loss in f32.
 """
