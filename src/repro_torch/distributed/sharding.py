@@ -538,7 +538,8 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def local_rows(fn: Callable, *xs, dims: Tuple[int, ...] = (0,)):
+def local_rows(fn: Callable, *xs, dims: Tuple[int, ...] = (0,),
+               rows_only: Tuple[int, ...] = ()):
     """``fn(*xs)`` run on each rank's rows.  With DTensor arguments, each
     keeps only the first one's splits of the ``dims`` (dim 0, the rows, by
     default; a split is kept where it divides that dim of every argument)
@@ -547,13 +548,18 @@ def local_rows(fn: Callable, *xs, dims: Tuple[int, ...] = (0,)):
     tuple's) comes back split the same way.  For code independent across
     those dims whose ops DTensor cannot always place (attention's batched
     products flatten (batch, head) into one dim; the kernels' custom ops
-    have no DTensor rule)."""
+    have no DTensor rule).  The arguments at the positions ``rows_only``
+    keep only the rows' split, every other dim whole (an operand that the
+    other ``dims`` do not index, as SSD's B and C beside its heads): each
+    rank's gradient of such an argument is a partial sum over the mesh
+    dims that split the other ``dims``."""
     lead = next((x for x in xs if is_dtensor(x)), None)
     if lead is None:
         return fn(*xs)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = lead.device_mesh
-    ds = [x for x in xs if is_dtensor(x)]
+    ds = [x for j, x in enumerate(xs) if is_dtensor(x)
+          and j not in rows_only]
     pl, split = [], {}
     for i, p in enumerate(lead.placements):
         n = split.get(p.dim, 1) * mesh.size(i) if isinstance(p, Shard) else 0
@@ -563,8 +569,20 @@ def local_rows(fn: Callable, *xs, dims: Tuple[int, ...] = (0,)):
             pl.append(p)
         else:
             pl.append(Replicate())
-    out = fn(*(_ContiguousGrad.apply(x.redistribute(mesh, pl).to_local())
-               if is_dtensor(x) else x for x in xs))
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    sums = [r if r == p else Partial() for r, p in zip(rows, pl)]
+
+    def local(j, x):
+        if not is_dtensor(x):
+            return x
+        if j in rows_only:
+            x = x.redistribute(mesh, rows).to_local(grad_placements=sums)
+        else:
+            x = x.redistribute(mesh, pl).to_local()
+        return _ContiguousGrad.apply(x)
+
+    out = fn(*(local(j, x) for j, x in enumerate(xs)))
     # contiguous: DTensor runs later views as views of the local shards
     if isinstance(out, tuple):
         return tuple(DTensor.from_local(o.contiguous(), mesh, pl,

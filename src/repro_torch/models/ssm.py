@@ -322,7 +322,6 @@ def mamba2_apply(cfg: ArchConfig, p: Dict[str, torch.Tensor],
 def _ssd_chunk(h, al, Bq, Cq, dx):
     """One SSD chunk: al (B, Q, nh) log-decays, Bq / Cq (B, Q, N), dx
     (B, Q, nh, P), carry h (B, nh, P, N) -> (h_new, y (B, Q, nh, P))."""
-    dx = constrain(dx, "batch", None, "ssm_inner", None)
     Q = al.shape[1]
     lc = torch.cumsum(al, dim=1)                             # (B,Q,nh)
     # intra-chunk: masked decay "attention"
@@ -344,6 +343,29 @@ def _ssd_chunk(h, al, Bq, Cq, dx):
     return h_new, y_intra + y_inter
 
 
+def _ssd_scan(dtx, a_log, Bm, Cm, chunk: int):
+    """SSD's chunks in order from a zero state, each under a checkpoint,
+    the tail padded to a whole chunk: dtx (B, S, nh, P), a_log (B, S, nh),
+    Bm / Cm (B, S, N) -> (y (B, S, nh, P), h_S as (B, P, nh, N): the head
+    on dim 2, as in dtx)."""
+    B, S, nh, P = dtx.shape
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        a_log = F.pad(a_log, (0, 0, 0, pad))
+        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
+        dtx = F.pad(dtx, (0, 0, 0, 0, 0, pad))
+    h = torch.zeros((B, nh, P, Bm.shape[-1]), dtype=torch.float32,
+                    device=dtx.device)
+    ys = []
+    for i in range(a_log.shape[1] // Q):
+        sl = slice(i * Q, (i + 1) * Q)
+        h, yc = checkpoint(_ssd_chunk, h, a_log[:, sl], Bm[:, sl], Cm[:, sl],
+                           dtx[:, sl], use_reentrant=False)
+        ys.append(yc)
+    return torch.cat(ys, dim=1)[:, :S], h.transpose(1, 2)
+
+
 def mamba2_apply_ssd(cfg: ArchConfig, p: Dict[str, torch.Tensor],
                      x: torch.Tensor, *, chunk: int = 128,
                      return_state: bool = False):
@@ -352,29 +374,21 @@ def mamba2_apply_ssd(cfg: ArchConfig, p: Dict[str, torch.Tensor],
     tokens be two matmuls (intra-chunk masked decay M·X and the inter-chunk
     state read) instead of (B, S, d_inner, N) scan terms.  Plain torch on
     every route, prefill and training alike; each chunk runs under a
-    checkpoint, as the JAX body does."""
+    checkpoint, as the JAX body does.  On DTensors each rank runs the
+    chunks of its own rows and heads, B and C whole over N (torch 2.11's
+    DTensor cannot flatten a split (batch, head) pair in the chunk's
+    einsums)."""
     B, S, D = x.shape
     di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     nh = di // P
     z, x_in, xc, Bm, Cm, dt = _mamba2_head(cfg, p, x)
     a_log = dt * -torch.exp(p["A_log"])                          # <= 0
     dtx = dt[..., None] * xc.reshape(B, S, nh, P).float()        # (B,S,nh,P)
-    Q = min(chunk, S)
-    pad = (-S) % Q
-    if pad:
-        a_log = F.pad(a_log, (0, 0, 0, pad))
-        Bm, Cm = F.pad(Bm, (0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, pad))
-        dtx = F.pad(dtx, (0, 0, 0, 0, 0, pad))
-    h = torch.zeros((B, nh, P, N), dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(a_log.shape[1] // Q):
-        sl = slice(i * Q, (i + 1) * Q)
-        h, yc = checkpoint(_ssd_chunk, h, a_log[:, sl], Bm[:, sl], Cm[:, sl],
-                           dtx[:, sl], use_reentrant=False)
-        ys.append(yc)
-    y = torch.cat(ys, dim=1).reshape(B, -1, di)[:, :S]
-    return _mamba2_tail(cfg, p, y, xc, z, x_in, h.reshape(B, di, N), S,
-                        x.dtype, return_state)
+    dtx = constrain(dtx, "batch", None, "ssm_inner", None)
+    y, h = local_rows(functools.partial(_ssd_scan, chunk=chunk), dtx, a_log,
+                      Bm, Cm, dims=(0, 2), rows_only=(2, 3))
+    y, h = y.reshape(B, S, di), h.transpose(1, 2).reshape(B, di, N)
+    return _mamba2_tail(cfg, p, y, xc, z, x_in, h, S, x.dtype, return_state)
 
 
 mamba2_cache_template = mamba1_cache_template

@@ -5,6 +5,7 @@ their results by task name; each task decides which ranks take part."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -12,13 +13,16 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_shape
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.collectives import on_mesh
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.settings import cell_settings
+from repro_torch.models import ssm
 from repro_torch.models.model import ModelFlags, build_model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import compression
 from repro_torch.train.optimizer import AdamWConfig, opt_template
-from repro_torch.train.train_step import TrainState, make_train_step
+from repro_torch.train.train_step import (TrainState, make_grad_fn,
+                                          make_train_step)
 
 WIRE = ("all_gather_into_tensor", "all_to_all_single", "all_reduce")
 CFG = dict(arch="granite-3-2b", attn_chunk=32)
@@ -132,6 +136,67 @@ def steps(rank, world, shape, params_np, batches, sync="auto",
                 moments_ok=mu_ok, moved=getattr(ctx, "moved", 0),
                 params=sh.tree_map(lambda t: t.float().numpy(), full)
                 if rank == 0 else None)
+
+
+def ssd_model():
+    """Reduced zamba2-1.2b with the optimized train cell's settings (the
+    SSD route, the activation constraints, the default rules: rows over
+    ``data``, Mamba-2 heads over ``model``), SSD chunks of 8 so a row of
+    32 tokens runs 4 of them: (model, config, settings)."""
+    cfg = get_config("zamba2-1.2b").reduced()
+    st = cell_settings(cfg, get_shape("train_4k"), "optimized")
+    flags = dataclasses.replace(st.flags, ssm_chunk=8, attn_chunk=32)
+    return build_model(cfg, flags), cfg, st
+
+
+def ssd_steps(rank, world, params_np, batches):
+    """``ssd_model``'s gradient at ``batches[0]`` and ``len(batches)``
+    train steps on a (data 2, model 2) mesh under
+    ``activation_sharding``, from ``params_np`` (f32): the gradients and
+    final parameters whole (rank 0), per-step loss and grad norm, and the
+    placements of ``local_rows``' DTensor arguments in the SSD route
+    (dtx, a_log, B, C) at each call."""
+    mesh = make_host_mesh(2, 2, 1, device="cpu")
+    if rank >= 4:
+        return None
+    model, _, st = ssd_model()
+    ctx = sh.activation_sharding(mesh, st.rules)
+    shard = sh.tree_shardings(model.template(), mesh, st.rules)
+    params = sh.distribute_tree(_params(model, params_np, "float32"), shard,
+                                src_rank=None)
+    bsh = sh.tree_shardings(
+        {k: sh.Param(v.shape, ("batch", None), dtype=torch.int32)
+         for k, v in batches[0].items()}, mesh, st.rules)
+    bs = [sh.distribute_tree({k: torch.from_numpy(v) for k, v in b.items()},
+                             bsh, src_rank=None) for b in batches]
+    seen, real = [], ssm.local_rows
+
+    def spy(fn, *xs, **kw):
+        seen.append([[str(p) for p in x.placements] for x in xs
+                     if sh.is_dtensor(x)])
+        return real(fn, *xs, **kw)
+    ssm.local_rows = spy
+    try:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with ctx, implicit_replication(), on_mesh(sh.tree_leaves(params)[0]):
+            grads, _ = make_grad_fn(model)(params, bs[0])
+        grads = sh.local_tree(grads)
+        state = TrainState.create(params)
+        step = make_train_step(model, AdamWConfig())
+        losses, gnorms = [], []
+        for b in bs:
+            with ctx:
+                state, met = step(state, b)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+    finally:
+        ssm.local_rows = real
+    full = sh.local_tree(state.params)
+    np_tree = (lambda t: sh.tree_map(lambda x: x.float().numpy(), t)
+               if rank == 0 else None)
+    return dict(losses=losses, gnorms=gnorms, seen=seen,
+                grads=np_tree(grads), params=np_tree(full))
 
 
 def decode(rank, world, params_np, tokens):

@@ -17,9 +17,12 @@ prefill shapes, K6's per-head form (Mamba-2, N 16 and 64; per channel,
 zamba2's heads, ragged tiles) and its (D, N) form bitwise, and one
 full-width moonshot MoE layer giving the
 same bits on two runs; the training path (no kernel): train
-steps of reduced granite, falcon and danube with f32 parameters on the
-card equal to the CPU, and the launcher's fault restart on the card equal
-to its clean run; K5/K6's custom ops equal to their bare launches bit
+steps of every reduced training family (granite, falcon, danube, moonshot
+and phi3.5 at capacity factor 16, zamba2 through the scan and SSD routes,
+qwen2-vl on the stub frontend's embeddings) with f32 parameters on the
+card equal to the CPU, their bf16 gradients bit for bit on two card runs
+and under ``torch.use_deterministic_algorithms``, and the launcher's fault
+restart on the card equal to its clean run; K5/K6's custom ops equal to their bare launches bit
 for bit, and reduced prefill and decode steps counted on the card
 (``launch.step_cost``) equal to the meta dry run; the serving engine's
 captured steps (CUDA graphs) equal to the eager steps bit for bit for
@@ -1020,31 +1023,68 @@ def test_moe_combine_is_deterministic_on_the_card(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["granite-3-2b", "falcon-mamba-7b",
-                                  "h2o-danube-3-4b"])
-def test_train_steps_card_equal_cpu(dev, name):
-    """f32 parameters with a random head, 3 AdamW steps from one state:
-    losses rel 1e-4 card vs CPU at every step, step-0 gradients within
-    1e-4 x max|g| per leaf (TF32 matmuls off, PyTorch's default)."""
+# the training families of chip_smoke.py phase 14 (c) and (f): an id is an
+# arch, with ":ssd" for zamba2's SSD route; the MoE families at capacity
+# factor 16 (no drops), as the CPU suite holds them against the reference
+TRAIN_FAMILIES = ["granite-3-2b", "falcon-mamba-7b", "h2o-danube-3-4b",
+                  "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+                  "zamba2-1.2b", "zamba2-1.2b:ssd", "qwen2-vl-72b"]
+
+
+def _train_case(name, dtype):
+    """The reduced family of ``name``: (model, CPU parameters in ``dtype``
+    with a random head, a batch maker ``(state, device) -> (state,
+    batch)``: the pipeline's tokens, or the stub frontend's patch
+    embeddings and M-RoPE ids with seeded labels)."""
     import math
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import (DataConfig, PipelineState,
                                            device_batch)
-    from repro_torch.distributed.sharding import tree_leaves, tree_map
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.models import frontend
     from repro_torch.models.model import ModelFlags, build_model
+    arch, _, algo = name.partition(":")
+    cfg = get_config(arch).reduced()
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    model = build_model(cfg, ModelFlags(attn_chunk=16, ssm_chunk=8,
+                                        ssm_algo=algo or "scan"))
+    gen = torch.Generator().manual_seed(1)
+    params = model.init(generator=gen, device="cpu")
+    if dtype == torch.float32:
+        params = tree_map(lambda t: t.float(), params)
+    params["lm_head"] = (torch.randn(cfg.d_model, cfg.vocab, generator=gen)
+                         / math.sqrt(cfg.d_model)).to(dtype)
+    dcfg = DataConfig(cfg, 2, 72, seed=1)
+
+    def next_batch(ps, d):
+        if cfg.input_mode != "embeddings":
+            return device_batch(dcfg, ps, d)
+        rng = np.random.default_rng(ps.step)
+        return PipelineState(ps.seed, ps.step + 1), {
+            "embeds": frontend.fake_patch_embeddings(
+                cfg, 2, 72, seed=ps.step, device=d).to(dtype),
+            "positions": frontend.mrope_position_ids(2, 72, grid=4,
+                                                     device=d),
+            "labels": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (2, 72)).astype(np.int32)).to(d)}
+    return model, params, next_batch
+
+
+@pytest.mark.parametrize("name", TRAIN_FAMILIES)
+def test_train_steps_card_equal_cpu(dev, name):
+    """f32 parameters with a random head, 3 AdamW steps from one state:
+    losses rel 1e-4 card vs CPU at every step, step-0 gradients within
+    1e-4 x max|g| per leaf (TF32 matmuls off, PyTorch's default); a leaf
+    the loss does not read (qwen2-vl's token table) is zero on both."""
+    from repro_torch.data.pipeline import PipelineState
+    from repro_torch.distributed.sharding import tree_leaves, tree_map
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (TrainState, make_grad_fn,
                                               make_train_step)
     assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = get_config(name).reduced()
-    model = build_model(cfg, ModelFlags(attn_chunk=16, ssm_chunk=8))
-    gen = torch.Generator().manual_seed(1)
-    params = tree_map(lambda t: t.float(),
-                      model.init(generator=gen, device="cpu"))
-    params["lm_head"] = torch.randn(cfg.d_model, cfg.vocab,
-                                    generator=gen) / math.sqrt(cfg.d_model)
-    dcfg = DataConfig(cfg, 2, 72, seed=1)
+    model, params, next_batch = _train_case(name, torch.float32)
     step_fn = make_train_step(model, AdamWConfig(lr_peak=3e-3,
                                                  warmup_steps=1,
                                                  total_steps=3))
@@ -1052,11 +1092,11 @@ def test_train_steps_card_equal_cpu(dev, name):
     for d in ("cpu", dev):
         # a copy per device: the train step updates its state in place
         p = tree_map(lambda t: t.to(d, copy=True), params)
-        _, b0 = device_batch(dcfg, PipelineState(1, 0), d)
+        _, b0 = next_batch(PipelineState(1, 0), d)
         grads, _ = make_grad_fn(model)(p, b0)
         state, ps, losses = TrainState.create(p), PipelineState(1, 0), []
         for _ in range(3):
-            ps, b = device_batch(dcfg, ps, d)
+            ps, b = next_batch(ps, d)
             state, met = step_fn(state, b)
             losses.append(float(met["loss"]))
         out.append((losses, [g.cpu() for g in tree_leaves(grads)]))
@@ -1064,6 +1104,34 @@ def test_train_steps_card_equal_cpu(dev, name):
     assert lg == pytest.approx(lc, rel=1e-4)
     for a, b in zip(gg, gc):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("name", TRAIN_FAMILIES)
+def test_train_grads_bitwise_on_two_card_runs(dev, name):
+    """bf16 parameters (the model's own dtypes) with a random head: two
+    card runs of ``make_grad_fn`` from one state give the same loss and
+    gradients bit for bit, and so does a third under
+    ``torch.use_deterministic_algorithms`` (which raises on an op with no
+    deterministic form: the MoE's gathers and ``index_put_``s, the
+    embedding's backward)."""
+    from repro_torch.data.pipeline import PipelineState
+    from repro_torch.distributed.sharding import tree_leaves, tree_map
+    from repro_torch.train.train_step import make_grad_fn
+    model, params, next_batch = _train_case(name, torch.bfloat16)
+    p = tree_map(lambda t: t.to(dev), params)
+    _, b = next_batch(PipelineState(1, 0), dev)
+    grad_fn = make_grad_fn(model)
+    runs = [grad_fn(p, b), grad_fn(p, b)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs.append(grad_fn(p, b))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g0, m0 = runs[0]
+    for g, m in runs[1:]:
+        assert torch.equal(m["loss"], m0["loss"])
+        for x, y in zip(tree_leaves(g0), tree_leaves(g)):
+            assert torch.equal(x, y)
 
 
 def test_train_loop_fault_restart_on_the_card(dev, tmp_path):

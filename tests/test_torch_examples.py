@@ -50,8 +50,8 @@ def test_examples_import_no_jax():
                              "bit-identical placements")),
     # the script runs scene 1 over a simulated year of a 4,096-node fleet,
     # twice, through the scanned driver: minutes on the CPU; here its
-    # scenes run with scene 1 over a month (the year runs on the card, in
-    # chip_smoke.py's phase 16 (d))
+    # scenes run with scene 1 over a month (an eighth of the year runs on
+    # the card, in chip_smoke.py's phase 16 (d))
     ("green_window_planner",
      "ex.scene_migration(epochs=720); ex.scene_deferral()",
      ("== scene 1", "720 simulated hours", "planner:", "== scene 2",

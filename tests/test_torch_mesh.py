@@ -278,6 +278,47 @@ def test_reduced_cell_dry_runs_on_the_production_meshes(fake, mesh_shape,
     assert lead.device_mesh is mesh
 
 
+# the reduced MoE and hybrid train cells on the production meshes: widths
+# that divide 16 (zamba2: d_inner 512 in 16 heads of 32, the tied
+# attention block after each pair of Mamba-2 blocks; moonshot: 16 experts,
+# top 2)
+FAMILY_REDUCED = {
+    "zamba2-1.2b": dict(REDUCED, n_kv_heads=16, ssm_state=16,
+                        ssm_head_dim=32, attn_every=2),
+    "moonshot-v1-16b-a3b": dict(REDUCED, n_kv_heads=16, n_experts=16,
+                                top_k=2),
+}
+
+
+@pytest.mark.parametrize("mesh_shape", [POD, MULTIPOD],
+                         ids=["pod", "multipod"])
+@pytest.mark.parametrize("arch,mode", [("zamba2-1.2b", "optimized"),
+                                       ("moonshot-v1-16b-a3b", "baseline")],
+                         ids=["zamba2-ssd", "moonshot"])
+def test_reduced_family_cell_dry_runs_on_the_production_meshes(
+        fake, mesh_shape, arch, mode):
+    """Cases of ``test_reduced_cell_dry_runs_on_the_production_meshes``
+    for the hybrid (zamba2's optimized setting: the SSD route, whose
+    chunks each rank runs on its own rows and heads) and the MoE: the
+    train cell runs on the fake (16, 16) and (2, 16, 16) meshes and bills
+    collective bytes per device."""
+    mesh = port_mesh.make_fake_mesh(mesh_shape)
+    cfg = dataclasses.replace(get_config(arch), **FAMILY_REDUCED[arch])
+    shape = ShapeSpec("train_4k", "train", 64, 32)
+    st = cell_settings(cfg, shape, mode)
+    assert st.flags.ssm_algo == ("ssd" if arch == "zamba2-1.2b" else "scan")
+    model = build_model(cfg, st.flags)
+    _, out, c = dryrun.count_cell(cfg, shape, model, st.microbatches,
+                                  mesh=mesh, rules=st.rules,
+                                  grad_sync=st.grad_sync,
+                                  constrain_acts=st.constrain_acts)
+    assert c.cost.coll_bytes > 0 and c.cost.flops > 0
+    assert c.cost.coll_bytes == sum(c.cost.coll_per_kind.values())
+    state, metrics = out
+    assert set(metrics) >= {"loss", "grad_norm"}
+    assert sh.tree_leaves(state.params)[0].device_mesh is mesh
+
+
 REF_SCRIPT = textwrap.dedent("""
     import os, sys, json
     n = int(sys.argv[1]); axes = json.loads(sys.argv[2])

@@ -20,7 +20,10 @@ JAX reference.
 - ``train_loop(data_mesh=2, model_mesh=2)`` with a node failure: one
   elastic restart onto (1,2), the one-process run's losses;
 - the ensemble with ``shard=True`` on 2 and 4 ranks (4 and 3 lanes) ==
-  the one-process ensemble, bit for bit.
+  the one-process ensemble, bit for bit;
+- reduced zamba2-1.2b through the SSD route on (2,2), each rank running
+  its rows' and heads' chunks: gradients, losses and parameters == the
+  one-process port's.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ from repro_torch.distributed.ranks import run_ranks
 from repro_torch.models.model import ModelFlags, build_model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.train_step import TrainState, make_train_step
+from repro_torch.train.train_step import (TrainState, make_grad_fn,
+                                          make_train_step)
 from test_torch_scan import BASE, assert_same
 
 import _multirank_ranks as R
@@ -85,10 +89,10 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _params_np(seed: int = 0) -> dict:
-    """Reduced granite's parameters in f32 with a seeded head (a
+def _params_np(seed: int = 0, arch: str = ARCH) -> dict:
+    """Reduced ``arch``'s parameters in f32 with a seeded head (a
     zero-init head gives every mesh the same ln V loss)."""
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     p = build_model(cfg).init(seed, device="cpu")
     out = sh.tree_map(lambda t: t.float().numpy(), p)
     rng = np.random.default_rng(seed + 1)
@@ -97,8 +101,8 @@ def _params_np(seed: int = 0) -> dict:
     return out
 
 
-def _batches(n: int = N_STEPS) -> list:
-    cfg = get_config(ARCH).reduced()
+def _batches(n: int = N_STEPS, arch: str = ARCH) -> list:
+    cfg = get_config(arch).reduced()
     dcfg, ps, out = DataConfig(cfg, *SHAPE, task="copy"), \
         PipelineState(0, 0), []
     for _ in range(n):
@@ -143,6 +147,8 @@ def _en_rich_cfgs() -> list:
 def worlds():
     """Every multi-rank task, one spawn per world size."""
     params, batches = _params_np(), _batches()
+    ssd = dict(params_np=_params_np(arch="zamba2-1.2b"),
+               batches=_batches(arch="zamba2-1.2b"))
     root = tempfile.mkdtemp(prefix="multirank_")
     step = dict(params_np=params, batches=batches)
     w2 = [("syncs", "syncs", dict(trees=_sync_trees())),
@@ -172,14 +178,15 @@ def worlds():
           ("en3", "ensemble_en", dict(cfgs=_ens_cfgs(3), n=EN_N,
                                       chips=ENS_CHIPS)),
           ("en_rich2", "ensemble_en", dict(cfgs=_en_rich_cfgs(), n=EN_N,
-                                           chips=ENS_CHIPS))]
+                                           chips=ENS_CHIPS)),
+          ("22_ssd", "ssd_steps", ssd)]
     w8 = [("11", "steps", dict(step, shape=(1, 1, 1))),
           ("222", "steps", dict(step, shape=(2, 2, 2)))]
     w8 += [(f"222_{s}", "steps", dict(step, shape=(2, 2, 2), sync=s))
            for s in ("int8", "int16")]
     w8 += [("ckpt", "checkpoints", dict(root=f"{root}/ckpt",
                                         params_np=params))]
-    out = {"root": root, "params": params, "batches": batches}
+    out = {"root": root, "params": params, "batches": batches, "ssd": ssd}
     for world, tasks in ((2, w2), (4, w4), (8, w8)):
         out[world] = run_ranks(R.world_tasks, world, tasks, timeout=240)
     return out
@@ -412,6 +419,56 @@ def test_train_step_2x2_sequence_parallel_matches_one_process(
     for a, b in zip(sh.tree_leaves(got["params"]),
                     sh.tree_leaves(ref["params"])):
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_ssd_train_step_2x2_matches_one_process(worlds):
+    """Reduced zamba2-1.2b with the optimized train cell's settings (the
+    SSD route, SSD chunks of 8 over 32 tokens, the activation
+    constraints) on (data 2, model 2): each rank runs the chunks of its
+    rows and heads (dtx split over both, B and C over the rows only, so
+    their gradients come back as partial sums over ``model``), and the
+    step-0 gradients within 1e-5 x max|g| per leaf (measured <= 2.5e-6),
+    every step's loss and grad norm rel 1e-5, and the parameters after 3
+    steps within 1e-5 of each leaf's L2 norm (measured <= 2.1e-6) of the
+    one-process port (f32); every rank reports the same losses.  The L2
+    norm, not max|p|: ``conv_b`` starts at zero and holds AdamW's steps
+    only, where an element with a near-zero gradient moves by up to lr
+    in the direction of its rounding (max-element gap 1.45e-5 x max|p|).
+    """
+    model, _, _ = R.ssd_model()
+    params = R._params(model, worlds["ssd"]["params_np"], "float32")
+    bs = [{k: torch.from_numpy(v) for k, v in b.items()}
+          for b in worlds["ssd"]["batches"]]
+    grads, _ = make_grad_fn(model)(params, bs[0])
+    state, step = TrainState.create(params), make_train_step(model,
+                                                             AdamWConfig())
+    losses, gnorms = [], []
+    for b in bs:
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    res = [r["22_ssd"] for r in worlds[4]]
+    for r in res:
+        assert r["losses"] == res[0]["losses"]
+    got = res[0]
+    # the SSD calls of local_rows (the causal conv's have one argument):
+    # (dtx, a_log, B, C), each argument's placements on (data, model)
+    calls = [pl for pl in got["seen"] if len(pl) == 4]
+    assert calls
+    for pl in calls:
+        assert pl[0] == ["S(0)", "S(2)"]
+        assert pl[2] == pl[3] == ["S(0)", "R"]
+    for a, b in zip(got["losses"], losses):
+        assert a == pytest.approx(b, rel=1e-5)
+    for a, b in zip(got["gnorms"], gnorms):
+        assert a == pytest.approx(b, rel=1e-5)
+    for a, b in zip(sh.tree_leaves(got["grads"]), sh.tree_leaves(grads)):
+        b = b.numpy()
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    for a, b in zip(sh.tree_leaves(got["params"]),
+                    sh.tree_leaves(state.params)):
+        b = b.numpy()
+        assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b)
 
 
 def test_train_step_2x2_bf16_within_reference_bars(worlds, one_process):
