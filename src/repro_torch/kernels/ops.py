@@ -22,11 +22,11 @@ from repro_torch.kernels.selective_scan import (selective_scan,
 def flash_attention_op(q, k, v, *, window: int = 0,
                        use_kernel: bool = True) -> torch.Tensor:
     """Causal GQA flash attention: q (B,H,S,hd), k/v (B,K,S,hd) -> (B,H,
-    S,hd) in q's dtype (K5)."""
+    S,hd) in q's dtype (K5).  Views go to the kernel as they are: it reads
+    any strides TMA describes and copies the rest itself."""
     if not use_kernel:
         return attention_plain(q, k, v, window=window)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           window=window)
+    return flash_attention(q, k, v, window=window)
 
 
 def selective_scan_op(dt, x, b, c, a, *, use_kernel: bool = True

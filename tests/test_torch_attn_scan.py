@@ -23,7 +23,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ops import flash_attention_op, selective_scan_op
 from repro.models.ssm import chunked_selective_scan
 from repro_torch.convert import tensor_from_numpy
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as pref
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import selective_scan as sc_mod
@@ -200,28 +200,114 @@ def test_kernel_launchers_refuse_shapes_they_do_not_take(bad):
 
 
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
-    (torch.bfloat16, 64, True, "bf16-mma-64"),
-    (torch.bfloat16, 32, True, "bf16-mma-64"),
-    (torch.bfloat16, 120, True, "bf16-mma-128"),
-    (torch.bfloat16, 128, True, "bf16-mma-128"),
+    (torch.bfloat16, 64, True, "bf16-wgmma-64"),
+    (torch.bfloat16, 32, True, "bf16-wgmma-64"),
+    (torch.bfloat16, 8, True, "bf16-wgmma-64"),
+    (torch.bfloat16, 120, True, "bf16-wgmma-128"),
+    (torch.bfloat16, 128, True, "bf16-wgmma-128"),
+    (torch.bfloat16, 136, True, "bf16-wgmma-192"),
     (torch.bfloat16, 100, True, "bf16-mma-128-elementwise"),
     (torch.bfloat16, 7, True, "bf16-mma-64-elementwise"),
     (torch.bfloat16, 64, False, "bf16-mma-64-elementwise"),
+    (torch.bfloat16, 128, False, "bf16-mma-128-elementwise"),
     (torch.float32, 64, True, "f32-fma-64"),
     (torch.float32, 120, False, "f32-fma-128-elementwise"),
     (torch.float32, 120, True, "f32-fma-128"),
     (torch.float32, 60, True, "f32-fma-64"),
     (torch.float32, 30, True, "f32-fma-64-elementwise"),
-    (torch.bfloat16, 192, True, "bf16-mma-192"),
+    (torch.bfloat16, 192, True, "bf16-wgmma-192"),
     (torch.bfloat16, 130, False, "bf16-mma-192-elementwise"),
+    (torch.bfloat16, 192, False, "bf16-mma-192-elementwise"),
     (torch.float32, 192, True, "f32-fma-192"),
 ])
 def test_flash_variant_names_the_route(dtype, hd, aligned, want):
-    """bf16 runs on the tensor cores and f32 on the FMA pipes, each with
-    16-byte copies only for aligned tensors whose rows are 16-byte
-    multiples (hd % 8 == 0 in bf16, hd % 4 == 0 in f32); hd pads to 64,
-    128 or 192."""
+    """bf16 runs on the tensor cores: the TMA-fed wgmma kernel where the
+    rows are 16-byte multiples (hd % 8 == 0) and every tensor is 16-byte
+    aligned, else the mma.sync kernel staging element by element; f32 runs
+    on the FMA pipes, with 16-byte copies only for aligned tensors whose
+    rows are 16-byte multiples (hd % 4 == 0).  hd pads to 64, 128 or
+    192."""
     assert fa_mod.variant(dtype, hd, aligned) == want
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "model view", "fused slice",
+                                  "size-1 dims"])
+def test_tma_plan_takes_strided_views(case):
+    """The tensor maps' dims (hd, S, heads, B) and byte strides (S, heads,
+    B) come from the tensor's own strides, so the model's transposed
+    (B, S, H, hd) views and slices of a fused projection need no copy; a
+    dim of size 1 takes the row pitch; the box is 64 dims x 64 rows."""
+    B, S, H, hd = 2, 77, 6, 120
+    if case == "contiguous":
+        t, want = _bf16(B, H, S, hd), (2 * hd, 2 * S * hd, 2 * H * S * hd)
+    elif case == "model view":
+        t = _bf16(B, S, H, hd).transpose(1, 2)
+        want = (2 * H * hd, 2 * hd, 2 * S * H * hd)
+    elif case == "fused slice":     # q of a (B, S, H + 2 K, hd) projection
+        t = _bf16(B, S, H + 2 * 3, hd)[:, :, :H].transpose(1, 2)
+        want = (2 * (H + 6) * hd, 2 * hd, 2 * S * (H + 6) * hd)
+    else:
+        B, S, H = 1, 1, 1
+        t = _bf16(B, S, H, hd).transpose(1, 2)
+        want = (240, 240, 240)
+    plan = fa_mod.tma_plan(t)
+    assert plan.dims == (hd, S, H, B)
+    assert plan.strides == want
+    assert plan.box == (64, 64, 1, 1)
+    assert all(st % 16 == 0 for st in plan.strides)
+
+
+@pytest.mark.parametrize("case,why", [
+    ("row stride 300 bytes", "16-byte multiple"),
+    ("padded rows", "16-byte multiple"),
+    ("last stride", "last stride"),
+    ("misaligned base", "aligned"),
+    ("f32", "bf16"),
+])
+def test_tma_plan_refuses_what_tma_cannot_describe(case, why):
+    """A stride that is no 16-byte multiple (hd 150, or rows padded to 68
+    of 64 dims), a last stride other than 1, a base off 16 bytes or an f32
+    tensor: ``tma_plan`` refuses, and the launcher sends such tensors to
+    the element-wise route as contiguous copies."""
+    if case == "row stride 300 bytes":
+        t = _bf16(1, 2, 9, 150)
+    elif case == "padded rows":
+        t = _bf16(1, 2, 9, 68)[..., :64]
+    elif case == "last stride":
+        t = _bf16(1, 2, 64, 9).transpose(2, 3)
+    elif case == "misaligned base":
+        t = _bf16(2 * 2 * 9 * 64 + 1)[1:].view(2, 2, 9, 64)
+    else:
+        t = torch.zeros(1, 2, 9, 64)
+    assert why in fa_mod.tma_refusal(t)
+    with pytest.raises(ValueError, match=why):
+        fa_mod.tma_plan(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (2, 77, 6, 3, 120, 30), (1, 64, 8, 2, 64, 0), (2, 33, 4, 4, 32, 0),
+    (1, 40, 12, 1, 192, 16)])
+def test_op_on_strided_views_equals_contiguous_copies(dtype, B, S, H, K, hd,
+                                                      window):
+    """The model hands K5 transposed (B, S, heads, hd) views; the op takes
+    them as they are and gives, bit for bit, what it gives on contiguous
+    copies (the plain version on the CPU), in q's layout as the card's
+    wgmma route and the meta form do (so the model's transpose back is a
+    view)."""
+    g = np.random.default_rng(S * hd + window)
+    q, k, v = (torch.from_numpy(g.standard_normal((B, S, n, hd)).astype(
+        np.float32)).to(dtype).transpose(1, 2) for n in (H, K, K))
+    got = ops.flash_attention_op(q, k, v, window=window)
+    want = ops.flash_attention_op(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=window)
+    assert torch.equal(got, want)
+    assert got.stride() == q.stride()
+    assert got.transpose(1, 2).is_contiguous()
 
 
 def _chip_smoke():
@@ -272,14 +358,24 @@ def test_scan_variant_names_the_staging(dtype, D, aligned, want):
 
 @pytest.mark.parametrize("bad", ["float16 attention", "head_dim 0",
                                  "head_dim 193", "float16 scan",
-                                 "k/v shape", "dt/x shape"])
+                                 "k/v shape", "dt/x shape",
+                                 "attention off the card",
+                                 "strided attention off the card"])
 def test_launchers_refuse_before_building(bad):
     """What each kernel refuses, refused before any build or launch (meta
-    tensors never reach the card)."""
+    tensors never reach the card; the launcher refuses CPU tensors,
+    strided or not, before it routes or builds)."""
     m = dict(device="meta")
     n5, n6 = flash_attention.launches, selective_scan.launches
+    libs = dict(_build._LIBS)
     with pytest.raises(ValueError):
-        if bad == "float16 attention":
+        if bad == "attention off the card":
+            fa_mod.launch(*(torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+                            for _ in range(3)))
+        elif bad == "strided attention off the card":
+            fa_mod.launch(*(torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+                            .transpose(1, 2) for _ in range(3)))
+        elif bad == "float16 attention":
             fa_mod.variant(torch.float16, 64)
         elif bad == "head_dim 0":
             fa_mod.variant(torch.bfloat16, 0)
@@ -299,6 +395,7 @@ def test_launchers_refuse_before_building(bad):
                            torch.empty(1, 4, 16, **m),
                            torch.empty(32, 16, **m))
     assert (flash_attention.launches, selective_scan.launches) == (n5, n6)
+    assert _build._LIBS == libs
 
 
 # K6's per-head form: (B, S, H, P, N, dtype); S ragged where no Pallas

@@ -784,7 +784,10 @@ def test_selective_scan_kernel_matches_plain(dev, B, S, D, N, dtype):
 # the bf16 route's edge cases: one row, a long sequence, a GQA group of 8,
 # head dims padded to 64, 128 and 192 (32, 120, 150), windows that end
 # inside a kv tile, and q scaled by 8 so the running max moves tile to
-# tile and the accumulator is rescaled in registers
+# tile and the accumulator is rescaled in registers; each on contiguous
+# (B, H, S, hd) tensors and on the model's transposed (B, S, H, hd)
+# views.  hd % 8 == 0 takes the TMA-fed wgmma kernel on either layout
+# (no copy), hd 150 the element-wise mma kernel
 @pytest.mark.parametrize("B,H,K,S,hd,window", [
     (2, 4, 4, 1, 64, 0), (1, 8, 1, 2048, 64, 0), (2, 16, 2, 200, 64, 0),
     (1, 4, 2, 300, 32, 0), (1, 4, 2, 300, 120, 0), (1, 4, 2, 333, 64, 100),
@@ -792,46 +795,116 @@ def test_selective_scan_kernel_matches_plain(dev, B, S, D, N, dtype):
     (1, 12, 1, 300, 192, 0), (2, 4, 1, 260, 150, 70),
     (1, 12, 1, 2048, 192, 500)])
 @pytest.mark.parametrize("q_scale", [1.0, 8.0])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_flash_attention_bf16_edge_cases(dev, B, H, K, S, hd, window,
-                                         q_scale):
+                                         q_scale, layout):
     g = torch.Generator(device=dev).manual_seed(S * hd + window)
-    q = (torch.randn(B, H, S, hd, generator=g, device=dev)
-         * q_scale).to(torch.bfloat16)
-    k = torch.randn(B, K, S, hd, generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn(B, K, S, hd, generator=g, device=dev).to(torch.bfloat16)
-    n = flash_attention.route_launches["bf16"]
+
+    def draw(heads, scale=1.0):
+        shape = (B, heads, S, hd) if layout == "bhsd" else (B, S, heads, hd)
+        t = (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+        return t if layout == "bhsd" else t.transpose(1, 2)
+
+    q, k, v = draw(H, q_scale), draw(K), draw(K)
+    route = "bf16-wgmma" if hd % 8 == 0 else "bf16-mma"
+    n = dict(flash_attention.route_launches)
     got = flash_attention(q, k, v, window=window)
-    assert flash_attention.route_launches["bf16"] == n + 1
+    assert flash_attention.route_launches == {**n, route: n[route] + 1}
     want = attention_plain(q, k, v, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=6e-3,
                                rtol=6e-3)
 
 
 def test_flash_attention_routes_and_staging(dev):
-    """A head dim whose rows are no 16-byte multiple (hd % 8 in bf16,
-    hd % 4 in f32), or a tensor that is not 16-byte aligned, takes the
-    element-wise staging of its kernel; f32 takes the FMA kernel.  Each
-    counts on its own route."""
+    """A bf16 head dim whose rows are no 16-byte multiple (hd % 8), or a
+    tensor that is not 16-byte aligned, takes the element-wise mma kernel;
+    bf16 rows padded past hd (strides no 16-byte multiple) go to the
+    wgmma kernel as contiguous copies; f32 takes the FMA kernel, with
+    element-wise staging for hd % 4 or a misaligned tensor.  Each counts
+    on its own route."""
     g = torch.Generator(device=dev).manual_seed(5)
-    for dtype, hd, offset in ((torch.bfloat16, 60, 0),
-                              (torch.bfloat16, 64, 1),
-                              (torch.float32, 64, 0),
-                              (torch.float32, 60, 0),
-                              (torch.float32, 30, 0),
-                              (torch.float32, 64, 1)):
+    for dtype, hd, offset, route in (
+            (torch.bfloat16, 60, 0, "bf16-mma"),
+            (torch.bfloat16, 64, 1, "bf16-mma"),
+            (torch.float32, 64, 0, "f32"),
+            (torch.float32, 60, 0, "f32"),
+            (torch.float32, 30, 0, "f32"),
+            (torch.float32, 64, 1, "f32")):
         qkv = []
         for heads in (4, 2, 2):
             flat = torch.randn(2 * heads * 150 * hd + offset, generator=g,
                                device=dev).to(dtype)
             qkv.append(flat[offset:].view(2, heads, 150, hd))
-        route = "bf16" if dtype == torch.bfloat16 else "f32"
         n = dict(flash_attention.route_launches)
         got = flash_attention(*qkv, window=40)
-        assert flash_attention.route_launches[route] == n[route] + 1
+        assert flash_attention.route_launches == {**n, route: n[route] + 1}
         want = attention_plain(*qkv, window=40)
         tol = 6e-3 if dtype == torch.bfloat16 else 5e-6
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+    # rows of 68 bf16 of which 64 are the head dim: 136-byte strides
+    qkv = [torch.randn(2, heads, 150, 68, generator=g, device=dev).to(
+        torch.bfloat16)[..., :64] for heads in (4, 2, 2)]
+    n = dict(flash_attention.route_launches)
+    got = flash_attention(*qkv, window=40)
+    assert flash_attention.route_launches == {
+        **n, "bf16-wgmma": n["bf16-wgmma"] + 1}
+    torch.testing.assert_close(got.float(),
+                               attention_plain(*qkv, window=40).float(),
+                               atol=6e-3, rtol=6e-3)
+
+
+# the prefill shapes of K5 bf16's table in PERF.md (granite-3-2b,
+# moonshot-v1-16b-a3b, qwen2-vl-72b, zamba2-1.2b's tied block, nemotron-4-
+# 340b's hd 192 at 12:1), as the model hands them over: views of (B, S,
+# H, hd)
+@pytest.mark.parametrize("B,H,K,S,hd", [
+    (4, 32, 8, 512, 64), (4, 16, 16, 512, 128), (4, 64, 8, 512, 128),
+    (4, 32, 32, 512, 64), (2, 24, 2, 512, 192)])
+def test_flash_attention_prefill_shapes_take_the_wgmma_route(dev, B, H, K,
+                                                             S, hd):
+    """Each prefill shape takes the wgmma kernel on the model's views
+    with no copy (the output has q's layout, so its transpose back is
+    contiguous) and stays within K5's bf16 bar of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(B * H + hd)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2) for n in (H, K, K))
+    n = dict(flash_attention.route_launches)
+    got = flash_attention(q, k, v)
+    assert flash_attention.route_launches == {
+        **n, "bf16-wgmma": n["bf16-wgmma"] + 1}
+    assert got.stride() == q.stride() and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(),
+                               attention_plain(q, k, v).float(),
+                               atol=6e-3, rtol=6e-3)
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,window", [
+    (4, 32, 8, 512, 64, 0), (2, 4, 1, 260, 128, 70), (1, 12, 2, 300, 192, 0)])
+def test_flash_attention_graph_replay_equals_eager(dev, B, H, K, S, hd,
+                                                   window):
+    """A CUDA graph that captured the wgmma kernel (its tensor maps baked
+    by value at the captured addresses) replays on whatever its inputs
+    hold: with q, k and v rewritten in place, each replay equals an eager
+    call on the new values bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2) for n in (H, K, K))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        flash_attention(q, k, v, window=window)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention(q, k, v, window=window)
+    for _ in range(2):
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flash_attention(q, k, v, window=window))
 
 
 # the f32 route at the bf16 route's edge cases: q scaled by 8 makes the
