@@ -32,6 +32,16 @@ call copies the inputs into the same static buffers, calls ``fn`` on
 them and copies its outputs into the static outputs, so the keying and
 copy logic is the code the card runs.
 
+Timing (host clock, no sync added): ``run_s`` sums the seconds of every
+call's ``graph.step`` span (the input copies and the replay; on the CPU
+the eager call), never a capture; ``setup_s`` those of the warm-ups and
+captures, ``warmup_s`` the part of it in the warm-up runs.  On the card
+they measure what the host spends: a replay returns once it is
+enqueued, and a warm-up's device tail is waited for by its capture.
+Spans (``_trace``): ``graph.step`` around each call's copies and replay,
+``graph.capture`` around a new signature's warm-ups and capture; they
+exist only while a profile runs.
+
 Launch counts: the launches K5 / K6 make while a step is captured are
 taken back off ``flash_attention`` / ``selective_scan``'s counters (the
 capture launches nothing) and added again on every replay, so the
@@ -48,6 +58,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch._trace import GRAPH_CAPTURE, GRAPH_STEP, span
 from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import selective_scan as _ss
@@ -129,16 +140,16 @@ class _Entry:
 class CapturedStep:
     """``fn`` captured once per signature into ``pool`` and replayed (see
     the module docstring).  ``captures`` counts signatures (on the CPU:
-    their static buffers made), ``warmups`` the eager warm-up runs,
-    ``replays`` the graph replays, ``setup_s`` the seconds of warm-up and
-    capture."""
+    their static buffers made), ``warmups`` the eager warm-up runs;
+    ``run_s`` is the seconds of the calls' copies and replays, ``setup_s``
+    of warm-up and capture, ``warmup_s`` of the warm-ups alone."""
 
     def __init__(self, fn: Callable, pool: GraphPool):
         self.fn = fn
         self.pool = pool
         self.entries: Dict[tuple, _Entry] = {}
-        self.captures = self.warmups = self.replays = 0
-        self.setup_s = 0.0
+        self.captures = self.warmups = 0
+        self.run_s = self.setup_s = self.warmup_s = 0.0
 
     def __call__(self, params, inputs, state=None, **static):
         p = _tensors(params, "params")
@@ -153,23 +164,33 @@ class CapturedStep:
         if entry is None:
             entry = _Entry(p, _map(torch.clone, inputs), state)
             if self.pool.cuda:
-                self._capture(entry, params, static)
+                with span(GRAPH_CAPTURE):
+                    self._capture(entry, params, static)
             self.entries[key] = entry
             self.captures += 1
+            ins = ()                     # the entry's buffers are a copy
         elif [t.data_ptr() for _, t in p] != entry.param_ptrs:
             raise ValueError(
                 "the parameters are not the ones this step was captured "
                 "with: a captured graph reads its parameters by address")
-        else:
-            for (_, dst), (_, src) in zip(_leaves(entry.static_in), ins):
-                if dst is not src:
-                    dst.copy_(src)
+        t0 = time.perf_counter()
+        with span(GRAPH_STEP):
+            self._run(entry, ins, params, static)
+        self.run_s += time.perf_counter() - t0
+        return entry.out
+
+    def _run(self, entry: _Entry, ins, params, static) -> None:
+        """Copy ``ins`` into the entry's static buffers, then replay (on
+        the CPU: call ``fn`` and copy its outputs into the static
+        outputs)."""
+        for (_, dst), (_, src) in zip(_leaves(entry.static_in), ins):
+            if dst is not src:
+                dst.copy_(src)
         if self.pool.cuda:
             entry.graph.replay()
-            self.replays += 1
             for (add, route), n in entry.launches.items():
                 add(route, n)
-            return entry.out
+            return
         out = self.fn(params, entry.static_in, entry.state, **static)
         if entry.out is None:
             entry.out = out
@@ -177,7 +198,6 @@ class CapturedStep:
             for (_, dst), (_, src) in zip(_leaves(entry.out), _leaves(out)):
                 if dst is not src:
                     dst.copy_(src)
-        return entry.out
 
     def _capture(self, entry: _Entry, params, static) -> None:
         """Warm up on the side stream (on clones of the state), then
@@ -193,6 +213,7 @@ class CapturedStep:
                         _map(torch.clone, entry.state), **static)
                 self.warmups += 1
         cur.wait_stream(pool.stream)
+        self.warmup_s += time.perf_counter() - t0
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream):

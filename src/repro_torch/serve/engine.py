@@ -19,22 +19,38 @@ read by address: replacing ``params`` under a captured step raises.
 
 ``timings``: seconds in prefill calls / decode steps and their counts
 (host clock; each ends in a device read of the sampled tokens; warm-up
-and capture excluded), the captures (``captures``, one per step and
+and capture excluded; a decode step's seconds exclude the loop-top read
+of the active mask), the captures (``captures``, one per step and
 signature), the seconds of their warm-up and capture (``capture_s``), the
 eager warm-up runs of the prefill (``warmup_prefills``: they launch the
 prefill's kernels) and the bytes the graph pool reserved (``pool_bytes``).
+Inside the decode steps, on the host clock with no sync added:
+``decode_launch_s``, the decode step's copies and replays (its
+``CapturedStep.run_s``); ``decode_read_s``, the seconds the decode loop
+spent blocked in reads of device values (the loop-top read included),
+which on the card is mostly the wait for the step's device work; and
+``decode_syncs``, those reads (3 a step: the loop-top ``any()``, the
+active mask and the tokens).  ``warmup_s`` is the host's part of
+``capture_s`` in eager warm-up runs.
+
+Spans (``_trace``, only while a ``torch.profiler`` profile runs):
+``serve.generate`` around each call, holding ``serve.upload``,
+``serve.prefill`` and one ``serve.decode`` a loop iteration, each with
+its ``graph.step``, ``serve.sample`` and ``serve.read`` spans.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._graphs import CapturedStep, GraphPool
+from repro_torch._trace import (DECODE, GENERATE, PREFILL, READ, SAMPLE,
+                                UPLOAD, span)
 from repro_torch.distributed.sharding import tree_map
 from repro_torch.models.model import Model
 
@@ -66,7 +82,9 @@ class ServeEngine:
             lambda p, batch, caches: model.decode_step(p, caches, batch),
             self._pool)
         self.timings: Dict[str, float] = dict(
-            prefill_s=0.0, prefills=0, decode_s=0.0, decode_steps=0)
+            prefill_s=0.0, prefills=0, decode_s=0.0, decode_steps=0,
+            decode_read_s=0.0, decode_syncs=0)
+        self._calls = 0
         self.timings.update(self._graph_timings())
 
     # ------------------------------------------------------------------
@@ -87,7 +105,19 @@ class ServeEngine:
         return dict(captures=self._prefill.captures + self._decode.captures,
                     capture_s=self._setup_s(),
                     warmup_prefills=self._prefill.warmups,
-                    pool_bytes=self._pool.reserved)
+                    pool_bytes=self._pool.reserved,
+                    decode_launch_s=self._decode.run_s,
+                    warmup_s=self._prefill.warmup_s + self._decode.warmup_s)
+
+    def _read(self, read: Callable[[], Any]) -> Any:
+        """``read()``, one blocking read of device values by the decode
+        loop, in a ``serve.read`` span; its seconds and the read counted."""
+        t0 = time.perf_counter()
+        with span(READ):
+            value = read()
+        self.timings["decode_read_s"] += time.perf_counter() - t0
+        self.timings["decode_syncs"] += 1
+        return value
 
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -106,39 +136,49 @@ class ServeEngine:
         B, P = prompts.shape
         if B != self.slots:
             raise ValueError(f"{B} prompt rows for {self.slots} slots")
-        t0, s0 = time.perf_counter(), self._setup_s()
-        logits, caches = self.prefill(
-            {"tokens": torch.as_tensor(np.asarray(prompts),
-                                       device=self.device).long()})
-        tok = self._sample(logits)
-        # honor EOS on the prefill-sampled token too: the token is still
-        # emitted, but its slot goes inactive before any decode step
-        active = (tok != eos_id) if eos_id is not None \
-            else torch.ones((B,), dtype=torch.bool, device=self.device)
-        out = [[t] for t in tok.tolist()]
-        self.timings["prefill_s"] += (time.perf_counter() - t0
-                                      - (self._setup_s() - s0))
-        self.timings["prefills"] += 1
-        pos = torch.full((B,), P, dtype=torch.long, device=self.device)
-
-        for _ in range(max_new - 1):
-            if not bool(active.any()):
-                break
+        self._calls += 1
+        with span(GENERATE, dict(call=self._calls, rows=B, prompt_len=P)):
             t0, s0 = time.perf_counter(), self._setup_s()
-            logits, caches = self.decode(
-                caches, {"token": tok.long(), "positions": pos})
-            nxt = self._sample(logits)
-            if eos_id is not None:
-                active = active & (tok != eos_id)
-            nxt = torch.where(active, nxt, tok)
-            for i, (a, t) in enumerate(zip(active.tolist(), nxt.tolist())):
-                if a:
-                    out[i].append(t)
-            self.timings["decode_s"] += (time.perf_counter() - t0
-                                         - (self._setup_s() - s0))
-            self.timings["decode_steps"] += 1
-            tok = nxt
-            pos = pos + active.long()
+            with span(UPLOAD):
+                tokens = torch.as_tensor(np.asarray(prompts),
+                                         device=self.device).long()
+            with span(PREFILL):
+                logits, caches = self.prefill({"tokens": tokens})
+                with span(SAMPLE):
+                    tok = self._sample(logits)
+                # honor EOS on the prefill-sampled token too: the token
+                # is still emitted, but its slot goes inactive before any
+                # decode step
+                active = (tok != eos_id) if eos_id is not None \
+                    else torch.ones((B,), dtype=torch.bool, device=self.device)
+                with span(READ):
+                    out = [[t] for t in tok.tolist()]
+            self.timings["prefill_s"] += (time.perf_counter() - t0
+                                          - (self._setup_s() - s0))
+            self.timings["prefills"] += 1
+            pos = torch.full((B,), P, dtype=torch.long, device=self.device)
 
+            for _ in range(max_new - 1):
+                with span(DECODE):
+                    if not self._read(lambda: bool(active.any())):
+                        break
+                    t0, s0 = time.perf_counter(), self._setup_s()
+                    logits, caches = self.decode(
+                        caches, {"token": tok.long(), "positions": pos})
+                    with span(SAMPLE):
+                        nxt = self._sample(logits)
+                        if eos_id is not None:
+                            active = active & (tok != eos_id)
+                        nxt = torch.where(active, nxt, tok)
+                    flags = self._read(active.tolist)
+                    toks = self._read(nxt.tolist)
+                    for i, (a, t) in enumerate(zip(flags, toks)):
+                        if a:
+                            out[i].append(t)
+                    self.timings["decode_s"] += (time.perf_counter() - t0
+                                                 - (self._setup_s() - s0))
+                    self.timings["decode_steps"] += 1
+                    tok = nxt
+                    pos = pos + active.long()
         self.timings.update(self._graph_timings())
         return [GenerationResult(toks, P, len(toks)) for toks in out]

@@ -1354,9 +1354,21 @@ def _delta(after, before):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def _replayed(monkeypatch):
+    """The CUDA graphs replayed from now on, one entry a replay."""
+    seen = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        seen.append(graph)
+        return replay(graph)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+    return seen
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("arch", GRAPH_FAMILIES)
-def test_captured_steps_equal_eager_bitwise(dev, arch, dtype):
+def test_captured_steps_equal_eager_bitwise(dev, arch, dtype, monkeypatch):
     """The engine's captured prefill (logits and caches) and 8 captured
     decode steps (logits, and the caches after them) are the eager
     steps' bit for bit, from the same caches; the decode graph advances
@@ -1368,6 +1380,7 @@ def test_captured_steps_equal_eager_bitwise(dev, arch, dtype):
         arch, dtype, dev)
     eng = ServeEngine(model, params, max_seq=cache, batch_slots=B,
                       device=dev)
+    replayed = _replayed(monkeypatch)
     le, ce = model.prefill(params, batch, cache)
     lg, cg = eng.prefill(batch)
     torch.cuda.synchronize()
@@ -1381,11 +1394,13 @@ def test_captured_steps_equal_eager_bitwise(dev, arch, dtype):
         assert torch.equal(le, lg), (arch, t)
     assert all(torch.equal(a, b) for a, b in zip(leaves(ce), leaves(cg)))
     assert eng._prefill.captures == eng._decode.captures == 1
-    assert eng._decode.replays == n_dec
+    (entry,) = eng._decode.entries.values()
+    assert replayed.count(entry.graph) == n_dec
 
 
 @pytest.mark.parametrize("arch", GRAPH_FAMILIES)
-def test_graph_launch_counts_are_captured_launches_times_replays(dev, arch):
+def test_graph_launch_counts_are_captured_launches_times_replays(
+        dev, arch, monkeypatch):
     """K5 / K6's counters after captured prefills: the warm-up runs' own
     launches, none for the capture, and the captured launches on each
     replay, route by route, each the eager prefill's."""
@@ -1400,6 +1415,7 @@ def test_graph_launch_counts_are_captured_launches_times_replays(dev, arch):
     assert per and all(n > 0 for n in per.values())
     eng = ServeEngine(model, params, max_seq=cache, batch_slots=B,
                       device=dev)
+    replayed = _replayed(monkeypatch)
     c1 = _routes()
     eng.prefill(batch)
     assert _delta(_routes(), c1) == {k: n * (WARMUP + 1)
@@ -1410,7 +1426,7 @@ def test_graph_launch_counts_are_captured_launches_times_replays(dev, arch):
     for _ in range(3):
         eng.prefill(batch)
     assert _delta(_routes(), c2) == {k: 3 * n for k, n in per.items()}
-    assert eng._prefill.replays == 4 and eng._prefill.captures == 1
+    assert replayed.count(entry.graph) == 4 and eng._prefill.captures == 1
     if cfg.input_mode == "tokens":
         # a generate at a new prompt length: one prefill and one decode
         # signature more, the timings refreshed
@@ -1418,3 +1434,49 @@ def test_graph_launch_counts_are_captured_launches_times_replays(dev, arch):
         t = eng.timings
         assert t["warmup_prefills"] == 2 * WARMUP and t["captures"] == 3
         assert t["pool_bytes"] > 0 and t["capture_s"] > 0
+
+
+def _below(ev, name):
+    """The events named ``name`` below ``ev`` in the profiler's tree."""
+    out = []
+    for c in ev.cpu_children:
+        out += ([c] if c.name == name else []) + _below(c, name)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-1.2b"])
+def test_serve_spans_on_the_card(dev, arch):
+    """Under ``torch.profiler``: a fresh engine's first ``generate``
+    records two ``graph.capture`` spans (prefill and decode), a second at
+    the same length none and leaves ``warmup_s`` as it was; each captured
+    decode step's ``graph.step`` holds a ``cudaGraphLaunch``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import _trace
+    from repro_torch.serve.engine import ServeEngine
+    _, model, params, batch, _, B, cache, _ = _graph_case(
+        arch, torch.bfloat16, dev)
+    eng = ServeEngine(model, params, max_seq=cache, batch_slots=B,
+                      device=dev)
+    prompts = batch["tokens"].cpu().numpy()
+    new = 4
+    cuda = torch.autograd.DeviceType.CUDA
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        first = eng.generate(prompts, new)
+    names = [e.name for e in prof.events() if e.device_type != cuda]
+    assert names.count(_trace.GRAPH_CAPTURE) == 2
+    warm = eng.timings["warmup_s"]
+    assert 0 < warm < eng.timings["capture_s"]
+    with profile(activities=activities) as prof:
+        second = eng.generate(prompts, new)
+    assert [r.tokens for r in second] == [r.tokens for r in first]
+    host = [e for e in prof.events() if e.device_type != cuda]
+    assert _trace.GRAPH_CAPTURE not in {e.name for e in host}
+    assert eng.timings["warmup_s"] == warm
+    decodes = [e for e in host if e.name == _trace.DECODE]
+    assert len(decodes) == new - 1
+    for d in decodes:
+        (step,) = _below(d, _trace.GRAPH_STEP)
+        assert _below(step, "cudaGraphLaunch"), [c.name for c in
+                                                 step.cpu_children]
