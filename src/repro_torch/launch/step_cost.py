@@ -131,6 +131,11 @@ def _op_flops(func, args, kwargs, out) -> float:
     """hlo_cost's FLOPs for one aten op (see the module docstring)."""
     packet = func._overloadpacket
     if packet in flop_registry:
+        if func._overloadname.startswith("dtype"):
+            # ``mm`` / ``bmm``'s ``out_dtype`` forms: the formulas take
+            # the operands alone
+            args = tuple(a for a, s in zip(args, func._schema.arguments)
+                         if s.name != "out_dtype")
         return float(flop_registry[packet](*args, **kwargs, out_val=out))
     name = packet.__name__
     if _is_view(func) or name in _ALLOC or name == "copy_":

@@ -11,7 +11,9 @@ K5 launch per layer.  Sliding-window attention (h2o-danube) is a band
 mask in training and keeps a ring-buffer KV cache whose size is the
 window.  Positions are (B, S), or (B, S, 3) M-RoPE ids (qwen2-vl); K5
 sees q and k after the rotation either way.  Decode is plain torch: one
-query row per sequence against the cache.
+query row per sequence against the cache, which it reads in place: two
+batched products a step and layer, each on a view of a cache, bf16
+products summed in f32 (no f32 or permuted copy of the cache).
 """
 from __future__ import annotations
 
@@ -209,15 +211,77 @@ def attention_decode(cfg: ArchConfig, p, x, cache: KVCache,
         out = _decode_attend_split(q[:, 0], ck, cv, positions, slot,
                                    is_swa)
         return matmul(reshape(out, B, 1, H * hd), p["wo"]), KVCache(ck, cv)
-    scores = torch.einsum("bkgh,btkh->bkgt", q[:, 0].float(),
-                          ck.float()) * (hd ** -0.5)
-    slot_ids = torch.arange(cl, device=x.device)[None, :]      # (1, cl)
-    valid = _live_slots(slot_ids, positions, slot, cl, is_swa)
-    scores = scores.masked_fill(~valid[:, None, None], NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,btkh->bkgh", w.to(cv.dtype), cv)
+    out = _decode_attend(q[:, 0], ck, cv, positions, slot, is_swa)
     out = out.reshape(B, 1, H * hd) @ p["wo"]
     return out, KVCache(ck, cv)
+
+
+def _decode_attend(q, ck, cv, positions, slot, is_swa: bool):
+    """Decode attention on one device: q (B, K, G, hd) against the caches
+    (B, cl, K, hd), read in place as (B, cl, K·hd) matrices.
+
+    Each product is one batched matmul over the rows, on the cache's own
+    layout.  q goes in block-diagonal, (B, H, K·hd) with head (k, g)'s
+    query in kv head k's block and zeros elsewhere, so a head's scores
+    against all K·hd columns are its own products plus exact zeros; the
+    values are weighted for every (head, kv head) pair and the diagonal
+    blocks kept.  The products grow K-fold and cost nothing beside the
+    cache's bytes (H FLOPs a byte, against the card's ~295), where one
+    product per kv head on strided views ran cuBLAS's small-N kernels
+    far below the card's bandwidth.  The scores and weights are laid out
+    (B, cl, H), heads innermost, so every operand's and result's
+    contiguous dim is H or K·hd: cuBLAS falls back to element-aligned
+    kernels, several times slower, where one is not a multiple of 8, as
+    the served caches' 3,021 slots are not.  The scores are f32 sums of
+    the products (``bmm``'s ``out_dtype``: a product of two bf16 values
+    is exact in f32), scaled, masked to the live slots and softmaxed in
+    f32; the weights, rounded to the cache's dtype, weight the values.
+    Returns (B, K, G, hd) in the cache's dtype, a view."""
+    B, K, G, hd = q.shape
+    H, cl = K * G, ck.shape[1]
+    scores = _decode_scores(q, ck) * (hd ** -0.5)
+    slot_ids = torch.arange(cl, device=q.device)[None, :]      # (1, cl)
+    valid = _live_slots(slot_ids, positions, slot, cl, is_swa)
+    scores = scores.masked_fill(~valid[:, :, None], NEG_INF)
+    # softmax over slots made innermost (torch's softmax over an inner dim
+    # runs several times slower), the weights back to heads innermost
+    w = torch.softmax(scores.transpose(1, 2), dim=-1).transpose(1, 2)
+    w = w.to(cv.dtype, memory_format=torch.contiguous_format)
+    out = torch.bmm(w.transpose(1, 2), cv.view(B, cl, K * hd))
+    return out.view(B, K, G, K, hd).diagonal(0, 1, 3).permute(0, 3, 1, 2)
+
+
+def _decode_scores(q, ck):
+    """(B, cl, H) f32, head h = k·G + g: q (B, K, G, hd) times the K cache
+    (B, cl, K, hd) with f32 sums, as one batched product of a view of the
+    cache and the block-diagonal q (``_decode_attend``)."""
+    B, K, G, hd = q.shape
+    cl = ck.shape[1]
+    qd = q.new_zeros((B, K, G, K, hd))
+    qd.diagonal(0, 1, 3).copy_(q.permute(0, 2, 3, 1))
+    qd = qd.view(B, K * G, K * hd).transpose(1, 2)
+    keys = ck.view(B, cl, K * hd)
+    if ck.dtype == torch.float32:
+        return torch.bmm(keys, qd)
+    return torch.bmm(keys, qd, out_dtype=torch.float32)
+
+
+def _bmm_out_dtype_cpu(a, b, out_dtype):
+    """aten's ``bmm.dtype`` on the CPU, where torch has none (the card's
+    is cuBLAS's): the product of the operands cast to ``out_dtype``, one
+    batch entry at a time, so no cast of a whole cache is held.  Every
+    device then runs the same aten ops, and ``launch.step_cost`` counts
+    the card's decode step on the CPU and on meta alike."""
+    out = a.new_empty((a.shape[0], a.shape[1], b.shape[2]), dtype=out_dtype)
+    for i in range(a.shape[0]):
+        torch.mm(a[i].to(out_dtype), b[i].to(out_dtype), out=out[i])
+    return out
+
+
+_ATEN_CPU = torch.library.Library("aten", "IMPL")
+if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::bmm.dtype",
+                                                      "CPU"):
+    _ATEN_CPU.impl("bmm.dtype", _bmm_out_dtype_cpu, "CPU")
 
 
 def _live_slots(slot_ids, positions, slot, cl: int, is_swa: bool):

@@ -28,7 +28,9 @@ for bit, and reduced prefill and decode steps counted on the card
 captured steps (CUDA graphs) equal to the eager steps bit for bit for
 every served family, reduced, in bf16 and f32 (prefill logits and caches,
 8 decode steps), and K5/K6's launch counts after captured prefills equal
-to the warm-ups' launches plus the captured launches times the replays.
+to the warm-ups' launches plus the captured launches times the replays;
+decode attention at the two served shapes reading the bf16 cache in place
+(its scores, outputs and the memory one call takes).
 Skips without a GPU;
 run on the card with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``."""
@@ -1480,3 +1482,54 @@ def test_serve_spans_on_the_card(dev, arch):
         (step,) = _below(d, _trace.GRAPH_STEP)
         assert _below(step, "cudaGraphLaunch"), [c.name for c in
                                                  step.cpu_children]
+
+
+@pytest.mark.parametrize("B,K,G", [(32, 8, 4), (24, 32, 1)])
+def test_decode_attention_reads_the_bf16_cache_in_place(dev, B, K, G):
+    """Single-device decode attention at granite-3-2b's served shape (B
+    32, K 8, G 4) and zamba2-1.2b's tied block's (B 24, K 32, G 1), hd 64,
+    a 3,021-slot bf16 cache, eager: the scores (``bmm``'s ``out_dtype``
+    form on a view of the cache) within the f32 summation bound of the
+    float64 product of the same values, as the replaced f32 einsum's are;
+    the outputs within one bf16 ulp of the replaced formula's largest
+    magnitude (``tests/test_torch_decode_attention.py`` states both bars);
+    and one call allocates less than one layer's bf16 K cache, where the
+    replaced formula's f32 copy of it alone took twice that."""
+    import math
+
+    from repro_torch.models import attention as A
+    hd, cl = 64, 3021
+    g = torch.Generator(device=dev).manual_seed(B * K)
+    q = torch.randn(B, K, G, hd, generator=g, device=dev).bfloat16()
+    ck = torch.randn(B, cl, K, hd, generator=g, device=dev).bfloat16()
+    cv = torch.randn(B, cl, K, hd, generator=g, device=dev).bfloat16()
+    pos = torch.randint(0, cl, (B,), generator=g, device=dev)
+    pos[0], pos[1], pos[-1] = 0, 5, cl - 1
+    scores = A._decode_scores(q, ck).view(B, cl, K, G)
+    exact = torch.einsum("bkgh,btkh->btkg", q.double(), ck.double())
+    bound = (hd + 1) * 2.0 ** -24 * torch.einsum(
+        "bkgh,btkh->btkg", q.double().abs(), ck.double().abs())
+    assert ((scores.double() - exact).abs() <= bound).all()
+    ref = torch.einsum("bkgh,btkh->btkg", q.float(), ck.float())
+    assert ((ref.double() - exact).abs() <= bound).all()
+    del exact, bound, ref
+
+    scale = hd ** -0.5
+    valid = A._live_slots(torch.arange(cl, device=dev)[None, :], pos, pos,
+                          cl, False)
+    w = torch.softmax((torch.einsum("bkgh,btkh->bkgt", q.float(), ck.float())
+                       * scale).masked_fill(~valid[:, None, None],
+                                            A.NEG_INF), dim=-1)
+    want = torch.einsum("bkgt,btkh->bkgh", w.to(cv.dtype), cv).float()
+    del w
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = A._decode_attend(q, ck, cv, pos, pos, False)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(dev) - m0
+    assert grew < ck.numel() * ck.element_size(), grew
+    top = want.abs().max().item()
+    bar = 2.0 ** (math.floor(math.log2(top)) - 8)
+    gap = (got.float() - want).abs().max().item()
+    assert got.dtype == torch.bfloat16 and gap <= bar, (gap, bar)

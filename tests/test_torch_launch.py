@@ -407,6 +407,19 @@ def test_counter_byte_rules():
                           + 1)                    # the sum
 
 
+def test_counter_bills_bmm_with_out_dtype_as_bmm():
+    """``bmm``'s ``out_dtype`` form (decode's scores: bf16 operands, f32
+    result), on meta: the matmul's FLOPs and, as a materializing op, 2 x
+    its result, with the argument it reads billed once."""
+    a = torch.empty(3, 4, 5, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(3, 5, 6, dtype=torch.bfloat16, device="meta")
+    out, cost = count_step(
+        lambda: torch.bmm(a, b, out_dtype=torch.float32), b)
+    assert out.dtype == torch.float32
+    assert cost.flops == 2 * 3 * 4 * 6 * 5
+    assert cost.bytes == 3 * 5 * 6 * 2 + 2 * (3 * 4 * 6 * 4)
+
+
 # ---------------------------------------------------------------------------
 # dryrun.py, settings.py, sharding.Rules
 # ---------------------------------------------------------------------------
